@@ -1,0 +1,62 @@
+"""Flow warping by bilinear sampling (counterpart of ``fcvsr_tpu.ops.warp``).
+
+Reference semantics: ``F.grid_sample(mode='bilinear', padding_mode='zeros',
+align_corners=True)`` after the normalisation round-trip of the reference
+``flow_warp``, i.e. sampling at absolute pixel ``(x + dx, y + dy)`` with
+out-of-frame corner taps contributing zero.  Written as four gathers over a
+zero-ringed copy of the map, in the same order of operations as the JAX op.
+All tensors are channels-last (B, H, W, C).
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["flow_warp", "grid_sample_bilinear"]
+
+
+def _gather_hw(x: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor):
+    """x[b, iy[b, p], ix[b, p], :] -> (B, P, C); indices already in range."""
+    b, h, w, c = x.shape
+    idx = (iy * w + ix).unsqueeze(-1).expand(-1, -1, c)
+    return torch.gather(x.reshape(b, h * w, c), 1, idx)
+
+
+def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor,
+                         py: torch.Tensor) -> torch.Tensor:
+    """Sample ``x`` (B, H, W, C) at absolute pixel coordinates ``px``/``py``
+    (B, P), bilinear with zero padding.  Returns (B, P, C)."""
+    b, h, w, _ = x.shape
+    # a one-pixel zero ring: an out-of-frame corner clamps onto it and reads 0
+    src = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    hs, ws = h + 2, w + 2
+    px = px.clamp(-1.5, w + 0.5)
+    py = py.clamp(-1.5, h + 0.5)
+    x0 = torch.floor(px)
+    y0 = torch.floor(py)
+    fx = px - x0
+    fy = py - y0
+    x0i = x0.long() + 1
+    y0i = y0.long() + 1
+
+    def corner(yi, xi, wgt):
+        v = _gather_hw(src, yi.clamp(0, hs - 1), xi.clamp(0, ws - 1))
+        return v * wgt.unsqueeze(-1)
+
+    out = corner(y0i, x0i, (1 - fy) * (1 - fx))
+    out = out + corner(y0i, x0i + 1, (1 - fy) * fx)
+    out = out + corner(y0i + 1, x0i, fy * (1 - fx))
+    out = out + corner(y0i + 1, x0i + 1, fy * fx)
+    return out
+
+
+def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp ``x`` (B, H, W, C) by ``flow`` (B, H, W, 2), [..., 0] = dx,
+    [..., 1] = dy: out(y, x) = x sampled at (y + dy, x + dx)."""
+    b, h, w, c = x.shape
+    gy, gx = torch.meshgrid(
+        torch.arange(h, dtype=x.dtype, device=x.device),
+        torch.arange(w, dtype=x.dtype, device=x.device), indexing="ij")
+    px = (gx + flow[..., 0]).reshape(b, h * w)
+    py = (gy + flow[..., 1]).reshape(b, h * w)
+    return grid_sample_bilinear(x, px, py).reshape(b, h, w, c)
