@@ -1,14 +1,20 @@
-"""fcvsr_tpu_torch - FCVSR inference in PyTorch, with hand-written CUDA
-kernels for an NVIDIA Hopper GPU (H100).
+"""fcvsr_tpu_torch - FCVSR inference and training in PyTorch, with
+hand-written CUDA kernels for an NVIDIA Hopper GPU (H100).
 
-The port of ``fcvsr_tpu`` (JAX, the reference it is tested against):
+The port of ``fcvsr_tpu`` (JAX, the reference it is tested against; the
+port imports nothing of it):
 
   ops/     channels-last functional ops, and the wrappers of the CUDA
            kernels (``fused_iac``, ``fused_conv``), each beside its plain
-           PyTorch version
+           PyTorch version, with the autograd Functions that train through
+           them
   csrc/    the CUDA sources, built with nvcc for sm_90a at first use
   models/  FCVSRNet (full and -S) with reference state_dict keys
-  utils/   weight conversion from the JAX package's params
+  train/   losses, LR schedules, the train state and step, and the training
+           entry point (``python -m fcvsr_tpu_torch.train.cli``)
+  data/    clip folders, windows, crops and flips (numpy)
+  metrics/ PSNR / SSIM (numpy)
+  utils/   presets, checkpoints, weight conversion from the JAX params
   apis.py  sliding-window video inference
   cli.py   evaluation / FPS entry point (``python -m fcvsr_tpu_torch.cli``)
 

@@ -5,7 +5,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from fcvsr_tpu.data.pipelines import padded_window_indices
+from .data.pipelines import padded_window_indices
 
 __all__ = ["pad_sequence", "restoration_video_inference"]
 

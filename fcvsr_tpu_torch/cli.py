@@ -23,7 +23,10 @@ import os
 import numpy as np
 import torch
 
+from .data import ClipFolderDataset
+from .metrics import calculate_psnr, calculate_ssim
 from .models import FCVSRNet, init_weights
+from .utils.config import preset
 
 __all__ = ["main", "pad_to_multiple", "evaluate_sequence", "fps_benchmark",
            "build_model"]
@@ -74,8 +77,6 @@ def evaluate_sequence(model, ds, seq, scale=4, convert_to="Y",
     against the GT where present.  ``ms_per_frame`` is the median CUDA-event
     time of a forward after one warm-up forward (None off CUDA);
     ``forwards`` counts model calls, warm-up included."""
-    from fcvsr_tpu.metrics.psnr_ssim import calculate_psnr, calculate_ssim
-
     psnrs, ssims, times = [], [], []
     forwards = 0
     for i, window, gt in ds.iter_test_windows(seq):
@@ -147,8 +148,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
 
-    from fcvsr_tpu.utils.config import preset
-
     cfg = preset(args.preset)
     model = build_model(cfg, args.seed, args.device)
     dev_name = (torch.cuda.get_device_name(torch.device(args.device))
@@ -159,8 +158,6 @@ def main(argv=None):
         r["device"] = dev_name
         print(json.dumps(r), flush=True)
         return r
-
-    from fcvsr_tpu.data import ClipFolderDataset
 
     ds = ClipFolderDataset(lr_root=args.lr_root, gt_root=args.gt_root or None,
                            window=cfg.model.num_frames,

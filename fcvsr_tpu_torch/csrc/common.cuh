@@ -18,6 +18,27 @@ __device__ __forceinline__ float leaky(float v, float slope) {
   return v >= 0.f ? v : slope * v;
 }
 
+// A bilinear sample point of the port's flow warp (ops/warp.py): the
+// displaced coordinates clamped to [-1.5, W+0.5] x [-1.5, H+0.5], where every
+// corner lies outside the frame, their floor and fractions.  Corners outside
+// the frame read zero.
+struct Bilinear {
+  int ix, iy;    // top-left corner
+  float fx, fy;  // fractions towards the right and lower corners
+};
+
+__device__ __forceinline__ Bilinear bilinear_point(float x, float y, int H,
+                                                   int W) {
+  const float px = fminf(fmaxf(x, -1.5f), (float)W + 0.5f);
+  const float py = fminf(fmaxf(y, -1.5f), (float)H + 0.5f);
+  const float fx0 = floorf(px), fy0 = floorf(py);
+  return {(int)fx0, (int)fy0, px - fx0, py - fy0};
+}
+
+__device__ __forceinline__ bool in_frame(int y, int x, int H, int W) {
+  return y >= 0 && y < H && x >= 0 && x < W;
+}
+
 constexpr int kMaxDevices = 64;
 
 // Let `Kernel` launch with `bytes` of dynamic shared memory: anything above

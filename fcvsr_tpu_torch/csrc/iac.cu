@@ -65,16 +65,12 @@ iac_kernel(const float* __restrict__ feat, const float* __restrict__ flow,
     float val = 0.f;
     if (ch0 + ch < C) {
       const float* fl = flow + (pix0 + (size_t)yy * W + xx) * 2;
-      // far-out coordinates clamp to where every corner lies outside
-      const float px = fminf(fmaxf((float)xx + fl[0], -1.5f), (float)W + 0.5f);
-      const float py = fminf(fmaxf((float)yy + fl[1], -1.5f), (float)H + 0.5f);
-      const float fx0 = floorf(px), fy0 = floorf(py);
-      const float fx = px - fx0, fy = py - fy0;
-      const int ix = (int)fx0, iy = (int)fy0;
+      const Bilinear q = bilinear_point((float)xx + fl[0], (float)yy + fl[1], H, W);
+      const float fx = q.fx, fy = q.fy;
+      const int ix = q.ix, iy = q.iy;
       const float* src = featb + ch0 + ch;
       auto tap = [&](int yi, int xi) -> float {
-        return (yi >= 0 && yi < H && xi >= 0 && xi < W)
-                   ? src[((size_t)yi * W + xi) * C] : 0.f;
+        return in_frame(yi, xi, H, W) ? src[((size_t)yi * W + xi) * C] : 0.f;
       };
       val = tap(iy, ix) * ((1.f - fy) * (1.f - fx));
       val += tap(iy, ix + 1) * ((1.f - fy) * fx);

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops import _native
 from ..ops.corr import corr_lookup
 from ..ops.freq import irfft_features, rfft_features, split_freq
 from ..ops.fused_conv import conv3x3
@@ -24,7 +25,7 @@ from ..ops.resize import resize_bilinear
 from ..ops.sac import iac
 from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, PReLU, RCB,
                      SCNet, pixel_shuffle)
-from .scnet_rows import hwio
+from .scnet_rows import conv_bias, hwio
 
 __all__ = ["MGAA", "MFFR", "FCVSRNet", "init_weights"]
 
@@ -34,8 +35,8 @@ class MGAA(nn.Module):
     the centre group aligned with its two neighbours.
 
     ``k_fused``: the IAC kernel computes the per-pixel kernels from F.0's
-    output and F.1's selected weights, so F.1's output is never made
-    (inference only)."""
+    output and F.1's selected weights, so F.1's output is never made.  It
+    is inference only: a forward that autograd records raises."""
 
     def __init__(self, dim: int, ac_ks: int = 3, ac_num: int = 6,
                  corr_radius: int = 4, k_fused: bool = False):
@@ -71,9 +72,14 @@ class MGAA(nn.Module):
 
     def sel_weights(self):
         """F.1's weight, its (C0, n*3C) transpose for ``k_fused``, and its
-        bias at the ``sel`` rows; made once and again only when F.1 changes
-        (detached: inference only)."""
+        bias at the ``sel`` rows.  Under autograd they are selected from the
+        live parameters on every call, so F.1 gets its gradient; otherwise
+        they are made once, detached, and again only when F.1 changes."""
         w, b = self.F[1].weight, self.F[1].bias
+        if _native.records(w, b):
+            wsel = w.index_select(0, self.sel)
+            return wsel, wsel[:, :, 0, 0].t().contiguous(), \
+                b.index_select(0, self.sel)
         key = (w.data_ptr(), w._version, b.data_ptr(), b._version, w.device)
         cached = self.__dict__.get("_sel_weights")
         if cached is None or cached[0] != key:
@@ -114,6 +120,11 @@ class MGAA(nn.Module):
 
         f0 = self.F[0](self.conv_KP(x2))
         wsel, wsel_t, bsel = self.sel_weights()
+        if self.k_fused and (f0.requires_grad or wsel.requires_grad):
+            raise RuntimeError(
+                "MGAA(k_fused=True) is inference only: the fused kernel "
+                "prediction has no backward.  Train with k_fused=False, or "
+                "run the forward under torch.no_grad()")
         if self.k_fused:
             k_parts = (f0.contiguous(), wsel_t, bsel)
             pred_k = None
@@ -215,7 +226,7 @@ class FCVSRNet(nn.Module):
         up = lrelu(pixel_shuffle(self.upconv1(fuse)))
         up = lrelu(pixel_shuffle(self.upconv2(up)))
         last = self.conv_last0
-        out = conv3x3(up.contiguous(), hwio(last), last.bias.detach())
+        out = conv3x3(up.contiguous(), hwio(last), conv_bias(last))
         out = out + resize_bilinear(center, 4 * h, 4 * w)
         return out.permute(0, 3, 1, 2)
 

@@ -8,23 +8,30 @@ group ends with one conv launch carrying the group residual.  Per SCGroup
 and frame that is 18 pair and 3 conv launches.  The 1x1 convs, the context
 block and the bilinear exchange stay PyTorch ops, as they were XLA ops
 outside the Pallas kernels.  There is no rows layout on the GPU: tensors
-stay NHWC and the kernels zero-pad themselves.
+stay NHWC and the kernels zero-pad themselves.  Under autograd the same
+calls go through the kernels' autograd Functions (``ops.fused_conv``), with
+the weights made from the live parameters.
 """
 
 from __future__ import annotations
 
 import torch.nn.functional as F
 
+from ..ops import _native
 from ..ops.fused_conv import conv3x3, conv3x3_pair, prep_weight
 from ..ops.resize import downsample2x_bilinear, upsample2x_bilinear
 
-__all__ = ["scnet_apply", "hwio"]
+__all__ = ["scnet_apply", "hwio", "conv_bias"]
 
 
 def hwio(conv):
-    """The conv's weight in the kernels' HWIO layout, prepared once and
-    re-made only when the weight changes."""
+    """The conv's weight in the kernels' HWIO layout.  Under autograd it is
+    made from the live weight on every call, so the weight gets its
+    gradient; otherwise it is prepared once and re-made only when the
+    weight changes."""
     w = conv.weight
+    if _native.records(w):
+        return prep_weight(w)
     key = (w.data_ptr(), w._version, w.device)
     cached = conv.__dict__.get("_hwio")
     if cached is None or cached[0] != key:
@@ -33,8 +40,12 @@ def hwio(conv):
     return cached[1]
 
 
-def _bias(conv):
-    return None if conv.bias is None else conv.bias.detach()
+def conv_bias(conv):
+    """The conv's bias: live under autograd, detached otherwise."""
+    b = conv.bias
+    if b is None or _native.records(b):
+        return b
+    return b.detach()
 
 
 def cross_scale(down, up, xs, res):
@@ -51,8 +62,8 @@ def _block_rcb(blk, xs):
     r0, r1 = rcb.body[0], rcb.body[2]
     res = []
     for x in xs:
-        y = conv3x3_pair(x, hwio(body0), _bias(body0), hwio(body1),
-                         _bias(body1), ns1=0.1)
+        y = conv3x3_pair(x, hwio(body0), conv_bias(body0), hwio(body1),
+                         conv_bias(body1), ns1=0.1)
         r = conv3x3_pair(y, hwio(r0), None, hwio(r1), None, ns1=0.2)
         res.append(y + F.leaky_relu(rcb.gcnet(r), 0.2))
     return cross_scale(blk.down[0], blk.up[0], xs, res)
@@ -66,6 +77,6 @@ def scnet_apply(scnet, xs):
         gin = res
         for blk in group.body:
             res = [r.contiguous() for r in _block_rcb(blk, res)]
-        w, b = hwio(group.conv), _bias(group.conv)
+        w, b = hwio(group.conv), conv_bias(group.conv)
         res = [conv3x3(r, w, b, res=x) for x, r in zip(gin, res)]
     return [x + r for x, r in zip(xs, res)]

@@ -17,9 +17,11 @@ __all__ = [
 ]
 
 # kernel name -> the wrappers that launch it (the IAC kernel has a
-# materialised-kernel and a fused-prediction variant)
+# materialised-kernel and a fused-prediction variant; its adjoint is two
+# launches a call)
 _WRAPPERS = {
     "iac": (fused_iac.warp_sac_fused, fused_iac.warp_sac_fused_kf),
+    "iac_bwd": (fused_iac.warp_sac_bwd,),
     "conv3x3_pair": (fused_conv.conv3x3_pair,),
     "conv3x3": (fused_conv.conv3x3,),
 }

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-``nvcc`` compiles every source in ``csrc/`` into one shared library under
-``fcvsr_tpu_torch/_build/`` at first use; the file name carries a hash of the
+``nvcc`` compiles every source in ``csrc/`` at first use, one process a
+source, all started together, and links the objects into one shared library
+under ``fcvsr_tpu_torch/_build/``; the file name carries a hash of the
 sources and flags, so an edit rebuilds and an unchanged tree loads the
 library it already built.  The library has a plain C interface, bound here
 with ``ctypes``: each entry point takes device pointers, sizes and a CUDA
@@ -24,14 +25,14 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "check", "ptr", "require", "on_cpu", "stream_ptr",
-           "BUILD_DIR"]
+__all__ = ["lib", "check", "ptr", "require", "records", "on_cpu",
+           "stream_ptr", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -39,6 +40,10 @@ _SIGNATURES = {
     # B, H, W, C, act, stream
     "fcvsr_iac_step": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
                        _I, _I, _I, _I, _I, _P],
+    # src, flow, k, k_ld, k_off, gz, dk, dwarped, B, H, W, C, stream
+    "fcvsr_iac_bwd_sac": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, flow, dwarped, dsrc, dflow, B, H, W, C, stream
+    "fcvsr_iac_bwd_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, stream
     "fcvsr_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
     # x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1, stream
@@ -69,6 +74,12 @@ def _sources():
     return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
 
 
+def _raise_if_failed(cmd, rc: int, out: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"fcvsr_tpu_torch: nvcc failed ({rc}):\n"
+                           f"{' '.join(cmd)}\n{out}")
+
+
 def _build() -> Path:
     global build_seconds
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -80,18 +91,24 @@ def _build() -> Path:
         return target
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp,
-           *(str(s) for s in sorted(CSRC.glob("*.cu")))]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"fcvsr_tpu_torch: nvcc failed ({proc.returncode}):\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, target)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, jobs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            objs.append(os.path.join(tmp, src.stem + ".o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]]
+            jobs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        # wait for every compile before raising on any
+        logs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in jobs]
+        for cmd, out, rc in logs:
+            _raise_if_failed(cmd, rc, out)
+        lib_tmp = os.path.join(tmp, target.name)
+        link = [nvcc, "-shared", "-o", lib_tmp, *objs]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _raise_if_failed(link, proc.returncode, proc.stdout + proc.stderr)
+        os.replace(lib_tmp, target)
     build_seconds = time.perf_counter() - t0
     return target
 
@@ -135,7 +152,7 @@ def ptr(t) -> int | None:
 
 def require(t, name: str, device: torch.device, shape=None) -> None:
     """Raise unless ``t`` is a contiguous float32 tensor on ``device`` with
-    ``shape``, and carries no autograd history the kernel would drop."""
+    ``shape``, and carries no autograd history the launch would drop."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != torch.float32:
@@ -146,8 +163,18 @@ def require(t, name: str, device: torch.device, shape=None) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, "
                          f"expected {tuple(shape)}")
     if t.requires_grad and torch.is_grad_enabled():
-        raise RuntimeError(f"{name} requires grad: the CUDA kernels are "
-                           "inference-only (run under torch.no_grad())")
+        raise RuntimeError(
+            f"{name} requires grad: a kernel launch records no autograd "
+            "history; train through fused_iac.iac_fused and "
+            "fused_conv.conv3x3[_pair], which route to their autograd "
+            "Functions, or run under torch.no_grad()")
+
+
+def records(*tensors) -> bool:
+    """True when autograd records an op on ``tensors`` (None entries
+    skipped): grad mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
 
 
 def on_cpu(t) -> bool:

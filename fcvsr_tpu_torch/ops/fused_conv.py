@@ -8,8 +8,16 @@ zeros themselves.  Weights are HWIO (3, 3, Cin, Cout), the layout the kernels
 read; :func:`prep_weight` makes it from a torch OIHW weight once.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
-it runs the plain version.  ``conv3x3.launches`` and
-``conv3x3_pair.launches`` count kernel launches.
+it runs the plain version, under ordinary autograd.  ``conv3x3.launches``
+and ``conv3x3_pair.launches`` count kernel launches.
+
+Training: on a CUDA tensor that autograd records, a wrapper runs its
+``autograd.Function`` (:class:`Conv3x3Fn`, :class:`Conv3x3PairFn`): the
+forward is the kernel, the backward the exact conv VJP
+(``aten.convolution_backward``, cuDNN).  No TPU kernel exists for a conv
+backward: the JAX package trains with XLA's.  The pair's backward rebuilds
+its intermediate ``lrelu(conv1(x) + b1)`` with one conv3x3 launch, so its
+forward keeps only x (a pair costs one pair and one conv launch a step).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ import torch.nn.functional as F
 from . import _native
 
 __all__ = ["conv3x3", "conv3x3_pair", "conv3x3_plain", "conv3x3_pair_plain",
-           "prep_weight"]
+           "prep_weight", "Conv3x3Fn", "Conv3x3PairFn"]
 
 
 def prep_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
@@ -49,6 +57,67 @@ def conv3x3_pair_plain(x, w1, b1, w2, b2, ns1: float = 0.2):
     return _conv_plain(F.leaky_relu(_conv_plain(x, w1, b1), ns1), w2, b2)
 
 
+def _conv_vjp(g, x, w_hwio, has_bias: bool, need_x: bool = True):
+    """(dx, dw, db) of conv3x3_same(x, w) + b at the cotangent g, NHWC /
+    HWIO; dx is None unless ``need_x``, db None without a bias."""
+    gx, gw, gb = torch.ops.aten.convolution_backward(
+        g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+        w_hwio.permute(3, 2, 0, 1), [w_hwio.shape[3]] if has_bias else None,
+        [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [need_x, True, has_bias])
+    return (None if gx is None else gx.permute(0, 2, 3, 1),
+            gw.permute(2, 3, 1, 0), gb)
+
+
+def _lrelu_vjp(g, y, neg_slope: float):
+    """The leaky relu's adjoint, masked by its output y (same sign as its
+    input for a positive slope)."""
+    return torch.where(y > 0, g, neg_slope * g)
+
+
+class Conv3x3Fn(torch.autograd.Function):
+    """:func:`conv3x3` under autograd: the kernel forward, the exact conv
+    VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, w_hwio, bias, res, act: bool, neg_slope: float):
+        out = conv3x3(x, w_hwio, bias, res, act, neg_slope)
+        ctx.save_for_backward(x, w_hwio, out if act else None)
+        ctx.has_bias, ctx.has_res = bias is not None, res is not None
+        ctx.act, ctx.neg_slope = act, neg_slope
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_hwio, out = ctx.saved_tensors
+        if ctx.act:
+            g = _lrelu_vjp(g, out, ctx.neg_slope)
+        gx, gw, gb = _conv_vjp(g, x, w_hwio, ctx.has_bias,
+                               ctx.needs_input_grad[0])
+        return gx, gw, gb, g if ctx.has_res else None, None, None
+
+
+class Conv3x3PairFn(torch.autograd.Function):
+    """:func:`conv3x3_pair` under autograd: the pair kernel forward; the
+    backward rebuilds the intermediate with the conv3x3 kernel, then takes
+    both convs' exact VJPs."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, ns1: float):
+        out = conv3x3_pair(x, w1, b1, w2, b2, ns1)
+        ctx.save_for_backward(x, w1, b1, w2)
+        ctx.has_b2, ctx.ns1 = b2 is not None, ns1
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2 = ctx.saved_tensors
+        mid = conv3x3(x, w1, b1, act=True, neg_slope=ctx.ns1)
+        gmid, gw2, gb2 = _conv_vjp(g, mid, w2, ctx.has_b2)
+        gx, gw1, gb1 = _conv_vjp(_lrelu_vjp(gmid, mid, ctx.ns1), x, w1,
+                                 b1 is not None, ctx.needs_input_grad[0])
+        return gx, gw1, gb1, gw2, gb2, None
+
+
 def _check_weight(w, b, cin, name, dev):
     _native.require(w, name, dev)
     if w.shape[:3] != (3, 3, cin):
@@ -63,9 +132,12 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
             neg_slope: float = 0.2):
     """act(conv3x3_same(x) + bias + res).  x: (B, H, W, Cin); w_hwio:
     (3, 3, Cin, Cout); bias: (Cout,) or None; res: (B, H, W, Cout) or None,
-    added before the optional leaky relu."""
+    added before the optional leaky relu.  On a CUDA tensor that autograd
+    records it runs :class:`Conv3x3Fn`."""
     if _native.on_cpu(x):
         return conv3x3_plain(x, w_hwio, bias, res, act, neg_slope)
+    if _native.records(x, w_hwio, bias, res):
+        return Conv3x3Fn.apply(x, w_hwio, bias, res, act, neg_slope)
     b, h, w, cin = x.shape
     dev = x.device
     _native.require(x, "x", dev)
@@ -89,9 +161,12 @@ conv3x3.launches = 0
 def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     """conv2(leaky_relu_ns1(conv1(x) + b1)) + b2 in one kernel, the
     intermediate on chip.  x: (B, H, W, Cin); w1: (3, 3, Cin, C1); w2:
-    (3, 3, C1, Cout); b1/b2: (C1,)/(Cout,) or None."""
+    (3, 3, C1, Cout); b1/b2: (C1,)/(Cout,) or None.  On a CUDA tensor that
+    autograd records it runs :class:`Conv3x3PairFn`."""
     if _native.on_cpu(x):
         return conv3x3_pair_plain(x, w1, b1, w2, b2, ns1)
+    if _native.records(x, w1, b1, w2, b2):
+        return Conv3x3PairFn.apply(x, w1, b1, w2, b2, ns1)
     b, h, w, cin = x.shape
     dev = x.device
     _native.require(x, "x", dev)

@@ -1,16 +1,27 @@
-"""Wrappers of the IAC kernel (``csrc/iac.cu``) and its plain version.
+"""Wrappers of the IAC kernels (``csrc/iac.cu``, ``csrc/iac_bwd.cu``) and
+their plain versions.
 
 Counterpart of ``fcvsr_tpu.ops.pallas_iac``'s ``warp_sac_fused``,
-``iac_fused`` and ``iac_fused_kf``.  One launch is one exact IAC iteration:
+``iac_fused``, ``iac_fused_kf`` and ``iac_fused_vjp`` (here
+:class:`IACChainFn`).  One forward launch is one exact IAC iteration:
 
     out = leaky_relu_0.1(sac_k1,k1(flow_warp(feat, flow)) + feat_in)
 
 with the activation skipped when ``act`` is False.  Unlike the TPU kernel
 the warp is unbounded (no radius clamp) and nothing constrains H, W or C.
+:func:`warp_sac_bwd` is its exact adjoint without the residual and the
+activation, two launches (the SAC adjoint, then the warp adjoint).
 
-On a CUDA tensor a wrapper launches the kernel (or raises); on a CPU tensor
-it runs the plain version.  ``warp_sac_fused.launches`` and
-``warp_sac_fused_kf.launches`` count kernel launches.
+Training: on a CUDA tensor that autograd records, :func:`iac_fused` runs
+:class:`IACChainFn`, whose forward launches the iterations and keeps each
+one's input, and whose backward walks them in reverse: the activation mask
+from the kernel's own outputs, the residual's adjoint, then the adjoint
+kernels.  (The JAX package re-runs the forward in its VJP instead.)
+
+On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
+it runs the plain version, under ordinary autograd.  ``warp_sac_fused``,
+``warp_sac_fused_kf`` and ``warp_sac_bwd`` count their launches in
+``.launches``.
 """
 
 from __future__ import annotations
@@ -22,8 +33,9 @@ from . import _native
 from .sac import sac
 from .warp import flow_warp
 
-__all__ = ["warp_sac_fused", "warp_sac_fused_kf", "iac_fused", "iac_fused_kf",
-           "warp_sac_plain", "predict_kernels"]
+__all__ = ["warp_sac_fused", "warp_sac_fused_kf", "warp_sac_bwd", "iac_fused",
+           "iac_fused_kf", "IACChainFn", "warp_sac_plain",
+           "warp_sac_vjp_plain", "predict_kernels"]
 
 
 def predict_kernels(f0, wsel, bsel, it: int, channels: int):
@@ -50,6 +62,19 @@ def _check_common(feat, flow, feat_in):
     return b, h, w, c
 
 
+def _check_k(k, feat, it: int) -> int:
+    """Validate the materialised kernels for iteration ``it``; returns
+    their row length."""
+    c = feat.shape[-1]
+    _native.require(k, "k", feat.device)
+    k_ld = k.shape[-1]
+    if k.shape[:3] != feat.shape[:3] or k_ld % (3 * c) or \
+            not 0 <= it < k_ld // (3 * c):
+        raise ValueError(f"k {tuple(k.shape)} holds no iteration {it} of "
+                         f"3C={3 * c} kernels for feat {tuple(feat.shape)}")
+    return k_ld
+
+
 def warp_sac_fused(feat, flow, k, feat_in, act: bool = True, it: int = 0):
     """One IAC iteration.  feat/feat_in: (B, H, W, C); flow: (B, H, W, 2),
     [..., 0] = dx; k: (B, H, W, n*3C) tap-major kernels (channel
@@ -57,12 +82,7 @@ def warp_sac_fused(feat, flow, k, feat_in, act: bool = True, it: int = 0):
     if _native.on_cpu(feat):
         return warp_sac_plain(feat, flow, k, feat_in, act, it)
     b, h, w, c = _check_common(feat, flow, feat_in)
-    _native.require(k, "k", feat.device)
-    k_ld = k.shape[-1]
-    if k.shape[:3] != feat.shape[:3] or k_ld % (3 * c) or \
-            not 0 <= it < k_ld // (3 * c):
-        raise ValueError(f"k {tuple(k.shape)} holds no iteration {it} of "
-                         f"3C={3 * c} kernels for feat {tuple(feat.shape)}")
+    k_ld = _check_k(k, feat, it)
     out = torch.empty_like(feat)
     lib = _native.lib()
     rc = lib.fcvsr_iac_step(
@@ -111,35 +131,138 @@ def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
 warp_sac_fused_kf.launches = 0
 
 
-def iac_fused(feat_in, pred_k_tap_major, offsets, ac_num: int, channels: int,
-              act_last: bool = True):
-    """IAC chain, one launch per iteration.  pred_k_tap_major:
-    (B, H, W, ac_num*3C); offsets: (AC, B, H, W, 2)."""
+def warp_sac_vjp_plain(src, flow, k, gz, it: int = 0):
+    """The plain adjoint: autograd through ``sac(flow_warp(src, flow))``
+    with iteration ``it``'s kernels, no residual and no activation, at the
+    cotangent ``gz``.  Returns (dsrc, dflow, dk), dk shaped like k and zero
+    outside the iteration's 3C block."""
+    c = src.shape[-1]
+    with torch.enable_grad():
+        src, flow, k = (t.detach().requires_grad_() for t in (src, flow, k))
+        k1 = k[..., it * 3 * c:(it + 1) * 3 * c]
+        z = sac(flow_warp(src, flow), k1, k1, 3, tap_major=True)
+        return torch.autograd.grad(z, (src, flow, k), gz)
+
+
+def warp_sac_bwd(src, flow, k, gz, it: int = 0, dk=None):
+    """Adjoint of one IAC iteration without its residual and activation:
+    (dsrc, dflow, dk) at the cotangent ``gz`` (B, H, W, C).  ``dk`` is a
+    buffer shaped like k whose iteration-``it`` block is written (a zeroed
+    one is made when None); the other blocks are left as they are."""
+    c = src.shape[-1]
+    cols = slice(it * 3 * c, (it + 1) * 3 * c)
+    if _native.on_cpu(src):
+        dsrc, dflow, dk_it = warp_sac_vjp_plain(src, flow, k, gz, it)
+        if dk is None:
+            return dsrc, dflow, dk_it
+        dk[..., cols] = dk_it[..., cols]
+        return dsrc, dflow, dk
+    b, h, w, c = _check_common(src, flow, gz)
+    dev = src.device
+    k_ld = _check_k(k, src, it)
+    if dk is None:
+        dk = torch.zeros_like(k)
+    _native.require(dk, "dk", dev, k.shape)
+    dwarped = torch.empty_like(src)
+    dsrc = torch.zeros_like(src)
+    dflow = torch.empty_like(flow)
+    lib = _native.lib()
+    stream = _native.stream_ptr(dev)
+    rc = lib.fcvsr_iac_bwd_sac(
+        src.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
+        gz.data_ptr(), dk.data_ptr(), dwarped.data_ptr(), b, h, w, c, stream)
+    _native.check(rc, "iac_bwd (SAC adjoint)")
+    warp_sac_bwd.launches += 1
+    rc = lib.fcvsr_iac_bwd_warp(
+        src.data_ptr(), flow.data_ptr(), dwarped.data_ptr(), dsrc.data_ptr(),
+        dflow.data_ptr(), b, h, w, c, stream)
+    _native.check(rc, "iac_bwd (warp adjoint)")
+    warp_sac_bwd.launches += 1
+    return dsrc, dflow, dk
+
+
+warp_sac_bwd.launches = 0
+
+
+def _act(i: int, ac_num: int, act_last: bool) -> bool:
+    return i < ac_num - 1 or act_last
+
+
+def _chain_forward(feat_in, k, offsets, ac_num: int, act_last: bool):
+    """Every iteration's input and the last output: ac_num + 1 maps."""
+    cur = [feat_in]
+    for i in range(ac_num):
+        cur.append(warp_sac_fused(cur[i], offsets[i], k, feat_in,
+                                  act=_act(i, ac_num, act_last), it=i))
+    return cur
+
+
+def _chain_backward(cur, k, offsets, g, ac_num: int, act_last: bool):
+    """Walk the iterations in reverse from the cotangent ``g`` of the last
+    output; ``cur`` as :func:`_chain_forward` returns it.  The activation
+    mask comes from each iteration's own output.  Returns (dfeat_in, dk,
+    doffsets)."""
+    c = cur[0].shape[-1]
+    dk = torch.empty_like(k) if k.shape[-1] == ac_num * 3 * c \
+        else torch.zeros_like(k)
+    dfin = torch.zeros_like(cur[0])
+    dflows = [None] * ac_num
+    for i in reversed(range(ac_num)):
+        gz = torch.where(cur[i + 1] > 0, g, 0.1 * g) \
+            if _act(i, ac_num, act_last) else g.contiguous()
+        dfin += gz  # the residual: feat_in is added in every iteration
+        g, dflows[i], dk = warp_sac_bwd(cur[i], offsets[i], k, gz, i, dk)
+    return dfin + g, dk, torch.stack(dflows)  # iteration 0 warps feat_in
+
+
+class IACChainFn(torch.autograd.Function):
+    """The IAC chain under autograd: forward through the IAC kernel, saving
+    each iteration's input; backward by :func:`_chain_backward`, through
+    the adjoint kernels on CUDA tensors and the plain adjoint on CPU ones
+    (the counterpart of the JAX package's ``iac_fused_vjp``)."""
+
+    @staticmethod
+    def forward(ctx, feat_in, k, offsets, ac_num: int, act_last: bool):
+        cur = _chain_forward(feat_in, k, offsets, ac_num, act_last)
+        ctx.save_for_backward(k, offsets, *cur)
+        ctx.ac_num, ctx.act_last = ac_num, act_last
+        return cur[-1]
+
+    @staticmethod
+    def backward(ctx, g):
+        k, offsets, *cur = ctx.saved_tensors
+        dfin, dk, doff = _chain_backward(cur, k, offsets, g.contiguous(),
+                                         ctx.ac_num, ctx.act_last)
+        return dfin, dk, doff, None, None
+
+
+def _chain_inputs(feat_in, pred_k, offsets, channels):
     if feat_in.shape[-1] != channels:
         raise ValueError(f"feat_in has {feat_in.shape[-1]} channels, "
                          f"expected {channels}")
-    feat_in = feat_in.contiguous()
-    k = pred_k_tap_major.contiguous()
-    offsets = offsets.contiguous()
-    cur = feat_in
-    for i in range(ac_num):
-        cur = warp_sac_fused(cur, offsets[i], k, feat_in,
-                             act=i < ac_num - 1 or act_last, it=i)
-    return cur
+    return feat_in.contiguous(), pred_k.contiguous(), offsets.contiguous()
+
+
+def iac_fused(feat_in, pred_k_tap_major, offsets, ac_num: int, channels: int,
+              act_last: bool = True):
+    """IAC chain, one launch per iteration.  pred_k_tap_major:
+    (B, H, W, ac_num*3C); offsets: (AC, B, H, W, 2).  On a CUDA tensor
+    that autograd records it runs :class:`IACChainFn`."""
+    feat_in, k, offsets = _chain_inputs(feat_in, pred_k_tap_major, offsets,
+                                        channels)
+    if not _native.on_cpu(feat_in) and _native.records(feat_in, k, offsets):
+        return IACChainFn.apply(feat_in, k, offsets, ac_num, act_last)
+    return _chain_forward(feat_in, k, offsets, ac_num, act_last)[-1]
 
 
 def iac_fused_kf(feat_in, f0, wsel, bsel, offsets, ac_num: int,
                  channels: int, act_last: bool = True):
     """IAC chain with fused kernel prediction.  f0: (B, H, W, C0); wsel:
     (C0, ac_num*3C) in tap-major column order; bsel: (ac_num*3C,)."""
-    if feat_in.shape[-1] != channels:
-        raise ValueError(f"feat_in has {feat_in.shape[-1]} channels, "
-                         f"expected {channels}")
-    feat_in = feat_in.contiguous()
-    f0, wsel, bsel = f0.contiguous(), wsel.contiguous(), bsel.contiguous()
-    offsets = offsets.contiguous()
+    feat_in, f0, offsets = _chain_inputs(feat_in, f0, offsets, channels)
+    wsel, bsel = wsel.contiguous(), bsel.contiguous()
     cur = feat_in
     for i in range(ac_num):
         cur = warp_sac_fused_kf(cur, offsets[i], f0, wsel, bsel, feat_in,
-                                act=i < ac_num - 1 or act_last, it=i)
+                                act=_act(i, ac_num, act_last), it=i)
     return cur

@@ -1,4 +1,5 @@
-"""Where the serving forward's time goes, on one GPU.
+"""Where the serving forward's and the training step's time goes, on one
+GPU.
 
     python -m fcvsr_tpu_torch.profiling [--preset fcvsr_cvcpLD_QP22]
         [--reps 10] [--out chiprun_out/profile.json]
@@ -14,8 +15,12 @@ At the FPS shape (1 x 7 x C x 272 x 480), seeded random weights, TF32 off:
      is in the wall time, so the idle share is an upper bound;
   3. serving: materialised kernels against fused kernel prediction
      (``k_fused``) on the same weights, the forwards interleaved, median ms
-     of each.
-One JSON line per phase; ``--out`` also gets the whole kernel table.
+     of each;
+then at the preset's training batch and LR patch (random data):
+  4. train: CUDA-event ms of the forward with the loss, the backward and
+     the Adam update, median over ``--reps`` steps after a warm-up step;
+  5. train device: ``torch.profiler`` over 2 steps, as in 2.
+One JSON line per phase; ``--out`` also gets the whole kernel tables.
 """
 
 from __future__ import annotations
@@ -30,8 +35,13 @@ import numpy as np
 import torch
 
 from .cli import build_model
+from .train.losses import LOSSES
+from .train.lr_schedule import build_schedule
+from .train.trainer import TrainState
+from .utils.config import preset
 
-__all__ = ["stage_times", "device_profile", "serving_compare", "main"]
+__all__ = ["stage_times", "device_profile", "serving_compare",
+           "train_step_times", "train_profile", "main"]
 
 # FCVSRNet children timed as stages; the tail convs are summed as one
 STAGES = {"feat_extract": "feat_extract", "MGAA": "MGAA",
@@ -107,11 +117,17 @@ def device_profile(model, x, n: int = 3) -> dict:
     """``torch.profiler`` over ``n`` forwards: per-forward device time and
     launches by kernel name, busy and wall ms per forward, idle share.
     Device fields are None when the profiler saw no device activity."""
+    return _profile(lambda: model(x), x.device, n)
+
+
+def _profile(run, dev, n: int) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``run`` after one unprofiled
+    call; per call: device ms and launches by kernel name, busy and wall
+    ms, idle share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    dev = x.device
-    model(x)
+    run()
     _sync(dev)
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
@@ -119,7 +135,7 @@ def device_profile(model, x, n: int = 3) -> dict:
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            model(x)
+            run()
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3 / n
     spans, by_name = [], {}
@@ -174,6 +190,46 @@ def serving_compare(model, x, reps: int = 10, warmup: int = 2) -> dict:
                              ("k_fused", times[True]))}
 
 
+def _train_step(state, loss_fn, lrs, gt, marks=None):
+    """One training step; with ``marks`` a list, appends the three phase
+    boundaries' marks after the first."""
+    dev = lrs.device
+    state.optimizer.zero_grad(set_to_none=True)
+    loss = loss_fn(state.model(lrs), gt)
+    if marks is not None:
+        marks.append(_mark(dev))
+    loss.backward()
+    if marks is not None:
+        marks.append(_mark(dev))
+    state.apply_gradients()
+    if marks is not None:
+        marks.append(_mark(dev))
+
+
+def train_step_times(state, loss_fn, lrs, gt, reps: int = 5,
+                     warmup: int = 1) -> dict:
+    """Median ms of the forward with the loss, the backward, the update and
+    the whole step, over ``reps`` steps after ``warmup``."""
+    dev = lrs.device
+    for _ in range(warmup):
+        _train_step(state, loss_fn, lrs, gt)
+    runs = []
+    for _ in range(reps):
+        marks = [_mark(dev)]
+        _train_step(state, loss_fn, lrs, gt, marks)
+        _sync(dev)
+        t = [_ms(a, b) for a, b in zip(marks, marks[1:])]
+        runs.append({"forward_loss": t[0], "backward": t[1], "update": t[2],
+                     "step": sum(t)})
+    return {k: float(np.median([r[k] for r in runs])) for k in runs[0]}
+
+
+def train_profile(state, loss_fn, lrs, gt, n: int = 2) -> dict:
+    """``torch.profiler`` over ``n`` training steps (see :func:`_profile`)."""
+    return _profile(lambda: _train_step(state, loss_fn, lrs, gt), lrs.device,
+                    n)
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--preset", type=str, default="fcvsr_cvcpLD_QP22")
@@ -184,8 +240,6 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--out", type=str, default="")
     args = parser.parse_args(argv)
-
-    from fcvsr_tpu.utils.config import preset
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -214,6 +268,25 @@ def main(argv=None):
     report["serving"] = serving_compare(model, x, args.reps)
     print("[serving] " + json.dumps({"shape": shape, "card": card,
                                       **report["serving"]}), flush=True)
+
+    b, p, c = cfg.data.batch_size, cfg.data.lr_patch, cfg.model.in_channels
+    rng = np.random.default_rng(args.seed)
+    lrs = torch.from_numpy(rng.uniform(0, 1, (b, 7, c, p, p))
+                           .astype(np.float32)).to(dev)
+    gt = torch.from_numpy(rng.uniform(0, 1, (b, c, 4 * p, 4 * p))
+                          .astype(np.float32)).to(dev)
+    state = TrainState(model, build_schedule(cfg.train), cfg.train.betas)
+    loss_fn = LOSSES[cfg.train.loss]
+    train_shape = list(lrs.shape)
+    report["train"] = train_step_times(state, loss_fn, lrs, gt, args.reps)
+    print("[train] " + json.dumps({"shape": train_shape, "card": card,
+                                    **report["train"]}), flush=True)
+    prof = train_profile(state, loss_fn, lrs, gt)
+    report["train_device"] = prof
+    print("[train_device] " + json.dumps(
+        {**{k: v for k, v in prof.items() if k != "kernels"},
+         "top_kernels": prof["kernels"][:16], "shape": train_shape,
+         "card": card}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

@@ -74,18 +74,21 @@ def test_state_dict_from_jax_raises_on_unmapped_param():
 
 
 def test_mgaa_sel_weights_follow_f1():
-    """F.1's selected rows stay out of the state_dict and are made again when
-    F.1's weights change, as a load does."""
+    """F.1's selected rows stay out of the state_dict; without autograd
+    they are cached and made again when F.1's weights change, as a load
+    does."""
     from fcvsr_tpu_torch.models.fcvsr import MGAA
 
     m = MGAA(4, ac_num=2)
     assert not any(k.startswith("sel") for k in m.state_dict())
-    first = m.sel_weights()
-    assert m.sel_weights()[0] is first[0]
+    with torch.no_grad():  # under autograd they are made live on each call
+        first = m.sel_weights()
+        assert m.sel_weights()[0] is first[0]
     sd = {k: torch.randn(v.shape, generator=torch.Generator().manual_seed(0))
           for k, v in m.state_dict().items()}
     m.load_state_dict(sd)
-    wsel, wsel_t, bsel = m.sel_weights()
+    with torch.no_grad():
+        wsel, wsel_t, bsel = m.sel_weights()
     assert wsel is not first[0]
     torch.testing.assert_close(wsel, sd["F.1.weight"][m.sel], rtol=0, atol=0)
     torch.testing.assert_close(wsel_t, wsel[:, :, 0, 0].t(), rtol=0, atol=0)

@@ -213,5 +213,7 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero():
     fused_conv.conv3x3(_t(x), _t(w1), _t(b1))
     fused_iac.warp_sac_fused(_t(feat_in), _t(offsets[0]), _t(pred_k),
                              _t(feat_in))
-    assert launch_counts() == before == {"iac": 0, "conv3x3_pair": 0,
-                                         "conv3x3": 0}
+    fused_iac.warp_sac_bwd(_t(feat_in), _t(offsets[0]), _t(pred_k),
+                           _t(feat_in))
+    assert launch_counts() == before == {"iac": 0, "iac_bwd": 0,
+                                         "conv3x3_pair": 0, "conv3x3": 0}
