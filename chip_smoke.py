@@ -8,25 +8,36 @@ Phases, one line or more each:
      and CUDA versions, the nvcc build of ``fcvsr_tpu_torch/csrc`` (one nvcc
      a source, in parallel);
   2. every kernel of the serving and training paths against its plain
-     PyTorch version on the card, at the shapes FCVSR gives it, with the max
-     abs error against the stated tolerance and both CUDA-event times
-     (median of 7 after 2 warm-ups, the versions timed in turns): the IAC
-     iteration (K1) and the conv kernels (K2, K3) at the serving shape, the
-     IAC adjoint (K5) at the training shape and at small odd shapes, and the
-     conv autograd Functions' gradients at the three SCNet levels;
-  3. model parity: FCVSR full, Y, seeded weights, the GPU (kernels) against
-     the same model on the CPU (plain versions): the output at
+     PyTorch version on the card, at the shapes FCVSR and the zoo give it,
+     with the max abs error against the stated tolerance, both CUDA-event
+     times (median of 7 after 2 warm-ups, the versions timed in turns) and
+     the least time the card could take: the IAC iteration (K1) and the
+     conv kernels (K2, K3) at the serving shape, the IAC adjoint (K5) at the
+     training shape and at small odd shapes, the deformable conv (K7) at
+     EDVR-M's and BasicVSR++'s shapes, without a mask and at small odd
+     shapes, and the conv autograd Functions' gradients at the three SCNet
+     levels;
+  3. model parity, seeded weights, the GPU (kernels) against the same model
+     on the CPU (plain versions): FCVSR full, Y, the output at
      (1, 7, 1, 64, 96) and ``loss.backward()``'s gradients at (1, 7, 1, 32,
-     48), per parameter tensor;
+     48), per parameter tensor; EDVR-M and BasicVSR++ at full width, with
+     their offset convs seeded non-zero, the output at (1, 5, 3, 64, 96) and
+     the DCN launches per forward;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM), with the kernel launch counts per frame checked, then ``--fps``
      at 1 x 7 x 1 x 272 x 480;
-  5. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
+  5. zoo serving: ``apis.restoration_video_inference`` restores a synthetic
+     10-frame RGB clip with EDVR-M (180x320, 5-frame windows) and BasicVSR++
+     (192x320, the whole clip in one recurrent forward); shapes, finite
+     values and DCN launches per forward, checked; ms per restored frame
+     (``cli.fps_benchmark``) and peak memory;
+  6. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
      6, 128x128 LR patches from the clip, Adam, Charbonnier-sum) for one
      warm-up step, then resumes from its checkpoint for 5 timed steps; the
      losses, ms per step, peak memory and launch counts per step, checked;
-  6. a JSON line of the kernels (launches from the training run, each
+  7. a JSON line of the kernels (launches from the run of the path that
+     launches each: training for FCVSR's, zoo serving for the DCN; each
      kernel's least time on the card from its bytes and operations), the
      nvidia-smi line, and the result line.
 
@@ -50,11 +61,23 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PRESET = "fcvsr_cvcpLD_QP22"
 # per frame of the full Y model: 6 iterations x 2 directions x 3 MGAA calls;
 # 2 pairs x 3 BlockRCBs x 3 levels x 10 groups; 3 group convs x 10 + conv_last0
-PER_FRAME = {"iac": 36, "iac_bwd": 0, "conv3x3_pair": 180, "conv3x3": 31}
+PER_FRAME = {"iac": 36, "iac_bwd": 0, "conv3x3_pair": 180, "conv3x3": 31,
+             "dcn": 0}
 # per training step: the forward's launches; the IAC adjoint is two
 # launches an iteration; each pair's backward rebuilds its intermediate
 # with one conv3x3 launch
-PER_STEP = {"iac": 36, "iac_bwd": 72, "conv3x3_pair": 180, "conv3x3": 211}
+PER_STEP = {"iac": 36, "iac_bwd": 72, "conv3x3_pair": 180, "conv3x3": 211,
+            "dcn": 0}
+ZOO_T = 10  # frames of the zoo's serving clip
+
+
+def dcn_per_forward(model: str, t: int) -> int:
+    """DCN launches a forward of t frames: EDVR's levels 3, 2, 1 and the
+    cascade, once each (T folded into the batch); BasicVSR++'s 4 branches
+    at every frame but the first of each."""
+    return 4 if model == "EDVRNet" else 4 * (t - 1)
+
+
 KERNELS = {
     "iac": ("fcvsr_tpu_torch/csrc/iac.cu", "fcvsr_tpu/ops/pallas_iac.py:98"),
     "conv3x3_pair": ("fcvsr_tpu_torch/csrc/conv3x3.cu",
@@ -63,6 +86,7 @@ KERNELS = {
                 "fcvsr_tpu/ops/pallas_conv.py:108"),
     "iac_bwd": ("fcvsr_tpu_torch/csrc/iac_bwd.cu",
                 "fcvsr_tpu/ops/pallas_iac.py:926"),
+    "dcn": ("fcvsr_tpu_torch/csrc/dcn.cu", "fcvsr_tpu/ops/pallas_dcn.py:58"),
 }
 # f32 kernels against f32 plain versions that sum in another order: the
 # bound scales with the output's magnitude (IAC: 3x3 taps of a warped value
@@ -133,20 +157,22 @@ def bound(nbytes: float, flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def mixed_flows(rng, b, h, w):
-    """Small flows, +-20 px in the top third, out of the frame at the bottom
-    and at the left edge."""
-    flow = rng.standard_normal((b, h, w, 2)) * 1.5
-    flow[:, : h // 3] = rng.uniform(-20, 20, (b, h // 3, w, 2))
-    flow[:, -max(1, h // 6):, :, 0] += 600.0
-    flow[:, :, : max(1, w // 8), 1] -= 400.0
+def mixed_flows(rng, b, h, w, c=2):
+    """Small displacements, +-20 px in the top third, out of the frame at
+    the bottom and at the left edge: c channels of (first, second) axis
+    pairs, a flow's (dx, dy) or a DCN offset's (dy, dx) per tap."""
+    flow = rng.standard_normal((b, h, w, c)) * 1.5
+    flow[:, : h // 3] = rng.uniform(-20, 20, (b, h // 3, w, c))
+    flow[:, -max(1, h // 6):, :, 0::2] += 600.0
+    flow[:, :, : max(1, w // 8), 1::2] -= 400.0
     return flow
 
 
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
-    from fcvsr_tpu_torch.ops import fused_conv, fused_iac
+    from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac
+    from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
 
     rng = np.random.default_rng(0)
 
@@ -157,8 +183,8 @@ def phase_kernels(torch, dev):
 
     def check(name, label, kern, plain, rtol, work=None, library=None):
         """Kernel against plain version; a tuple of outputs is checked one
-        by one.  ``work`` = (bytes, flops) marks the case whose times and
-        bound go into the result line (the first such case of a kernel)."""
+        by one.  ``work`` = (bytes, flops) marks a timed case, with its
+        bound; the first such case of a kernel goes into the result line."""
         outs, refs = kern(), plain()
         if isinstance(outs, torch.Tensor):
             outs, refs = (outs,), (refs,)
@@ -169,15 +195,13 @@ def phase_kernels(torch, dev):
         if work is not None:
             fns = [kern, plain] + ([library] if library else [])
             times = cuda_ms(torch, fns)
-            line.update(ms=times[0], plain_ms=times[1])
+            bound_ms, bound_by = bound(*work)
+            line.update(ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
+                        bound_by=bound_by,
+                        library_ms=times[2] if library else None)
             if "ms" not in results[name]:
-                bound_ms, bound_by = bound(*work)
-                results[name].update(
-                    ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
-                    bound_by=bound_by,
-                    library_ms=times[2] if library else None)
-                line.update(bound_ms=bound_ms, bound_by=bound_by,
-                            library_ms=results[name]["library_ms"])
+                results[name].update((k, line[k]) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))
         say("kernels", **line)
         for e, tol in zip(errs, tols):
             if not e <= tol:
@@ -289,6 +313,42 @@ def phase_kernels(torch, dev):
               lambda: fused_iac.warp_sac_bwd(src, flow, k, gz, 1),
               lambda: fused_iac.warp_sac_vjp_plain(src, flow, k, gz, 1),
               IAC_BWD_RTOL)
+    del src, flow, k, gz
+
+    # the deformable conv (K7) at EDVR-M's level 1 (the 5 frames of a REDS
+    # window, 64 -> 64, 8 deform groups) and BasicVSR++'s alignment (128 ->
+    # 64, 16 groups), offsets mixed as the flows above; without a mask; at
+    # small odd shapes.  Work: x, offsets, mask and weights read, out
+    # written; 2 flops a multiply-add of the 9 * Cin * Cout contraction and
+    # 8 a sampled value (4 corner products and their sum, the weights).  The
+    # library yardstick is cuDNN's conv of the same shapes, the zero-offset
+    # special case
+    for (b, h, w, cin, cout, dg, with_mask, timed) in (
+            (5, 180, 320, 64, 64, 8, True, True),
+            (1, 192, 320, 128, 64, 16, True, True),
+            (2, 64, 96, 64, 64, 8, False, False),
+            (2, 13, 29, 24, 40, 3, True, False),
+            (1, 5, 7, 8, 70, 1, True, False)):
+        x = t(rng.standard_normal((b, h, w, cin)))
+        off = t(mixed_flows(rng, b, h, w, dg * 18))
+        mask = t(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg * 9))))) \
+            if with_mask else None
+        wd = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
+        bd = t(rng.standard_normal(cout) * 0.1)
+        px = b * h * w
+        work = (4 * (px * (cin + dg * 18 + (dg * 9 if with_mask else 0)
+                           + cout) + 9 * cin * cout + cout),
+                px * 9 * cin * (2 * cout + 8))
+        check("dcn", f"{b}x{h}x{w} {cin}->{cout} dg{dg} "
+              f"{'v2' if with_mask else 'v1'}",
+              lambda: fused_dcn.modulated_deform_conv2d_fused(
+                  x, off, mask, wd, bd, deform_groups=dg),
+              lambda: modulated_deform_conv2d(x, off, mask, wd, bd,
+                                              deform_groups=dg),
+              CONV_RTOL, work=work if timed else None,
+              library=lambda: F.conv2d(x.permute(0, 3, 1, 2),
+                                       wd.permute(3, 2, 0, 1), bd, padding=1))
+    del x, off, mask
     return results
 
 
@@ -426,6 +486,111 @@ def phase_model(torch, dev):
              f"median {median}, over {over}")
 
 
+def zoo_model(torch, name: str):
+    """EDVR-M or BasicVSR++ at mmedit's published widths, seeded weights,
+    every DCN's last offset conv drawn non-zero (it is zero-initialised,
+    which would leave the DCN a plain conv): EDVR's offsets +-3 px about
+    zero, BasicVSR++'s residues 10 * tanh(+-1.5) about the flows."""
+    from fcvsr_tpu_torch.models import BACKBONES, build, init_weights
+    from fcvsr_tpu_torch.models.basicvsr import ModulatedDeformConv2d
+
+    model = init_weights(build(BACKBONES, dict(type=name)),
+                         torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ModulatedDeformConv2d):
+                last = [m for m in mod.conv_offset.modules()
+                        if isinstance(m, torch.nn.Conv2d)][-1]
+                last.weight.normal_(0, 0.3 / math.sqrt(last.weight[0].numel()),
+                                    generator=gen)
+                last.bias.normal_(0, 3.0 if name == "EDVRNet" else 1.5,
+                                  generator=gen)
+    return model
+
+
+def phase_zoo_models(torch, dev):
+    """EDVR-M and BasicVSR++, the GPU (the DCN kernel) against the same
+    model on the CPU (the plain DCN), with the launches per forward."""
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    x = np.random.default_rng(5).uniform(0, 1, (1, 5, 3, 64, 96))
+    x = torch.from_numpy(x.astype(np.float32))
+    for name in ("EDVRNet", "BasicVSRPlusPlus"):
+        model = zoo_model(torch, name)
+        with torch.no_grad():
+            ref = model(x)
+            model.to(dev)
+            reset_launch_counts()
+            got = model(x.to(dev)).cpu()
+            launches = launch_counts()["dcn"]
+        err = float((got - ref).abs().max())
+        say("model", model=name, shape=list(got.shape), max_abs_err=err,
+            tol=MODEL_ATOL, dcn_launches=launches)
+        if not (torch.isfinite(got).all() and got.shape == ref.shape):
+            fail(f"{name}: output shape {got.shape} or non-finite values")
+        if not err <= MODEL_ATOL:
+            fail(f"{name}: GPU vs CPU model error {err} > {MODEL_ATOL}")
+        if launches != dcn_per_forward(name, 5):
+            fail(f"{name}: {launches} DCN launches a forward, expected "
+                 f"{dcn_per_forward(name, 5)}")
+        del model
+
+
+def phase_zoo(torch, card):
+    """Zoo serving: a synthetic 10-frame RGB clip restored through
+    ``apis.restoration_video_inference`` by EDVR-M (5-frame windows) and
+    BasicVSR++ (the whole clip), then ms per restored frame."""
+    from fcvsr_tpu_torch import apis, cli
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    counts = {}
+    for name, (h, w), window in (("EDVRNet", (180, 320), 5),
+                                 ("BasicVSRPlusPlus", (192, 320), 0)):
+        model = zoo_model(torch, name).to("cuda")
+        rng = np.random.default_rng(6)
+        # a smooth random clip: each frame a bilinear upsampling of a coarse
+        # grid, drifting a little from frame to frame
+        coarse = rng.uniform(0, 1, (1, 3, h // 8 + 1, w // 8 + 1))
+        frames = []
+        for i in range(ZOO_T):
+            c = torch.nn.functional.interpolate(
+                torch.from_numpy(np.roll(coarse, i, axis=-1)), size=(h, w),
+                mode="bilinear", align_corners=False)
+            frames.append(c[0].permute(1, 2, 0).numpy())
+        frames = np.stack(frames).astype(np.float32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out = apis.restoration_video_inference(model, frames,
+                                               window_size=window)
+        torch.cuda.synchronize()
+        counts[name] = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        forwards = ZOO_T if window else 1
+        t = window or ZOO_T
+        per_forward = counts[name]["dcn"] / forwards
+        fps = cli.fps_benchmark(model, h, w, c=3, t=t,
+                                frames_per_forward=1 if window else t,
+                                n_iter=10 if window else 5)
+        say("zoo", model=name, clip=[ZOO_T, h, w, 3], window=window,
+            out_shape=list(out.shape), forwards=forwards,
+            dcn_launches_per_forward=per_forward, launches=counts[name],
+            max_memory_allocated=peak, card=card, **fps)
+        if out.shape != (ZOO_T, 4 * h, 4 * w, 3) or not np.isfinite(out).all():
+            fail(f"{name}: output {out.shape} or non-finite values")
+        if per_forward != dcn_per_forward(name, t):
+            fail(f"{name}: {per_forward} DCN launches a forward, expected "
+                 f"{dcn_per_forward(name, t)}")
+        if any(v for k, v in counts[name].items() if k != "dcn"):
+            fail(f"{name}: FCVSR kernels launched on the zoo path "
+                 f"{counts[name]}")
+        if not fps["ms_per_frame"] > 0:
+            fail(f"{name}: bad timing {fps}")
+        del model
+    return {k: sum(c[k] for c in counts.values()) for k in counts["EDVRNet"]}
+
+
 def write_clip(root: str, n: int = 10, h: int = 270, w: int = 480):
     """A smooth random Y clip: GT at 4x, LR its 4x4 block mean."""
     from PIL import Image
@@ -552,13 +717,19 @@ def main() -> None:
     torch.cuda.empty_cache()
     phase_model(torch, dev)
     torch.cuda.empty_cache()
+    phase_zoo_models(torch, dev)
+    torch.cuda.empty_cache()
     phase_slice(torch, card)
-    counts = phase_train(torch, card)
+    zoo_counts = phase_zoo(torch, card)
+    torch.cuda.empty_cache()
+    train_counts = phase_train(torch, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
+        path, counts = ("zoo serving", zoo_counts) if name == "dcn" \
+            else ("training", train_counts)
         if counts[name] == 0:
-            fail(f"kernel {name} was not launched on the training path")
+            fail(f"kernel {name} was not launched on the {path} path")
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=counts[name],
                             **results[name]))

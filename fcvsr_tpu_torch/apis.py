@@ -28,16 +28,22 @@ def restoration_video_inference(model, frames: np.ndarray, window_size: int = 7,
                                 batch_windows: int = 1,
                                 padding: str = "replicate",
                                 device=None) -> np.ndarray:
-    """SR every frame of a clip through a windowed model.
+    """SR every frame of a clip.
 
-    frames: (T, H, W, C) float32 in [0, 1].  Frame t is the centre of the
+    frames: (T, H, W, C) float32 in [0, 1].  ``window_size > 0``: a
+    windowed model (FCVSR, EDVR); frame t is the centre of the
     ``window_size`` frames around it, padded at the clip ends by
-    ``padding``; ``batch_windows`` windows go through the model at once.
-    Returns (T, 4H, 4W, C)."""
-    if window_size <= 0:
-        raise ValueError("only windowed models are served (window_size > 0)")
+    ``padding``, and ``batch_windows`` windows go through the model at once.
+    ``window_size == 0``: a recurrent model (BasicVSR++) takes the whole
+    clip as (1, T, C, H, W) in one forward.  Returns (T, 4H, 4W, C)."""
+    if window_size < 0:
+        raise ValueError(f"window_size {window_size} < 0")
     device = torch.device(device) if device is not None else \
         next(model.parameters()).device
+    if window_size == 0:
+        x = torch.from_numpy(np.ascontiguousarray(np.transpose(
+            frames.astype(np.float32), (0, 3, 1, 2))[None])).to(device)
+        return np.transpose(model(x)[0].cpu().numpy(), (0, 2, 3, 1))
     t = frames.shape[0]
     idx = np.stack([padded_window_indices(i, t, window_size, padding)
                     for i in range(t)])

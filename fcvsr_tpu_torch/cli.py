@@ -115,20 +115,23 @@ def evaluate_sequence(model, ds, seq, scale=4, convert_to="Y",
 
 @torch.no_grad()
 def fps_benchmark(model, h=272, w=480, c=1, n_iter=20, warmup=2, seed=0,
-                  device="cuda"):
-    """Median CUDA-event ms of one (1, 7, c, h, w) forward after ``warmup``
-    forwards, and the FPS it gives.  Needs a CUDA device."""
+                  device="cuda", t=7, frames_per_forward=1):
+    """Median CUDA-event ms of one (1, t, c, h, w) forward after ``warmup``
+    forwards, per restored frame: a windowed model restores 1 frame a
+    forward, a recurrent one all ``t`` (``frames_per_forward``).  Needs a
+    CUDA device."""
     device = torch.device(device)
     if device.type != "cuda":
         raise RuntimeError("fps_benchmark times a CUDA device; got "
                            f"{device}")
     x = torch.from_numpy(np.random.default_rng(seed).uniform(
-        0, 1, (1, 7, c, h, w)).astype(np.float32)).to(device)
+        0, 1, (1, t, c, h, w)).astype(np.float32)).to(device)
     for _ in range(warmup):
         model(x)
     times = []
     for _ in range(n_iter):
         _timed_forward(model, x, times)
+    times = [ms / frames_per_forward for ms in times]
     ms = float(np.median(times))
     return {"ms_per_frame": ms, "fps": 1000.0 / ms, "n_iter": n_iter,
             "ms_min": float(np.min(times)), "ms_max": float(np.max(times))}

@@ -23,6 +23,7 @@ from ..ops.freq import irfft_features, rfft_features, split_freq
 from ..ops.fused_conv import conv3x3
 from ..ops.resize import resize_bilinear
 from ..ops.sac import iac
+from .basicvsr import MMResidualBlock, ModulatedDeformConv2d
 from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, PReLU, RCB,
                      SCNet, pixel_shuffle)
 from .scnet_rows import conv_bias, hwio
@@ -236,19 +237,32 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded re-initialisation of every parameter.
 
     Convs get torch's default U(+-1/sqrt(fan_in)) for weight and bias; the
-    SCNet blocks (BlockRCB and its RCB) get the reference's kaiming-normal
-    x 0.1 with zero bias, which keeps 30 stacked residual blocks stable;
-    PReLU slopes are 0.25 and DivEnh keeps a = 0, b = 1."""
-    scaled = set()
+    residual blocks the reference re-initialises (SCNet's BlockRCB and its
+    RCB, mmedit's ResidualBlockNoBN) get kaiming-normal x 0.1 with zero
+    bias, which keeps deep stacks stable; a deformable conv gets
+    U(+-1/sqrt(fan_in)), a zero bias and a zero last offset conv (zero
+    offsets, mask 0.5); PReLU slopes are 0.25 and DivEnh keeps a = 0,
+    b = 1."""
+    scaled, zeroed = set(), set()
     for mod in model.modules():
-        if isinstance(mod, (BlockRCB, RCB)):
+        if isinstance(mod, (BlockRCB, RCB, MMResidualBlock)):
             scaled.update(id(m) for m in mod.modules()
                           if isinstance(m, nn.Conv2d))
+        elif isinstance(mod, ModulatedDeformConv2d):
+            zeroed.add(id([m for m in mod.conv_offset.modules()
+                           if isinstance(m, nn.Conv2d)][-1]))
     for mod in model.modules():
-        if isinstance(mod, nn.Conv2d):
+        if isinstance(mod, (nn.Conv2d, ModulatedDeformConv2d)):
             wt = mod.weight
             fan_in = wt.shape[1] * wt.shape[2] * wt.shape[3]
-            if id(mod) in scaled:
+            if id(mod) in zeroed:
+                wt.zero_()
+                mod.bias.zero_()
+            elif isinstance(mod, ModulatedDeformConv2d):
+                wt.copy_((torch.rand(wt.shape, generator=generator) * 2 - 1)
+                         * fan_in ** -0.5)
+                mod.bias.zero_()
+            elif id(mod) in scaled:
                 std = (2.0 / fan_in) ** 0.5 * 0.1
                 wt.copy_(torch.randn(wt.shape, generator=generator) * std)
                 if mod.bias is not None:

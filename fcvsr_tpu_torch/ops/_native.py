@@ -49,6 +49,8 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1, stream
     "fcvsr_conv3x3_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _F, _P],
+    # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, dg, stream
+    "fcvsr_dcn3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

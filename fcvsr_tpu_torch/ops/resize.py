@@ -20,12 +20,15 @@ def _nchw(fn, x: torch.Tensor) -> torch.Tensor:
     return y.reshape(lead + y.shape[1:])
 
 
-def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
-    """Bilinear resize to (out_h, out_w) with half-pixel centres."""
+def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize to (out_h, out_w): half-pixel centres by default, or
+    endpoint-aligned with ``align_corners=True`` (SPyNet's flow upsampling)."""
     if tuple(x.shape[-3:-1]) == (out_h, out_w):
         return x
     return _nchw(lambda v: F.interpolate(
-        v, size=(out_h, out_w), mode="bilinear", align_corners=False), x)
+        v, size=(out_h, out_w), mode="bilinear", align_corners=align_corners),
+        x)
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Flow warping by bilinear sampling (counterpart of ``fcvsr_tpu.ops.warp``).
 
-Reference semantics: ``F.grid_sample(mode='bilinear', padding_mode='zeros',
-align_corners=True)`` after the normalisation round-trip of the reference
-``flow_warp``, i.e. sampling at absolute pixel ``(x + dx, y + dy)`` with
-out-of-frame corner taps contributing zero.  Written as four gathers over a
-zero-ringed copy of the map, in the same order of operations as the JAX op.
-All tensors are channels-last (B, H, W, C).
+Reference semantics: ``F.grid_sample(mode='bilinear', align_corners=True)``
+after the normalisation round-trip of the reference ``flow_warp``, i.e.
+sampling at absolute pixel ``(x + dx, y + dy)``.  With ``padding_mode=
+'zeros'`` out-of-frame corner taps contribute zero (written as four gathers
+over a zero-ringed copy of the map); with ``'border'`` the coordinates clamp
+to the frame's edge, as SPyNet warps.  The order of operations is the JAX
+op's.  All tensors are channels-last (B, H, W, C).
 """
 
 from __future__ import annotations
@@ -22,22 +23,31 @@ def _gather_hw(x: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor):
     return torch.gather(x.reshape(b, h * w, c), 1, idx)
 
 
-def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor,
-                         py: torch.Tensor) -> torch.Tensor:
+def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                         padding_mode: str = "zeros") -> torch.Tensor:
     """Sample ``x`` (B, H, W, C) at absolute pixel coordinates ``px``/``py``
-    (B, P), bilinear with zero padding.  Returns (B, P, C)."""
+    (B, P), bilinear, with ``padding_mode`` 'zeros' or 'border'.  Returns
+    (B, P, C)."""
     b, h, w, _ = x.shape
-    # a one-pixel zero ring: an out-of-frame corner clamps onto it and reads 0
-    src = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
-    hs, ws = h + 2, w + 2
-    px = px.clamp(-1.5, w + 0.5)
-    py = py.clamp(-1.5, h + 0.5)
+    if padding_mode == "border":
+        px = px.clamp(0.0, w - 1)
+        py = py.clamp(0.0, h - 1)
+        src, ring = x, 0
+    elif padding_mode == "zeros":
+        # a one-pixel zero ring: an out-of-frame corner clamps onto it and
+        # reads 0
+        src, ring = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)), 1
+        px = px.clamp(-1.5, w + 0.5)
+        py = py.clamp(-1.5, h + 0.5)
+    else:
+        raise ValueError(f"padding_mode {padding_mode!r}: 'zeros' or 'border'")
+    hs, ws = src.shape[1:3]
     x0 = torch.floor(px)
     y0 = torch.floor(py)
     fx = px - x0
     fy = py - y0
-    x0i = x0.long() + 1
-    y0i = y0.long() + 1
+    x0i = x0.long() + ring
+    y0i = y0.long() + ring
 
     def corner(yi, xi, wgt):
         v = _gather_hw(src, yi.clamp(0, hs - 1), xi.clamp(0, ws - 1))
@@ -50,7 +60,8 @@ def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor,
     return out
 
 
-def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+def flow_warp(x: torch.Tensor, flow: torch.Tensor,
+              padding_mode: str = "zeros") -> torch.Tensor:
     """Warp ``x`` (B, H, W, C) by ``flow`` (B, H, W, 2), [..., 0] = dx,
     [..., 1] = dy: out(y, x) = x sampled at (y + dy, x + dx)."""
     b, h, w, c = x.shape
@@ -59,4 +70,4 @@ def flow_warp(x: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         torch.arange(w, dtype=x.dtype, device=x.device), indexing="ij")
     px = (gx + flow[..., 0]).reshape(b, h * w)
     py = (gy + flow[..., 1]).reshape(b, h * w)
-    return grid_sample_bilinear(x, px, py).reshape(b, h, w, c)
+    return grid_sample_bilinear(x, px, py, padding_mode).reshape(b, h, w, c)

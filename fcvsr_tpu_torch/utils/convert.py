@@ -1,13 +1,16 @@
 """Weights from the JAX package: flax params -> the port's ``state_dict``
 (counterpart of ``fcvsr_tpu.utils.torch_import``, in the other direction).
 
-Names map through :func:`flax_to_torch_key`, the port's own copy of the JAX
-package's key map.  Kernels go from HWIO to OIHW, PReLU's ``alpha`` becomes
-``weight`` (1,) and DivEnh's ``a``/``b`` become (C, 1, 1).
+FCVSR's names map through :func:`flax_to_torch_key`, the port's own copy of
+the JAX package's key map; the zoo's (EDVR, BasicVSR++, SPyNet) through
+patterns onto mmedit's names.  Kernels and DCN weights go from HWIO to OIHW,
+PReLU's ``alpha`` becomes ``weight`` (1,) and DivEnh's ``a``/``b`` become
+(C, 1, 1).
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -93,11 +96,78 @@ def _flatten(tree: Mapping, prefix=()):
             yield prefix + (k,), v
 
 
+# The zoo: (flax module path without its Conv_0, port module name) patterns
+# of mmedit's names, matched whole.
+_SPYNET = [(rf"level(\d)/conv{i}", rf"basic_module.\1.basic_module.{2 * i}")
+           for i in range(5)]
+_TAIL = [(r"(upsample[12])/upsample_conv", r"\1.upsample_conv"),
+         (r"(conv_hr|conv_last)", r"\1")]
+_EDVR = _TAIL + [
+    (r"conv_first", "conv_first"),
+    (r"extract(\d+)/(conv[12])", r"feature_extraction.\1.\2"),
+    (r"recon(\d+)/(conv[12])", r"reconstruction.\1.\2"),
+    (r"(feat_l[23]_conv[12])", r"\1.conv"),
+    (r"pcd_alignment/(offset_conv[123]|feat_conv)_(l[123])",
+     r"pcd_alignment.\1.\2.conv"),
+    (r"pcd_alignment/dcn_pack_(l[123])", r"pcd_alignment.dcn_pack.\1"),
+    (r"pcd_alignment/dcn_pack_(l[123])/conv_offset",
+     r"pcd_alignment.dcn_pack.\1.conv_offset"),
+    (r"pcd_alignment/(cas_offset_conv[12])", r"pcd_alignment.\1.conv"),
+    (r"pcd_alignment/cas_dcnpack", "pcd_alignment.cas_dcnpack"),
+    (r"pcd_alignment/cas_dcnpack/conv_offset",
+     "pcd_alignment.cas_dcnpack.conv_offset"),
+    (r"fusion/(temporal_attn[12]|spatial_attn5|spatial_attn_add2)",
+     r"fusion.\1"),
+    (r"fusion/(feat_fusion|spatial_attn[1-4]|spatial_attn_l[1-3]"
+     r"|spatial_attn_add1)", r"fusion.\1.conv"),
+]
+_BRANCH = r"(backward_[12]|forward_[12])"
+_BASICVSR_PP = _TAIL + [
+    (rf"spynet/{p}", rf"spynet.{t}") for p, t in _SPYNET] + [
+    (r"(feat_extract|reconstruction)/input_conv", r"\1.main.0"),
+    (r"(feat_extract|reconstruction)/block(\d+)/(conv[12])",
+     r"\1.main.2.\2.\3"),
+    (rf"{_BRANCH}/backbone/input_conv", r"backbone.\1.main.0"),
+    (rf"{_BRANCH}/backbone/block(\d+)/(conv[12])",
+     r"backbone.\1.main.2.\2.\3"),
+    (rf"{_BRANCH}/deform_align", r"deform_align.\1")] + [
+    (rf"{_BRANCH}/deform_align/conv_offset{i}",
+     rf"deform_align.\1.conv_offset.{2 * i}") for i in range(4)]
+
+
+def _zoo_key(patterns, path: str) -> str | None:
+    """The port module name of a flax module path, or None."""
+    for pat, template in patterns:
+        m = re.fullmatch(pat, path)
+        if m is not None:
+            return m.expand(template)
+    return None
+
+
+def _zoo_state_dict(tree: Mapping, patterns) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree):
+        v = np.asarray(value, dtype=np.float32)
+        mod = path[:-1][:-1] if path[-2:-1] == ("Conv_0",) else path[:-1]
+        base = _zoo_key(patterns, "/".join(mod))
+        if base is None or path[-1] not in ("kernel", "weight", "bias"):
+            raise KeyError(f"no port key for JAX param {'/'.join(path)}")
+        # conv kernels and DCN weights are HWIO; the port keeps OIHW
+        out[f"{base}.{'bias' if path[-1] == 'bias' else 'weight'}"] = \
+            torch.tensor(v if path[-1] == "bias" else v.transpose(3, 2, 0, 1))
+    return out
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Map a flax FCVSRNet param tree (``{'params': ...}`` or its inside,
-    numpy-convertible leaves) onto the port's ``state_dict`` keys.  Raises
-    ``KeyError`` on a param it cannot map."""
+    """Map a flax FCVSRNet, EDVRNet, BasicVSRPlusPlus or SpyNet param tree
+    (``{'params': ...}`` or its inside, numpy-convertible leaves; the model
+    is told by its top-level names) onto the port's ``state_dict`` keys.
+    Raises ``KeyError`` on a param it cannot map."""
     tree = params.get("params", params)
+    for marker, patterns in (("pcd_alignment", _EDVR),
+                             ("spynet", _BASICVSR_PP), ("level0", _SPYNET)):
+        if marker in tree:
+            return _zoo_state_dict(tree, patterns)
     out: Dict[str, torch.Tensor] = {}
     divenh = {}
     for path, value in _flatten(tree):

@@ -24,7 +24,7 @@ from fcvsr_tpu.ops.pallas_iac import iac_fused as j_iac_fused
 from fcvsr_tpu.ops.pallas_iac import iac_fused_kf as j_iac_fused_kf
 from fcvsr_tpu.ops.sac import iac as j_iac
 from fcvsr_tpu_torch.models.blocks import SCNet
-from fcvsr_tpu_torch.ops import fused_conv, fused_iac, launch_counts
+from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac, launch_counts
 from fcvsr_tpu_torch.ops.sac import iac
 from fcvsr_tpu_torch.utils.convert import state_dict_from_jax
 
@@ -215,5 +215,8 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero():
                              _t(feat_in))
     fused_iac.warp_sac_bwd(_t(feat_in), _t(offsets[0]), _t(pred_k),
                            _t(feat_in))
+    fused_dcn.modulated_deform_conv2d_fused(
+        _t(x), torch.zeros(2, 5, 6, 18), None, _t(w1), _t(b1))
     assert launch_counts() == before == {"iac": 0, "iac_bwd": 0,
-                                         "conv3x3_pair": 0, "conv3x3": 0}
+                                         "conv3x3_pair": 0, "conv3x3": 0,
+                                         "dcn": 0}

@@ -7,13 +7,16 @@ these without the repository's conftest (which configures JAX):
 
 Shapes are small and odd: H and W not multiples of the tiles (IAC and its
 adjoint 8x16, conv 8x16 / 16x16), channel counts not multiples of the
-16-channel chunks, C_out 1 and 3.  Tolerance: f32 against f32 in another
-summation order, 2e-5 (IAC), 1e-5 (its adjoint, whose dsrc sums by atomics
-in an order that changes from run to run) and 1e-4 (convs) times
-max(1, max |plain|).  The training path's gradients (the autograd
-Functions and the model) are held to their plain versions the same way,
-and the model's: the whole gradient and the median tensor to 1e-3 of
-their norm, the per-tensor bar of the CPU test against JAX
+16-channel chunks, C_out 1 and 3; the DCN at frames smaller than its
+128-pixel tile, Cin not a multiple of its 32-channel chunk, one deform group
+wider than a chunk and C_out above its 64-channel block.  Tolerance: f32
+against f32 in another summation order, 2e-5 (IAC), 1e-5 (its adjoint, whose
+dsrc sums by atomics in an order that changes from run to run) and 1e-4
+(convs, DCN) times max(1, max |plain|).  The small zoo models on the card
+are held to the CPU at 1e-3, as chip_smoke.py holds the full ones.  The
+training path's gradients (the autograd Functions and the model) are held
+to their plain versions the same way, and the model's: the whole gradient
+and the median tensor to 1e-3 of their norm, the per-tensor bar of the CPU test against JAX
 (tests/test_torch_train.py), each tensor to 5e-2 (an activation within f32
 noise of 0 flips on one device; chip_smoke.py says more).
 """
@@ -22,8 +25,10 @@ import numpy as np
 import pytest
 import torch
 
-from fcvsr_tpu_torch.models import FCVSRNet, init_weights
-from fcvsr_tpu_torch.ops import fused_conv, fused_iac, launch_counts
+from fcvsr_tpu_torch.models import BACKBONES, FCVSRNet, build, init_weights
+from fcvsr_tpu_torch.models.basicvsr import ModulatedDeformConv2d
+from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac, launch_counts
+from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
 from fcvsr_tpu_torch.train.losses import charbonnier_sum
 
 pytestmark = pytest.mark.gpu
@@ -196,6 +201,81 @@ def test_conv_functions_grads_match_plain(cuda, h, w, cin, c1, cout, bias):
         _assert_close(a, r, 1e-4)
 
 
+@pytest.mark.parametrize("b,h,w,cin,cout,dg,with_mask", [
+    (2, 13, 29, 24, 40, 3, True),    # odd frame, a chunk cut short
+    (1, 5, 7, 8, 70, 1, True),       # a frame smaller than a tile, 2 co blocks
+    (2, 9, 21, 64, 64, 8, False),    # DCNv1 (no mask), EDVR's layout
+    (1, 12, 10, 128, 64, 16, True),  # BasicVSR++'s layout
+    (1, 6, 11, 64, 20, 1, True),     # one group wider than a 32-channel chunk
+])
+def test_dcn_kernel_matches_plain(cuda, b, h, w, cin, cout, dg, with_mask):
+    """Offsets small, +-20 px and out of the frame; the tolerance of the
+    convs (sums of 9 x Cin products)."""
+    x = _rand(cuda, 50, b, h, w, cin)
+    off = torch.cat([_flows(cuda, 51 + i, b, h, w, 1.5) for i in range(9 * dg)],
+                    -1)
+    mask = torch.sigmoid(_rand(cuda, 52, b, h, w, 9 * dg)) if with_mask \
+        else None
+    wt = _rand(cuda, 53, 3, 3, cin, cout, scale=0.1)
+    bias = _rand(cuda, 54, cout)
+    n0 = fused_dcn.modulated_deform_conv2d_fused.launches
+    got = fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt, bias,
+                                                  deform_groups=dg)
+    ref = modulated_deform_conv2d(x, off, mask, wt, bias, deform_groups=dg)
+    assert fused_dcn.modulated_deform_conv2d_fused.launches == n0 + 1
+    _assert_close(got, ref, 1e-4)
+
+
+def test_dcn_kernel_raises_under_autograd_and_on_other_configs(cuda):
+    x = _rand(cuda, 55, 1, 6, 7, 16)
+    off = _rand(cuda, 56, 1, 6, 7, 2 * 18)
+    mask = _rand(cuda, 57, 1, 6, 7, 2 * 9)
+    wt = _rand(cuda, 58, 3, 3, 16, 8).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
+                                                deform_groups=2)
+    with torch.no_grad():
+        fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
+                                                deform_groups=2)
+        with pytest.raises(ValueError, match="stride 1"):
+            fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
+                                                    stride=2, deform_groups=2)
+        with pytest.raises(ValueError, match="does not divide"):
+            fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
+                                                    deform_groups=3)
+
+
+@pytest.mark.parametrize("name", ["EDVRNet", "BasicVSRPlusPlus"])
+def test_zoo_model_gpu_matches_cpu(cuda, name):
+    """Small EDVR and BasicVSR++ with seeded non-zero offset convs: the GPU
+    (DCN kernel) against the CPU (plain version); launches 4 a forward for
+    EDVR, 4 * (T - 1) for BasicVSR++."""
+    kw = dict(mid_channels=16, num_blocks_extraction=1,
+              num_blocks_reconstruction=1) if name == "EDVRNet" \
+        else dict(mid_channels=16, num_blocks=1)
+    model = init_weights(build(BACKBONES, dict(type=name, **kw)),
+                         torch.Generator().manual_seed(7)).eval()
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ModulatedDeformConv2d):
+                last = [m for m in mod.conv_offset.modules()
+                        if isinstance(m, torch.nn.Conv2d)][-1]
+                last.weight.normal_(0, 0.02, generator=gen)
+                last.bias.normal_(0, 3.0, generator=gen)
+    t = 5 if name == "EDVRNet" else 4
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 1, (1, t, 3, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        before = launch_counts()["dcn"]
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert launch_counts()["dcn"] - before == (4 if name == "EDVRNet"
+                                               else 4 * (t - 1))
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-3
+
+
 def test_wrappers_raise_on_bad_input(cuda):
     x = _rand(cuda, 19, 1, 6, 7, 8)
     wt = _rand(cuda, 20, 3, 3, 8, 8)
@@ -242,7 +322,9 @@ def test_small_model_gpu_grads_match_cpu(cuda, cin):
     before = launch_counts()
     charbonnier_sum(model(x.to(cuda)), gt.to(cuda)).backward()
     after = launch_counts()
-    assert all(after[k] > before[k] for k in after), (before, after)
+    fcvsr_kernels = ("iac", "iac_bwd", "conv3x3_pair", "conv3x3")
+    assert all(after[k] > before[k] for k in fcvsr_kernels), (before, after)
+    assert after["dcn"] == before["dcn"]
     got = {k: p.grad for k, p in model.named_parameters()
            if p.grad is not None}
     assert got.keys() == ref.keys()
