@@ -15,14 +15,17 @@ Phases, one line or more each:
      conv kernels (K2, K3) at the serving shape, the IAC adjoint (K5) at the
      training shape and at small odd shapes, the deformable conv (K7) at
      EDVR-M's and BasicVSR++'s shapes, without a mask and at small odd
-     shapes, and the conv autograd Functions' gradients at the three SCNet
-     levels;
+     shapes, its adjoint (K8) at the same cases and at the zoo's two
+     training shapes (each gradient's error over its max), and the conv
+     autograd Functions' gradients at the three SCNet levels;
   3. model parity, seeded weights, the GPU (kernels) against the same model
      on the CPU (plain versions): FCVSR full, Y, the output at
      (1, 7, 1, 64, 96) and ``loss.backward()``'s gradients at (1, 7, 1, 32,
      48), per parameter tensor; EDVR-M and BasicVSR++ at full width, with
      their offset convs seeded non-zero, the output at (1, 5, 3, 64, 96) and
-     the DCN launches per forward;
+     the DCN launches per forward; and ``VideoRestorer.loss_fn``'s
+     gradients at (1, 5, 3, 64, 64) per parameter tensor, beside the CPU's
+     own floor, with the K7 and K8 launches;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM), with the kernel launch counts per frame checked, then ``--fps``
@@ -32,14 +35,22 @@ Phases, one line or more each:
      (192x320, the whole clip in one recurrent forward); shapes, finite
      values and DCN launches per forward, checked; ms per restored frame
      (``cli.fps_benchmark``) and peak memory;
-  6. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
+  6. zoo training: ``VideoRestorer`` trains EDVR-M (4 windows of 5 frames)
+     and BasicVSR++ (1 sequence of 30 frames, SPyNet frozen by fix_iter)
+     on 64x64 LR patches that ``ClipFolderDataset`` samples from a
+     synthetic RGB clip, Adam (0.9, 0.999), Charbonnier-mean: 1 warm-up and
+     5 timed steps, the losses, ms per step, peak memory and K7 / K8
+     launches per step, checked, SPyNet unmoved and every other tensor
+     moved; then one ``torch.profiler`` step each (device time by kernel,
+     idle share);
+  7. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
      6, 128x128 LR patches from the clip, Adam, Charbonnier-sum) for one
      warm-up step, then resumes from its checkpoint for 5 timed steps; the
      losses, ms per step, peak memory and launch counts per step, checked;
-  7. a JSON line of the kernels (launches from the run of the path that
-     launches each: training for FCVSR's, zoo serving for the DCN; each
-     kernel's least time on the card from its bytes and operations), the
-     nvidia-smi line, and the result line.
+  8. a JSON line of the kernels (launches from the run of the path that
+     launches each: FCVSR training for FCVSR's, zoo training for K7 and K8;
+     each kernel's least time on the card from its bytes and operations),
+     the nvidia-smi line, and the result line.
 
 Any failure exits non-zero without a result line; so does a run without a
 CUDA device or outside the repository.  Imports nothing of JAX.
@@ -62,12 +73,12 @@ PRESET = "fcvsr_cvcpLD_QP22"
 # per frame of the full Y model: 6 iterations x 2 directions x 3 MGAA calls;
 # 2 pairs x 3 BlockRCBs x 3 levels x 10 groups; 3 group convs x 10 + conv_last0
 PER_FRAME = {"iac": 36, "iac_bwd": 0, "conv3x3_pair": 180, "conv3x3": 31,
-             "dcn": 0}
+             "dcn": 0, "dcn_bwd": 0}
 # per training step: the forward's launches; the IAC adjoint is two
 # launches an iteration; each pair's backward rebuilds its intermediate
 # with one conv3x3 launch
 PER_STEP = {"iac": 36, "iac_bwd": 72, "conv3x3_pair": 180, "conv3x3": 211,
-            "dcn": 0}
+            "dcn": 0, "dcn_bwd": 0}
 ZOO_T = 10  # frames of the zoo's serving clip
 
 
@@ -87,6 +98,8 @@ KERNELS = {
     "iac_bwd": ("fcvsr_tpu_torch/csrc/iac_bwd.cu",
                 "fcvsr_tpu/ops/pallas_iac.py:926"),
     "dcn": ("fcvsr_tpu_torch/csrc/dcn.cu", "fcvsr_tpu/ops/pallas_dcn.py:58"),
+    "dcn_bwd": ("fcvsr_tpu_torch/csrc/dcn_bwd.cu",
+                "fcvsr_tpu/ops/pallas_dcn.py:397"),
 }
 # f32 kernels against f32 plain versions that sum in another order: the
 # bound scales with the output's magnitude (IAC: 3x3 taps of a warped value
@@ -109,6 +122,12 @@ MODEL_ATOL = 1e-3
 # missing, or wrong in a kernel, is off by its own size.
 GRAD_RTOL = 1e-3
 FLIP_RTOL = 5e-2
+# the DCN adjoint against the plain VJP, each gradient relative to its own
+# max: dW sums up to 288,000 pixels (dx up to 36 contributions a value) by
+# atomics in an order that changes from run to run, against cuBLAS-style
+# sums in the plain version; f32 rounding of such sums stays near 1e-6 of
+# the max
+DCN_BWD_RTOL = 1e-4
 # NVIDIA's published H100 SXM peaks (data sheet): HBM bytes/s and float32
 # flop/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
@@ -352,6 +371,94 @@ def phase_kernels(torch, dev):
     return results
 
 
+def phase_dcn_bwd(torch, dev):
+    """The DCN adjoint (K8, two launches a call) against the plain VJP
+    (autograd through the plain forward) on the card, at K7's cases and at
+    the zoo's two training shapes.  Each of the five gradients is held to
+    DCN_BWD_RTOL of its own max; the timed cases time K8, the plain VJP and
+    cuDNN's convolution_backward (input, weight and bias gradients of the
+    plain conv of the same shapes, the zero-offset special case) in turns.
+    Work: x, offsets, mask, weights and g read, the five gradients
+    written; 2 flops a multiply-add of both 9 * Cin * Cout contractions
+    (g W^T and cols^T g) and 32 a sampled value (the sample, its two
+    derivatives, the 4-corner scatter and launch 2's re-sample).  Returns
+    the result-line fields of the first timed case."""
+    from fcvsr_tpu_torch.ops import fused_dcn
+    from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d_vjp
+
+    rng = np.random.default_rng(7)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    result = {"max_abs_err": 0.0}
+    names = ("dx", "doffset", "dmask", "dweight", "dbias")
+    for (label, b, h, w, cin, cout, dg, with_mask, timed) in (
+            ("EDVR-M l1 serving", 5, 180, 320, 64, 64, 8, True, True),
+            ("BasicVSR++ serving", 1, 192, 320, 128, 64, 16, True, True),
+            ("EDVR-M l1 training", 20, 64, 64, 64, 64, 8, True, True),
+            ("BasicVSR++ training", 1, 64, 64, 128, 64, 16, True, True),
+            ("v1", 2, 64, 96, 64, 64, 8, False, False),
+            ("odd", 2, 13, 29, 24, 40, 3, True, False),
+            ("odd", 1, 5, 7, 8, 70, 1, True, False)):
+        x = t(rng.standard_normal((b, h, w, cin)))
+        off = t(mixed_flows(rng, b, h, w, dg * 18))
+        mask = t(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg * 9))))) \
+            if with_mask else None
+        wd = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
+        bd = t(rng.standard_normal(cout) * 0.1)
+        g = t(rng.standard_normal((b, h, w, cout)))
+
+        def kern():
+            return fused_dcn.modulated_deform_conv2d_fused_vjp(
+                x, off, mask, wd, bd, g, deform_groups=dg)
+
+        def plain():
+            return modulated_deform_conv2d_vjp(x, off, mask, wd, bd, g, dg)
+
+        def library():
+            return torch.ops.aten.convolution_backward(
+                g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
+                wd.permute(3, 2, 0, 1), [cout], [1, 1], [1, 1], [1, 1], False,
+                [0, 0], 1, [True, True, True])
+
+        got, ref = kern(), plain()
+        torch.cuda.synchronize()
+        errs, scaled = {}, {}
+        for n, a, r in zip(names, got, ref):
+            if (a is None) != (r is None):
+                fail(f"dcn_bwd {label}: {n} is {a is not None} vs "
+                     f"{r is not None}")
+            if r is not None:
+                errs[n] = float((a - r).abs().max())
+                scaled[n] = errs[n] / float(r.abs().max())
+        line = dict(kernel="dcn_bwd", case=f"{label} {b}x{h}x{w} {cin}->"
+                    f"{cout} dg{dg} {'v2' if with_mask else 'v1'}",
+                    max_abs_err=errs, err_over_max=scaled, tol=DCN_BWD_RTOL)
+        if timed:
+            px = b * h * w
+            chans = cin + dg * 18 + (dg * 9 if with_mask else 0)
+            work = (4 * (px * (2 * chans + cout) + 2 * 9 * cin * cout
+                         + 2 * cout),
+                    px * 9 * cin * (4 * cout + 32))
+            times = cuda_ms(torch, [kern, plain, library])
+            bound_ms, bound_by = bound(*work)
+            line.update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        gflop=work[1] / 1e9, gbytes=work[0] / 1e9)
+            if "ms" not in result:
+                result.update((k, line[k]) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))
+        say("kernels", **line)
+        for n, e in scaled.items():
+            if not e <= DCN_BWD_RTOL:
+                fail(f"dcn_bwd {label}: {n} error {e} of its max > "
+                     f"{DCN_BWD_RTOL}")
+        result["max_abs_err"] = max(result["max_abs_err"], *errs.values())
+        del x, off, mask, g, got, ref
+    return result
+
+
 def phase_conv_grads(torch, dev):
     """The conv autograd Functions' gradients against autograd through the
     plain versions, at SCNet's three levels of a training batch.
@@ -413,6 +520,24 @@ def phase_conv_grads(torch, dev):
                 fail(f"conv gradients {label} {h}x{w}: {errs} > {tols}")
 
 
+def deviation(got, ref):
+    """(whole, median, max) relative deviation of one gradient dict from
+    another, and the tensors over GRAD_RTOL."""
+    rel, diff2, norm2 = {}, 0.0, 0.0
+    for k, r in ref.items():
+        g = got[k]
+        if (r is None) != (g is None):
+            fail(f"gradient of {k}: {r is not None} vs {g is not None}")
+        if r is None:
+            continue
+        d = float((g - r).norm())
+        diff2, norm2 = diff2 + d * d, norm2 + float(r.norm()) ** 2
+        rel[k] = d / float(r.norm()) if r.any() else d
+    over = {k: v for k, v in rel.items() if v > GRAD_RTOL}
+    return ((diff2 / norm2) ** 0.5, float(np.median(list(rel.values()))),
+            max(rel.values()), over)
+
+
 def phase_model(torch, dev):
     from fcvsr_tpu_torch.models import FCVSRNet, init_weights
 
@@ -450,23 +575,6 @@ def phase_model(torch, dev):
         charbonnier_sum(model(inp.to(device)), gt.to(device)).backward()
         return {k: None if p.grad is None else p.grad.cpu()
                 for k, p in model.named_parameters()}
-
-    def deviation(got, ref):
-        """(whole, median, max) relative deviation, and the tensors over
-        GRAD_RTOL."""
-        rel, diff2, norm2 = {}, 0.0, 0.0
-        for k, r in ref.items():
-            g = got[k]
-            if (r is None) != (g is None):
-                fail(f"gradient of {k}: {r is not None} vs {g is not None}")
-            if r is None:
-                continue
-            d = float((g - r).norm())
-            diff2, norm2 = diff2 + d * d, norm2 + float(r.norm()) ** 2
-            rel[k] = d / float(r.norm()) if r.any() else d
-        over = {k: v for k, v in rel.items() if v > GRAD_RTOL}
-        return ((diff2 / norm2) ** 0.5, float(np.median(list(rel.values()))),
-                max(rel.values()), over)
 
     ref = grads(x, "cpu")
     moved = x * (1 + 1e-6 * torch.from_numpy(
@@ -537,6 +645,21 @@ def phase_zoo_models(torch, dev):
         del model
 
 
+def smooth_clip(torch, seed: int, n: int, h: int, w: int) -> np.ndarray:
+    """A smooth random RGB clip (n, h, w, 3) in [0, 1]: each frame a
+    bilinear upsampling of a coarse grid, drifting a little from frame to
+    frame."""
+    rng = np.random.default_rng(seed)
+    coarse = rng.uniform(0, 1, (1, 3, h // 8 + 1, w // 8 + 1))
+    frames = []
+    for i in range(n):
+        c = torch.nn.functional.interpolate(
+            torch.from_numpy(np.roll(coarse, i, axis=-1)), size=(h, w),
+            mode="bilinear", align_corners=False)
+        frames.append(c[0].permute(1, 2, 0).numpy())
+    return np.stack(frames).astype(np.float32)
+
+
 def phase_zoo(torch, card):
     """Zoo serving: a synthetic 10-frame RGB clip restored through
     ``apis.restoration_video_inference`` by EDVR-M (5-frame windows) and
@@ -548,17 +671,7 @@ def phase_zoo(torch, card):
     for name, (h, w), window in (("EDVRNet", (180, 320), 5),
                                  ("BasicVSRPlusPlus", (192, 320), 0)):
         model = zoo_model(torch, name).to("cuda")
-        rng = np.random.default_rng(6)
-        # a smooth random clip: each frame a bilinear upsampling of a coarse
-        # grid, drifting a little from frame to frame
-        coarse = rng.uniform(0, 1, (1, 3, h // 8 + 1, w // 8 + 1))
-        frames = []
-        for i in range(ZOO_T):
-            c = torch.nn.functional.interpolate(
-                torch.from_numpy(np.roll(coarse, i, axis=-1)), size=(h, w),
-                mode="bilinear", align_corners=False)
-            frames.append(c[0].permute(1, 2, 0).numpy())
-        frames = np.stack(frames).astype(np.float32)
+        frames = smooth_clip(torch, 6, ZOO_T, h, w)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
@@ -589,6 +702,174 @@ def phase_zoo(torch, card):
             fail(f"{name}: bad timing {fps}")
         del model
     return {k: sum(c[k] for c in counts.values()) for k in counts["EDVRNet"]}
+
+
+def phase_zoo_grads(torch, dev):
+    """EDVR-M and BasicVSR++ at full width, ``VideoRestorer.loss_fn``'s
+    gradients (Charbonnier-mean) on the card (K7 forward, K8 backward)
+    against the CPU (plain versions), per parameter tensor, beside the CPU's
+    own floor (the same step with the input moved by 1e-6 of itself)."""
+    from fcvsr_tpu_torch.models import VideoRestorer
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 5, 3, 64, 64))
+                         .astype(np.float32))
+    gt = torch.from_numpy(rng.uniform(0, 1, (1, 5, 3, 256, 256))
+                          .astype(np.float32))
+    moved = x * (1 + 1e-6 * torch.from_numpy(
+        rng.standard_normal(x.shape).astype(np.float32)))
+    for name in ("EDVRNet", "BasicVSRPlusPlus"):
+        model = zoo_model(torch, name).train()
+        restorer = VideoRestorer(model, center_frame_only=name == "EDVRNet")
+
+        def grads(inp, device):
+            model.zero_grad(set_to_none=True)
+            model.to(device)
+            restorer.loss_fn(inp.to(device), gt.to(device))[0].backward()
+            return {k: None if p.grad is None else p.grad.cpu()
+                    for k, p in model.named_parameters()}
+
+        ref = grads(x, "cpu")
+        floor = deviation(grads(moved, "cpu"), ref)
+        reset_launch_counts()
+        got = grads(x, dev)
+        counts = launch_counts()
+        whole, median, worst, over = deviation(got, ref)
+        say("zoo_grads", model=name, shape=list(x.shape),
+            tensors=sum(g is not None for g in ref.values()),
+            whole_rel_err=whole, median_rel_err=median, max_rel_err=worst,
+            over_grad_rtol=over, grad_rtol=GRAD_RTOL, flip_rtol=FLIP_RTOL,
+            cpu_floor_1e6=dict(whole=floor[0], median=floor[1],
+                               max=floor[2], over_grad_rtol=floor[3]),
+            launches=counts)
+        want = dcn_per_forward(name, 5)
+        if (counts["dcn"], counts["dcn_bwd"]) != (want, 2 * want):
+            fail(f"{name}: DCN launches {counts}, expected {want} forward "
+                 f"and {2 * want} adjoint")
+        if not (whole <= GRAD_RTOL and median <= GRAD_RTOL
+                and worst <= FLIP_RTOL):
+            fail(f"{name}: GPU vs CPU gradients beyond the bounds: whole "
+                 f"{whole}, median {median}, over {over}")
+        del model
+
+
+def write_rgb_clip(torch, root: str, n: int, h: int, w: int):
+    """A smooth random RGB clip as PNGs: GT at 4x (``smooth_clip`` plus
+    noise), LR its 4x4 block mean."""
+    from PIL import Image
+
+    rng = np.random.default_rng(9)
+    for i, frame in enumerate(smooth_clip(torch, 9, n, 4 * h, 4 * w)):
+        gt = np.clip(frame * 255 + rng.normal(0, 4, frame.shape), 0, 255)
+        lr = gt.reshape(h, 4, w, 4, 3).mean((1, 3))
+        for sub, img in (("lr", lr), ("gt", gt)):
+            d = os.path.join(root, sub, "clip")
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(img.astype(np.uint8)).save(
+                os.path.join(d, f"{i:08d}.png"))
+
+
+# the recipes' per-GPU batches: mmedit's edvrm_x4_g8_600k_reds (4 windows
+# of 5 frames, centre GT) and basicvsr_plusplus_c64n7_8x1_600k_reds4 (1
+# sequence of 30 frames, per-frame GT, SPyNet frozen for 5000 steps); LR
+# patches of 64; Adam (0.9, 0.999), Charbonnier-mean
+ZOO_TRAIN = {
+    "EDVRNet": dict(batch=4, frames=5, lr=4e-4, fix_iter=0),
+    "BasicVSRPlusPlus": dict(batch=1, frames=30, lr=1e-4, fix_iter=5000),
+}
+
+
+def phase_zoo_train(torch, card):
+    """Training of the zoo on the card through ``VideoRestorer``: batches
+    sampled from a synthetic RGB clip by ``ClipFolderDataset``, 1 warm-up
+    and 5 timed steps, the launches of all 6 checked, SPyNet frozen and
+    every other tensor moving; then one ``torch.profiler`` step.  Returns
+    the launch counts of the 6 steps of both models."""
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.data import ClipFolderDataset
+    from fcvsr_tpu_torch.models import VideoRestorer
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.train.trainer import TrainState
+
+    dev = torch.device("cuda", 0)
+    totals = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_rgb_clip(torch, tmp, 32, 72, 96)
+        for name, cfg in ZOO_TRAIN.items():
+            seq = cfg["frames"] > 5
+            data = ClipFolderDataset(os.path.join(tmp, "lr"),
+                                     os.path.join(tmp, "gt"),
+                                     window=cfg["frames"])
+            rng = np.random.default_rng(10)
+            batches = []
+            for _ in range(6):
+                pairs = [(data.sample_train_sequence(rng, 64) if seq
+                          else data.sample_train_window(rng, 64))
+                         for _ in range(cfg["batch"])]
+                lq = np.stack([p[0] for p in pairs]).transpose(0, 1, 4, 2, 3)
+                gt = np.stack([p[1] for p in pairs])
+                gt = gt.transpose(0, 1, 4, 2, 3) if seq \
+                    else gt.transpose(0, 3, 1, 2)
+                batches.append((torch.from_numpy(np.ascontiguousarray(lq))
+                                .to(dev),
+                                torch.from_numpy(np.ascontiguousarray(gt))
+                                .to(dev)))
+            model = zoo_model(torch, name).train().to(dev)
+            restorer = VideoRestorer(model, center_frame_only=not seq,
+                                     fix_iter=cfg["fix_iter"])
+            state = TrainState(model, lambda s, lr=cfg["lr"]: lr,
+                               betas=(0.9, 0.999))
+            step = restorer.make_train_step(state)
+            start = {k: p.detach().clone()
+                     for k, p in model.named_parameters()}
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            losses, ms = [], []
+            for lq, gt in batches:
+                t0 = torch.cuda.Event(enable_timing=True)
+                t1 = torch.cuda.Event(enable_timing=True)
+                t0.record()
+                out = step(lq, gt)
+                t1.record()
+                torch.cuda.synchronize()
+                losses.append(float(out["loss"]))
+                ms.append(t0.elapsed_time(t1))
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            totals[name] = counts
+            per_step = {k: v / len(batches) for k, v in counts.items()}
+            now = dict(model.named_parameters())
+            frozen = sorted(k for k in start if restorer.is_frozen(k))
+            still = sorted(k for k in start if torch.equal(now[k], start[k]))
+            want = dcn_per_forward(name, cfg["frames"])
+            say("zoo_train", model=name, batch=cfg["batch"],
+                frames=cfg["frames"], lr_patch=64, steps=len(batches),
+                losses=losses, warmup_ms=ms[0], ms_per_step=ms[1:],
+                ms_median=float(np.median(ms[1:])), ms_min=min(ms[1:]),
+                ms_max=max(ms[1:]), max_memory_allocated=peak,
+                launches=counts, launches_per_step=per_step,
+                frozen_tensors=len(frozen), unmoved_tensors=len(still),
+                tensors=len(start), card=card)
+            if not all(math.isfinite(v) for v in losses):
+                fail(f"{name}: non-finite training loss {losses}")
+            if per_step != {k: float(want if k == "dcn" else 2 * want
+                                     if k == "dcn_bwd" else 0)
+                            for k in counts}:
+                fail(f"{name}: launches per step {per_step}, expected "
+                     f"{want} forward and {2 * want} adjoint DCN launches "
+                     "and no other kernel")
+            if still != frozen or (seq and not frozen):
+                fail(f"{name}: unmoved tensors {still[:8]} differ from the "
+                     f"frozen ones {frozen[:8]}")
+            lq, gt = batches[-1]
+            prof = profiling._profile(lambda: step(lq, gt), dev, 1)
+            prof["kernels"] = prof["kernels"][:12]
+            say("zoo_train_profile", model=name, card=card, **prof)
+            del model, state, batches
+    return {k: sum(c[k] for c in totals.values()) for k in totals["EDVRNet"]}
 
 
 def write_clip(root: str, n: int = 10, h: int = 270, w: int = 480):
@@ -713,21 +994,27 @@ def main() -> None:
 
     results = phase_kernels(torch, dev)
     torch.cuda.empty_cache()
+    results["dcn_bwd"] = phase_dcn_bwd(torch, dev)
+    torch.cuda.empty_cache()
     phase_conv_grads(torch, dev)
     torch.cuda.empty_cache()
     phase_model(torch, dev)
     torch.cuda.empty_cache()
     phase_zoo_models(torch, dev)
     torch.cuda.empty_cache()
+    phase_zoo_grads(torch, dev)
+    torch.cuda.empty_cache()
     phase_slice(torch, card)
-    zoo_counts = phase_zoo(torch, card)
+    phase_zoo(torch, card)
+    torch.cuda.empty_cache()
+    zoo_counts = phase_zoo_train(torch, card)
     torch.cuda.empty_cache()
     train_counts = phase_train(torch, card)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        path, counts = ("zoo serving", zoo_counts) if name == "dcn" \
-            else ("training", train_counts)
+        path, counts = ("zoo training", zoo_counts) \
+            if name in ("dcn", "dcn_bwd") else ("training", train_counts)
         if counts[name] == 0:
             fail(f"kernel {name} was not launched on the {path} path")
         kernels.append(dict(name=name, route="cuda", source=source,

@@ -1,6 +1,6 @@
 """fcvsr_tpu_torch - FCVSR inference and training, and EDVR / BasicVSR++
-serving, in PyTorch, with hand-written CUDA kernels for an NVIDIA Hopper GPU
-(H100).
+serving and training, in PyTorch, with hand-written CUDA kernels for an
+NVIDIA Hopper GPU (H100).
 
 The port of ``fcvsr_tpu`` (JAX, the reference it is tested against; the
 port imports nothing of it):
@@ -11,11 +11,12 @@ port imports nothing of it):
            that train through them
   csrc/    the CUDA sources, built with nvcc for sm_90a at first use
   models/  FCVSRNet (full and -S) with reference state_dict keys; EDVRNet,
-           BasicVSRPlusPlus and SpyNet with mmedit's; the registry
+           BasicVSRPlusPlus and SpyNet with mmedit's; the registry; the
+           restorer that trains and evaluates the zoo (VideoRestorer)
   train/   losses, LR schedules, the train state and step, and the training
            entry point (``python -m fcvsr_tpu_torch.train.cli``)
-  data/    clip folders, windows, crops and flips (numpy)
-  metrics/ PSNR / SSIM (numpy)
+  data/    clip folders, windows and sequences, crops and flips (numpy)
+  metrics/ PSNR / SSIM / tOF (numpy)
   utils/   presets, checkpoints, weight conversion from the JAX params
   apis.py  video inference: sliding windows, or a recurrent model over the
            whole clip

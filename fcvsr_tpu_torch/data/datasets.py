@@ -1,7 +1,7 @@
 """Paired LR / GT clip folders (the port's own copy of the parts of
 ``fcvsr_tpu.data.datasets`` it uses): ``lr_root/{seq}/{frame}.png`` beside
 the same names under ``gt_root``, iterated as test windows or sampled as
-training windows.  Numpy and PIL only."""
+training windows or sequences.  Numpy and PIL only."""
 
 from __future__ import annotations
 
@@ -84,3 +84,20 @@ class ClipFolderDataset:
         lr, gt = paired_random_crop(rng, lr, gt, lr_patch, self.scale)
         lr, gt = paired_flip_rotate(rng, lr, gt)
         return to_float(lr), to_float(gt[0])
+
+    def sample_train_sequence(self, rng: np.random.Generator,
+                              lr_patch: int = 64):
+        """Random window with per-frame GT, for recurrent models (mmedit's
+        SRREDSMultipleGTDataset): the sequence, segment, aligned crop and
+        flips drawn from ``rng`` in the JAX package's order.  Returns
+        (lr (T,p,p,C) f32, gt (T,P,P,C) f32) in [0, 1]."""
+        seq = self.sequences[int(rng.integers(len(self.sequences)))]
+        lr_paths, gt_paths = self.seq_frames(seq)
+        if not gt_paths:
+            raise ValueError("training needs gt_root")
+        idx = segment_indices(rng, len(lr_paths), self.window)
+        lr = np.stack([load_image(lr_paths[j], self.grayscale) for j in idx])
+        gt = np.stack([load_image(gt_paths[j], self.grayscale) for j in idx])
+        lr, gt = paired_random_crop(rng, lr, gt, lr_patch, self.scale)
+        lr, gt = paired_flip_rotate(rng, lr, gt)
+        return to_float(lr), to_float(gt)

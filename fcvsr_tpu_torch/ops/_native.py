@@ -51,6 +51,13 @@ _SIGNATURES = {
                            _F, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, dg, stream
     "fcvsr_dcn3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # x, offset, mask, w, g, dx, doffset, dmask, B, H, W, Cin, Cout, dg,
+    # stream
+    "fcvsr_dcn3x3_bwd_data": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P],
+    # x, offset, mask, g, dw, dbias, B, H, W, Cin, Cout, dg, stream
+    "fcvsr_dcn3x3_bwd_weight": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _P],
 }
 
 _lock = threading.Lock()
@@ -167,9 +174,10 @@ def require(t, name: str, device: torch.device, shape=None) -> None:
     if t.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(
             f"{name} requires grad: a kernel launch records no autograd "
-            "history; train through fused_iac.iac_fused and "
-            "fused_conv.conv3x3[_pair], which route to their autograd "
-            "Functions, or run under torch.no_grad()")
+            "history; train through fused_iac.iac_fused, "
+            "fused_conv.conv3x3[_pair] and "
+            "fused_dcn.modulated_deform_conv2d_fused, which route to their "
+            "autograd Functions, or run under torch.no_grad()")
 
 
 def records(*tensors) -> bool:

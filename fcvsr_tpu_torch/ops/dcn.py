@@ -10,8 +10,9 @@ its own Cin / deform_groups channels: the JAX package samples whole rows at
 every group's positions, a TPU gather trick that costs deform_groups times
 the memory.  All tensors are channels-last; the weight is HWIO.
 
-This is the plain version of the CUDA kernel of ``ops.fused_dcn``; CPU
-tensors run it, under ordinary autograd.
+This is the plain version of the CUDA kernels of ``ops.fused_dcn``: CPU
+tensors run it, under ordinary autograd, and :func:`modulated_deform_conv2d_vjp`
+(autograd through it) is the plain version of the adjoint kernel.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 
 from .warp import grid_sample_bilinear
 
-__all__ = ["deform_im2col", "modulated_deform_conv2d"]
+__all__ = ["deform_im2col", "modulated_deform_conv2d",
+           "modulated_deform_conv2d_vjp"]
 
 
 def deform_im2col(x, offset, kernel_size=(3, 3), stride: int = 1,
@@ -83,3 +85,18 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None,
         out = torch.einsum("nkgc,kcgo->ngo", cols, wk)
     out = out.reshape(b, ho, wo, cout)
     return out if bias is None else out + bias
+
+
+def modulated_deform_conv2d_vjp(x, offset, mask, weight, bias, g,
+                                deform_groups: int = 1):
+    """The plain adjoint of the 3x3 / stride 1 / padding 1 configuration:
+    ``torch.autograd.grad`` of :func:`modulated_deform_conv2d` at the
+    cotangent ``g`` (B, H, W, Cout).  Returns (dx, doffset, dmask, dweight,
+    dbias), dmask None without a mask and dbias None without a bias."""
+    with torch.enable_grad():
+        ins = [None if t is None else t.detach().requires_grad_()
+               for t in (x, offset, mask, weight, bias)]
+        out = modulated_deform_conv2d(*ins, deform_groups=deform_groups)
+        live = [t for t in ins if t is not None]
+        grads = iter(torch.autograd.grad(out, live, g))
+    return tuple(None if t is None else next(grads) for t in ins)

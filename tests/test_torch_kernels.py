@@ -217,6 +217,9 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero():
                            _t(feat_in))
     fused_dcn.modulated_deform_conv2d_fused(
         _t(x), torch.zeros(2, 5, 6, 18), None, _t(w1), _t(b1))
+    fused_dcn.modulated_deform_conv2d_fused_vjp(
+        _t(x), torch.zeros(2, 5, 6, 18), None, _t(w1), _t(b1),
+        torch.ones(2, 5, 6, 8))
     assert launch_counts() == before == {"iac": 0, "iac_bwd": 0,
                                          "conv3x3_pair": 0, "conv3x3": 0,
-                                         "dcn": 0}
+                                         "dcn": 0, "dcn_bwd": 0}

@@ -9,10 +9,15 @@ Shapes are small and odd: H and W not multiples of the tiles (IAC and its
 adjoint 8x16, conv 8x16 / 16x16), channel counts not multiples of the
 16-channel chunks, C_out 1 and 3; the DCN at frames smaller than its
 128-pixel tile, Cin not a multiple of its 32-channel chunk, one deform group
-wider than a chunk and C_out above its 64-channel block.  Tolerance: f32
+wider than a chunk and C_out above its 64-channel block, and its adjoint
+(two launches a call) at those shapes and with groups split across
+chunks, alone, under its autograd Function and through the small zoo
+models' training gradients.  Tolerance: f32
 against f32 in another summation order, 2e-5 (IAC), 1e-5 (its adjoint, whose
 dsrc sums by atomics in an order that changes from run to run) and 1e-4
-(convs, DCN) times max(1, max |plain|).  The small zoo models on the card
+(convs, DCN) times max(1, max |plain|); the DCN adjoint's five gradients
+1e-4 times their own max (its dW sums over every pixel and its dx by
+atomics).  The small zoo models on the card
 are held to the CPU at 1e-3, as chip_smoke.py holds the full ones.  The
 training path's gradients (the autograd Functions and the model) are held
 to their plain versions the same way, and the model's: the whole gradient
@@ -28,7 +33,8 @@ import torch
 from fcvsr_tpu_torch.models import BACKBONES, FCVSRNet, build, init_weights
 from fcvsr_tpu_torch.models.basicvsr import ModulatedDeformConv2d
 from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac, launch_counts
-from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
+from fcvsr_tpu_torch.ops.dcn import (modulated_deform_conv2d,
+                                     modulated_deform_conv2d_vjp)
 from fcvsr_tpu_torch.train.losses import charbonnier_sum
 
 pytestmark = pytest.mark.gpu
@@ -227,12 +233,20 @@ def test_dcn_kernel_matches_plain(cuda, b, h, w, cin, cout, dg, with_mask):
 
 
 def test_dcn_kernel_raises_under_autograd_and_on_other_configs(cuda):
+    """Under autograd the wrapper runs DCNFn (one forward launch, no
+    refusal); a configuration the kernels do not take raises, with or
+    without autograd, and so does a deform group count not dividing Cin."""
     x = _rand(cuda, 55, 1, 6, 7, 16)
     off = _rand(cuda, 56, 1, 6, 7, 2 * 18)
     mask = _rand(cuda, 57, 1, 6, 7, 2 * 9)
     wt = _rand(cuda, 58, 3, 3, 16, 8).requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
+    n0 = fused_dcn.modulated_deform_conv2d_fused.launches
+    out = fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
+                                                  deform_groups=2)
+    assert out.grad_fn is not None
+    assert fused_dcn.modulated_deform_conv2d_fused.launches == n0 + 1
+    with pytest.raises(ValueError, match="stride 1"):
+        fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt, stride=2,
                                                 deform_groups=2)
     with torch.no_grad():
         fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
@@ -243,6 +257,73 @@ def test_dcn_kernel_raises_under_autograd_and_on_other_configs(cuda):
         with pytest.raises(ValueError, match="does not divide"):
             fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt,
                                                     deform_groups=3)
+
+
+def _dcn_case(dev, seed, b, h, w, cin, cout, dg, with_mask, bias=True):
+    x = _rand(dev, seed, b, h, w, cin)
+    off = torch.cat([_flows(dev, seed + 1 + i, b, h, w, 1.5)
+                     for i in range(9 * dg)], -1)
+    mask = torch.sigmoid(_rand(dev, seed + 2, b, h, w, 9 * dg)) \
+        if with_mask else None
+    wt = _rand(dev, seed + 3, 3, 3, cin, cout, scale=1 / np.sqrt(9 * cin))
+    bb = _rand(dev, seed + 4, cout) if bias else None
+    g = _rand(dev, seed + 5, b, h, w, cout)
+    return x, off, mask, wt, bb, g
+
+
+def _assert_grads_close(got, ref, rtol):
+    """Each gradient within rtol of its own max: the weight gradient sums
+    over every pixel, dx by atomics in an order that changes from run to
+    run."""
+    torch.cuda.synchronize()
+    for a, r in zip(got, ref):
+        assert (a is None) == (r is None)
+        if r is not None:
+            err = float((a - r).abs().max())
+            assert err <= rtol * max(1e-6, float(r.abs().max())), (err, r.shape)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,dg,with_mask,bias", [
+    (2, 13, 29, 24, 40, 3, True, True),    # odd frame, a chunk cut short
+    (1, 5, 7, 8, 70, 1, True, False),      # smaller than a tile, 2 co blocks
+    (2, 9, 21, 64, 64, 8, False, True),    # DCNv1 (no mask), EDVR's layout
+    (1, 12, 10, 128, 64, 16, True, True),  # BasicVSR++'s layout
+    (1, 6, 11, 64, 20, 1, True, True),     # one group wider than a chunk
+    (3, 17, 19, 48, 24, 2, True, True),    # 24-channel groups across chunks
+])
+def test_dcn_bwd_kernel_matches_plain(cuda, b, h, w, cin, cout, dg,
+                                      with_mask, bias):
+    """K8 (two launches a call) against the plain VJP, offsets small, +-20
+    px and out of the frame."""
+    x, off, mask, wt, bb, g = _dcn_case(cuda, 60, b, h, w, cin, cout, dg,
+                                        with_mask, bias)
+    n0 = fused_dcn.modulated_deform_conv2d_fused_vjp.launches
+    got = fused_dcn.modulated_deform_conv2d_fused_vjp(x, off, mask, wt, bb, g,
+                                                      deform_groups=dg)
+    assert fused_dcn.modulated_deform_conv2d_fused_vjp.launches == n0 + 2
+    ref = modulated_deform_conv2d_vjp(x, off, mask, wt, bb, g, dg)
+    _assert_grads_close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_dcn_function_grads_match_plain(cuda, with_mask):
+    """DCNFn under autograd: one K7 launch forward, two K8 launches
+    backward, the gradients of autograd through the plain forward."""
+    x, off, mask, wt, bb, g = _dcn_case(cuda, 70, 2, 11, 15, 32, 24, 4,
+                                        with_mask)
+    leaves = [t.requires_grad_() for t in (x, off, mask, wt, bb)
+              if t is not None]
+    before = launch_counts()
+    out = fused_dcn.modulated_deform_conv2d_fused(x, off, mask, wt, bb,
+                                                  deform_groups=4)
+    got = torch.autograd.grad(out, leaves, g)
+    after = launch_counts()
+    assert after["dcn"] - before["dcn"] == 1
+    assert after["dcn_bwd"] - before["dcn_bwd"] == 2
+    ref = torch.autograd.grad(
+        modulated_deform_conv2d(x, off, mask, wt, bb, deform_groups=4),
+        leaves, g)
+    _assert_grads_close(got, ref, 1e-4)
 
 
 @pytest.mark.parametrize("name", ["EDVRNet", "BasicVSRPlusPlus"])
@@ -274,6 +355,61 @@ def test_zoo_model_gpu_matches_cpu(cuda, name):
                                                else 4 * (t - 1))
     assert got.shape == ref.shape
     assert float((got - ref).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["EDVRNet", "BasicVSRPlusPlus"])
+def test_zoo_model_gpu_grads_match_cpu(cuda, name):
+    """Small EDVR and BasicVSR++ trained one step's gradient on the card (K7
+    forward, K8 backward: 2 adjoint launches a DCN) against the CPU: the
+    whole gradient and the median tensor within 1e-3 of their norm, each
+    tensor of the DCNs (their weights and offset convs) within 5e-2 (a
+    sample point or a relu input within f32 noise of its branch moves the
+    tensors behind it).  Elsewhere, at 16 channels, one max-pool window
+    of EDVR's TSA fusion whose two largest values lie within f32 noise of
+    each other moves a small tensor by more (fusion.spatial_attn1 went past
+    5e-2 once)."""
+    from fcvsr_tpu_torch.models import VideoRestorer
+
+    kw = dict(mid_channels=16, num_blocks_extraction=1,
+              num_blocks_reconstruction=1) if name == "EDVRNet" \
+        else dict(mid_channels=16, num_blocks=1)
+    model = init_weights(build(BACKBONES, dict(type=name, **kw)),
+                         torch.Generator().manual_seed(7))
+    gen = torch.Generator().manual_seed(8)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ModulatedDeformConv2d):
+                last = [m for m in mod.conv_offset.modules()
+                        if isinstance(m, torch.nn.Conv2d)][-1]
+                last.weight.normal_(0, 0.02, generator=gen)
+                last.bias.normal_(0, 3.0, generator=gen)
+    t = 5 if name == "EDVRNet" else 4
+    rng = np.random.default_rng(10)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, t, 3, 64, 64))
+                         .astype(np.float32))
+    gt = torch.from_numpy(rng.uniform(0, 1, (1, t, 3, 256, 256))
+                          .astype(np.float32))
+    restorer = VideoRestorer(model, center_frame_only=name == "EDVRNet")
+    restorer.loss_fn(x, gt)[0].backward()
+    ref = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.to(cuda)
+    before = launch_counts()
+    restorer.loss_fn(x.to(cuda), gt.to(cuda))[0].backward()
+    after = launch_counts()
+    n = 4 if name == "EDVRNet" else 4 * (t - 1)
+    assert after["dcn"] - before["dcn"] == n
+    assert after["dcn_bwd"] - before["dcn_bwd"] == 2 * n
+    got = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    rel = {k: float((got[k] - r).norm() / r.norm()) for k, r in ref.items()}
+    whole = float(torch.cat([(got[k] - r).flatten() for k, r in
+                             ref.items()]).norm()
+                  / torch.cat([r.flatten() for r in ref.values()]).norm())
+    assert whole <= 1e-3 and float(np.median(list(rel.values()))) <= 1e-3
+    dcn = {k: v for k, v in rel.items()
+           if "dcn" in k or "deform_align" in k}
+    assert dcn and max(dcn.values()) <= 5e-2, max(dcn.items(),
+                                                  key=lambda kv: kv[1])
 
 
 def test_wrappers_raise_on_bad_input(cuda):
