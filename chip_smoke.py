@@ -12,7 +12,11 @@ Phases, one line or more each:
      with the max abs error against the stated tolerance, both CUDA-event
      times (median of 7 after 2 warm-ups, the versions timed in turns) and
      the least time the card could take: the IAC iteration (K1) and the
-     conv kernels (K2, K3) at the serving shape, the IAC adjoint (K5) at the
+     conv kernels (K2, K3) at the serving shape, in float32 and bf16
+     storage; the resident IAC chain (K4) at 272x480x64, 6 iterations, B 1
+     and 2, float32 and bf16, also against 6 K1 launches; the BlockRCB quad
+     (K6) at SCNet's three levels, float32 and bf16, also against 2 K2
+     launches; the IAC adjoint (K5) at the
      training shape and at small odd shapes, the deformable conv (K7) at
      EDVR-M's and BasicVSR++'s shapes, without a mask and at small odd
      shapes, its adjoint (K8) at the same cases and at the zoo's two
@@ -20,7 +24,9 @@ Phases, one line or more each:
      autograd Functions' gradients at the three SCNet levels;
   3. model parity, seeded weights, the GPU (kernels) against the same model
      on the CPU (plain versions): FCVSR full, Y, the output at
-     (1, 7, 1, 64, 96) and ``loss.backward()``'s gradients at (1, 7, 1, 32,
+     (1, 7, 1, 64, 96) (also under each serving flag set: the exact flags,
+     ``--fast``, ``--fast`` with the resident chain and the quad) and
+     ``loss.backward()``'s gradients at (1, 7, 1, 32,
      48), per parameter tensor; EDVR-M and BasicVSR++ at full width, with
      their offset convs seeded non-zero, the output at (1, 5, 3, 64, 96) and
      the DCN launches per forward; and ``VideoRestorer.loss_fn``'s
@@ -30,6 +36,11 @@ Phases, one line or more each:
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM), with the kernel launch counts per frame checked, then ``--fps``
      at 1 x 7 x 1 x 272 x 480;
+  4b. fast serving: the same with ``--fast``, then with ``--fast
+     --iac-chain resident --scnet-fuse quad``: the clip with the launches
+     per frame checked, ``--fps`` with the peak memory, then the exact
+     path, ``k_fused``, ``--fast`` and ``--fast`` + resident + quad timed
+     in turns on one model (``profiling.serving_compare``);
   5. zoo serving: ``apis.restoration_video_inference`` restores a synthetic
      10-frame RGB clip with EDVR-M (180x320, 5-frame windows) and BasicVSR++
      (192x320, the whole clip in one recurrent forward); shapes, finite
@@ -48,7 +59,8 @@ Phases, one line or more each:
      warm-up step, then resumes from its checkpoint for 5 timed steps; the
      losses, ms per step, peak memory and launch counts per step, checked;
   8. a JSON line of the kernels (launches from the run of the path that
-     launches each: FCVSR training for FCVSR's, zoo training for K7 and K8;
+     launches each: FCVSR training for FCVSR's, fast serving with the
+     resident chain and the quad for K4 and K6, zoo training for K7 and K8;
      each kernel's least time on the card from its bytes and operations),
      the nvidia-smi line, and the result line.
 
@@ -72,13 +84,36 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PRESET = "fcvsr_cvcpLD_QP22"
 # per frame of the full Y model: 6 iterations x 2 directions x 3 MGAA calls;
 # 2 pairs x 3 BlockRCBs x 3 levels x 10 groups; 3 group convs x 10 + conv_last0
-PER_FRAME = {"iac": 36, "iac_bwd": 0, "conv3x3_pair": 180, "conv3x3": 31,
-             "dcn": 0, "dcn_bwd": 0}
+PER_FRAME = {"iac": 36, "iac_chain": 0, "iac_bwd": 0, "conv3x3_pair": 180,
+             "conv3x3_quad": 0, "conv3x3": 31, "dcn": 0, "dcn_bwd": 0}
+# --fast: MGAA(f1, f3) batched, so 2 MGAA calls x 2 directions x 6
+# iterations; conv_last0 folded into the tail (no conv3x3 launch)
+FAST_PER_FRAME = dict(PER_FRAME, iac=24, conv3x3=30)
+# --fast --iac-chain resident --scnet-fuse quad: one launch a chain, one a
+# BlockRCB body (3 BlockRCBs x 3 levels x 10 groups)
+FUSED_PER_FRAME = dict(PER_FRAME, iac=0, iac_chain=4, conv3x3_pair=0,
+                       conv3x3_quad=90, conv3x3=30)
+FAST_RUNS = {"fast": ["--fast"],
+             "fast_resident_quad": ["--fast", "--iac-chain", "resident",
+                                    "--scnet-fuse", "quad"]}
+# each serving flag alone over the exact path, the two fast sets, and the
+# two flags that won alone on the H100 (PERF.md), timed in turns on one
+# model
+FLAG_VARIANTS = {
+    "exact": {}, "batch_mgaa": dict(batch_mgaa=True),
+    "folded": dict(tail_impl="folded"), "k_fused": dict(k_fused=True),
+    "iac_bf16": dict(iac_dtype="bf16"), "scnet_bf16": dict(scnet_dtype="bf16"),
+    "resident": dict(iac_chain="resident"), "quad": dict(scnet_fuse="quad"),
+    "fast": dict(batch_mgaa=True, k_fused=True, tail_impl="folded",
+                 iac_dtype="bf16", scnet_dtype="bf16"),
+    "fast_resident_quad": dict(batch_mgaa=True, tail_impl="folded",
+                               iac_chain="resident", scnet_fuse="quad",
+                               iac_dtype="bf16", scnet_dtype="bf16"),
+    "batch_mgaa_scnet_bf16": dict(batch_mgaa=True, scnet_dtype="bf16")}
 # per training step: the forward's launches; the IAC adjoint is two
 # launches an iteration; each pair's backward rebuilds its intermediate
 # with one conv3x3 launch
-PER_STEP = {"iac": 36, "iac_bwd": 72, "conv3x3_pair": 180, "conv3x3": 211,
-            "dcn": 0, "dcn_bwd": 0}
+PER_STEP = dict(PER_FRAME, iac_bwd=72, conv3x3=211)
 ZOO_T = 10  # frames of the zoo's serving clip
 
 
@@ -91,8 +126,12 @@ def dcn_per_forward(model: str, t: int) -> int:
 
 KERNELS = {
     "iac": ("fcvsr_tpu_torch/csrc/iac.cu", "fcvsr_tpu/ops/pallas_iac.py:98"),
+    "iac_chain": ("fcvsr_tpu_torch/csrc/iac_chain.cu",
+                  "fcvsr_tpu/ops/pallas_iac.py:421"),
     "conv3x3_pair": ("fcvsr_tpu_torch/csrc/conv3x3.cu",
                      "fcvsr_tpu/ops/pallas_conv.py:236"),
+    "conv3x3_quad": ("fcvsr_tpu_torch/csrc/conv3x3_quad.cu",
+                     "fcvsr_tpu/ops/pallas_conv.py:410"),
     "conv3x3": ("fcvsr_tpu_torch/csrc/conv3x3.cu",
                 "fcvsr_tpu/ops/pallas_conv.py:108"),
     "iac_bwd": ("fcvsr_tpu_torch/csrc/iac_bwd.cu",
@@ -109,6 +148,18 @@ KERNELS = {
 IAC_RTOL = 2e-5
 IAC_BWD_RTOL = 1e-5
 CONV_RTOL = 1e-4
+# the resident chain (K4) against the plain chain: IAC_RTOL carried through
+# 6 iterations; against K1 launched once an iteration, the same tile code:
+# IAC_RTOL
+IAC_CHAIN_RTOL = 1e-4
+# bf16 storage, kernel against plain version: both round at the same
+# handoffs, but a value within reassociation noise of a rounding boundary
+# rounds either way, one bf16 step (2^-8 to 2^-7 of the value) that later
+# iterations or convs carry on: two steps of the output's magnitude
+BF16_RTOL = 1.6e-2
+# the JAX package's --fast bars on the model's output against the exact
+# path (tests/test_inference_precision.py)
+FAST_MAX, FAST_MEAN = 0.02, 2e-3
 # GPU vs CPU model output in [0, 1]: well under one 8-bit grey level (3.9e-3)
 MODEL_ATOL = 1e-3
 # GPU vs CPU gradients, relative to their norm.  The whole gradient and the
@@ -200,24 +251,41 @@ def phase_kernels(torch, dev):
 
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
-    def check(name, label, kern, plain, rtol, work=None, library=None):
+    def check(name, label, kern, plain, rtol, work=None, library=None,
+              yardstick=None):
         """Kernel against plain version; a tuple of outputs is checked one
-        by one.  ``work`` = (bytes, flops) marks a timed case, with its
-        bound; the first such case of a kernel goes into the result line."""
+        by one (in float32, whatever the storage).  ``work`` = (bytes,
+        flops) marks a timed case, with its bound; the first such case of
+        a kernel goes into the result line.  ``yardstick`` = (label, fn):
+        the same function by other kernels, checked at ``rtol`` and timed
+        beside."""
         outs, refs = kern(), plain()
         if isinstance(outs, torch.Tensor):
             outs, refs = (outs,), (refs,)
         torch.cuda.synchronize()
-        errs = [float((o - r).abs().max()) for o, r in zip(outs, refs)]
-        tols = [rtol * max(1.0, float(r.abs().max())) for r in refs]
+        errs = [float((o.float() - r.float()).abs().max())
+                for o, r in zip(outs, refs)]
+        tols = [rtol * max(1.0, float(r.float().abs().max())) for r in refs]
         line = dict(kernel=name, case=label, max_abs_err=errs, tol=tols)
+        if yardstick is not None:
+            ys = yardstick[1]()
+            ys = (ys,) if isinstance(ys, torch.Tensor) else ys
+            yerrs = [float((o.float() - r.float()).abs().max())
+                     for o, r in zip(outs, ys)]
+            errs = errs + yerrs
+            tols = tols + [rtol * max(1.0, float(r.float().abs().max()))
+                           for r in ys]
+            line.update(max_abs_err=errs, tol=tols, yardstick=yardstick[0])
         if work is not None:
-            fns = [kern, plain] + ([library] if library else [])
+            fns = [kern, plain] + ([library] if library else []) \
+                + ([yardstick[1]] if yardstick else [])
             times = cuda_ms(torch, fns)
             bound_ms, bound_by = bound(*work)
             line.update(ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
                         bound_by=bound_by,
                         library_ms=times[2] if library else None)
+            if yardstick:
+                line["yardstick_ms"] = times[-1]
             if "ms" not in results[name]:
                 results[name].update((k, line[k]) for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))
@@ -261,9 +329,16 @@ def phase_kernels(torch, dev):
 
     # SCNet convs at its three levels.  Work: x read, out (and res) written
     # once, the weights; 2 flops a multiply-add
-    def conv_work(px, *chans):
+    def conv_work(px, *chans, storage=4, outputs=None):
+        """Bytes (the input map read, the output maps written, the float32
+        weights) and flops (2 a multiply-add) of a chain of 3x3 convs."""
         macs = sum(9 * a * b for a, b in zip(chans, chans[1:]))
-        return (4 * (px * (chans[0] + chans[-1]) + macs), 2 * px * macs)
+        maps = chans[0] + sum(outputs or (chans[-1],))
+        return (storage * px * maps + 4 * macs, 2 * px * macs)
+
+    def _two_pairs(xs, quad):
+        y = fused_conv.conv3x3_pair(xs, *quad[:4], 0.1)
+        return y, fused_conv.conv3x3_pair(y, *quad[4:], 0.2)
 
     for (h, w) in ((272, 480), (136, 240), (68, 120)):
         px = h * w
@@ -293,6 +368,74 @@ def phase_kernels(torch, dev):
               work=(rw[0] + 4 * px * 64, rw[1]) if h == 272 else None,
               library=lambda: F.conv2d(x.permute(0, 3, 1, 2),
                                        r1.permute(3, 2, 0, 1), b2, padding=1))
+        # bf16 storage (float32 weights): 2-byte maps
+        xb, resb = x.bfloat16(), res.bfloat16()
+        cw = conv_work(px, 64, 128, 64, storage=2)
+        check("conv3x3_pair", f"bf16 64->128->64 bias ns0.1 {h}x{w}",
+              lambda: fused_conv.conv3x3_pair(xb, w1, b1, w2, b2, 0.1),
+              lambda: fused_conv.conv3x3_pair_plain(xb, w1, b1, w2, b2, 0.1),
+              BF16_RTOL, work=cw if h == 272 else None)
+        rw = conv_work(px, 64, 64, storage=2)
+        check("conv3x3", f"bf16 64->64 +res {h}x{w}",
+              lambda: fused_conv.conv3x3(xb, r1, b2, res=resb),
+              lambda: fused_conv.conv3x3_plain(xb, r1, b2, res=resb),
+              BF16_RTOL,
+              work=(rw[0] + 2 * px * 64, rw[1]) if h == 272 else None)
+        # the BlockRCB quad (K6): the block pair (64->128->64, biases) and
+        # the RCB pair (64->64->64, none), y and out; against two pairs
+        quad = (w1, b1, w2, b2, r1, None, r2, None)
+        for st, xs in (("f32", x), ("bf16", xb)):
+            check("conv3x3_quad", f"{st} 64->128->64->64->64 {h}x{w}",
+                  lambda: fused_conv.conv3x3_quad(xs, *quad),
+                  lambda: fused_conv.conv3x3_quad_plain(xs, *quad),
+                  CONV_RTOL if st == "f32" else BF16_RTOL,
+                  work=conv_work(px, 64, 128, 64, 64, 64,
+                                 storage=4 if st == "f32" else 2,
+                                 outputs=(64, 64)) if h == 272 else None,
+                  yardstick=("2 K2 launches", lambda: _two_pairs(xs, quad)))
+        del xb, resb
+
+    # the resident IAC chain (K4) at FCVSR's shape: 6 iterations, B 1 (the
+    # g2 call) and 2 (the batched f1/f3 call), float32 and bf16; flows as
+    # above.  Work: feat_in, the 6 x 3C kernels and the 6 flows read once,
+    # out written once; ~22 flops a value an iteration
+    h, w, c = 272, 480, 64
+    for b in (1, 2):
+        fin32 = t(rng.standard_normal((b, h, w, c)))
+        k32 = t(rng.standard_normal((b, h, w, n_it * 3 * c)) * 0.3)
+        offs = torch.stack([t(mixed_flows(rng, b, h, w)) for _ in range(n_it)])
+        px = b * h * w
+        for st in ("f32", "bf16"):
+            fin, k = (fin32, k32) if st == "f32" else (fin32.bfloat16(),
+                                                       k32.bfloat16())
+            sb = 4 if st == "f32" else 2
+            check("iac_chain", f"{st} B{b} ac6 272x480x64",
+                  lambda: fused_iac.iac_fused_resident(fin, k, offs, n_it),
+                  lambda: fused_iac.iac_chain_plain(fin, k, offs, n_it),
+                  IAC_CHAIN_RTOL if st == "f32" else BF16_RTOL,
+                  work=(px * (sb * (2 * c + n_it * 3 * c) + 4 * 2 * n_it),
+                        22 * px * c * n_it),
+                  yardstick=("6 K1 launches", lambda: fused_iac.iac_fused(
+                      fin, k, offs, n_it, c)))
+            del fin, k
+        # K1 in bf16, both variants, at the same shape
+        featb, finb = fin32.bfloat16(), fin32.flip(-1).bfloat16()
+        kb = k32.bfloat16()
+        f0b = t(rng.standard_normal((b, h, w, c))).bfloat16()
+        check("iac", f"bf16 materialised B{b} it=0 272x480x64",
+              lambda: fused_iac.warp_sac_fused(featb, offs[0], kb, finb),
+              lambda: fused_iac.warp_sac_plain(featb, offs[0], kb, finb),
+              BF16_RTOL, work=(px * (2 * 6 * c + 4 * 2), 22 * px * c))
+        check("iac", f"bf16 kf B{b} it=0 272x480x64",
+              lambda: fused_iac.warp_sac_fused_kf(featb, offs[0], f0b, wsel,
+                                                  bsel, finb),
+              lambda: fused_iac.warp_sac_plain(
+                  featb, offs[0], fused_iac.predict_kernels(f0b, wsel, bsel, 0,
+                                                            c), finb),
+              BF16_RTOL, work=(px * (2 * 4 * c + 4 * 2),
+                               (22 + 6 * c) * px * c))
+        del fin32, k32, offs, featb, finb, kb, f0b
+
     x = t(rng.uniform(-1, 1, (1, 1088, 1920, 64)))
     wl = t(rng.standard_normal((3, 3, 64, 1)) * 0.04)
     bl = t(rng.standard_normal(1))
@@ -558,6 +701,35 @@ def phase_model(torch, dev):
         if not err <= MODEL_ATOL:
             fail(f"GPU vs CPU model error {err} > {MODEL_ATOL}")
 
+    # the serving flag sets: the exact ones at MODEL_ATOL, the bf16 ones at
+    # the --fast bars; the same weights on both devices
+    from fcvsr_tpu_torch import cli
+
+    flag_sets = {"exact flags": dict(batch_mgaa=True, tail_impl="folded",
+                                     iac_chain="resident", scnet_fuse="quad"),
+                 "fast": cli.serving_flags(True),
+                 "fast resident quad": cli.serving_flags(True, "resident",
+                                                         "quad")}
+    for name, flags in flag_sets.items():
+        model = init_weights(FCVSRNet(in_channels=1, **flags),
+                             torch.Generator().manual_seed(0)).eval()
+        with torch.no_grad():
+            ref = model(torch.from_numpy(x)).numpy()
+            model.to(dev)
+            got = model(torch.from_numpy(x).to(dev)).cpu().numpy()
+        d = np.abs(got - ref)
+        bf16 = "bf16" in flags.values()
+        say("model", model="FCVSR full Y", flags=name, shape=list(got.shape),
+            max_abs_err=float(d.max()), mean_abs_err=float(d.mean()),
+            tol=[FAST_MAX, FAST_MEAN] if bf16 else MODEL_ATOL)
+        if got.shape != (1, 1, 256, 384) or not np.isfinite(got).all():
+            fail(f"{name}: model output shape {got.shape} or non-finite")
+        if not (d.max() < FAST_MAX and d.mean() < FAST_MEAN if bf16
+                else d.max() <= MODEL_ATOL):
+            fail(f"{name}: GPU vs CPU model error {d.max()} (mean "
+                 f"{d.mean()})")
+        del model
+
     # gradients: one Charbonnier-sum backward on each device
     from fcvsr_tpu_torch.train.losses import charbonnier_sum
 
@@ -686,6 +858,7 @@ def phase_zoo(torch, card):
         fps = cli.fps_benchmark(model, h, w, c=3, t=t,
                                 frames_per_forward=1 if window else t,
                                 n_iter=10 if window else 5)
+        fps["fps_max_memory_allocated"] = fps.pop("max_memory_allocated")
         say("zoo", model=name, clip=[ZOO_T, h, w, 3], window=window,
             out_shape=list(out.shape), forwards=forwards,
             dcn_launches_per_forward=per_forward, launches=counts[name],
@@ -927,6 +1100,70 @@ def phase_slice(torch, card):
     return counts
 
 
+def phase_fast(torch, card):
+    """Fast serving: the clip through ``cli --fast``, then with the
+    resident IAC chain and the quad SCNet bodies, the launches per frame
+    checked, and ``--fps`` of each with the peak memory; then each serving
+    flag alone and both fast sets timed in turns on one model, and the
+    stage times of the two fast sets.  Returns the launches of the
+    resident + quad clip run."""
+    from PIL import Image
+
+    from fcvsr_tpu_torch import cli, profiling
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.utils.config import preset
+
+    want = {"fast": FAST_PER_FRAME, "fast_resident_quad": FUSED_PER_FRAME}
+    counts = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        write_clip(tmp)
+        for name, extra in FAST_RUNS.items():
+            out_dir = os.path.join(tmp, name)
+            reset_launch_counts()
+            summary = cli.main(["--preset", PRESET, "--seed", "0",
+                                "--lr-root", os.path.join(tmp, "lr"),
+                                "--gt-root", os.path.join(tmp, "gt"),
+                                "--save-dir", out_dir] + extra)
+            counts[name] = launch_counts()
+            r = summary["per_sequence"]["clip"]
+            sr = np.asarray(Image.open(os.path.join(out_dir, "clip",
+                                                    "00000000.png")))
+            per_frame = {k: v / r["forwards"]
+                         for k, v in counts[name].items()}
+            say("fast", run=name, flags=summary["flags"], frames=r["frames"],
+                forwards=r["forwards"], psnr=r["psnr"], ssim=r["ssim"],
+                ms_per_frame=r["ms_per_frame"], sr_shape=list(sr.shape),
+                launches_per_frame=per_frame, card=card)
+            if r["frames"] != 10 or sr.shape != (1080, 1920):
+                fail(f"{name}: expected 10 frames at 1080x1920, got "
+                     f"{r['frames']} and {sr.shape}")
+            if not (math.isfinite(r["psnr"]) and math.isfinite(r["ssim"])):
+                fail(f"{name}: non-finite PSNR/SSIM {r['psnr']} {r['ssim']}")
+            if per_frame != {k: float(v) for k, v in want[name].items()}:
+                fail(f"{name}: launches per frame {per_frame}, expected "
+                     f"{want[name]}")
+            torch.cuda.empty_cache()
+            fps = cli.main(["--preset", PRESET, "--seed", "0", "--fps"]
+                           + extra)
+            say("fps", run=name, preset=PRESET, shape=[1, 7, 1, 272, 480],
+                card=card, **fps)
+            if not fps["ms_per_frame"] > 0:
+                fail(f"{name}: bad FPS result {fps}")
+    model = cli.build_model(preset(PRESET), 0, "cuda")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (1, 7, 1, 272, 480)).astype(np.float32)).to("cuda")
+    runs = profiling.serving_compare(model, x, reps=5, warmup=2,
+                                     variants=FLAG_VARIANTS)
+    say("serving_compare", shape=[1, 7, 1, 272, 480], reps=5, card=card,
+        **runs)
+    for name in FAST_RUNS:
+        model.set_serving_flags(**{**cli.EXACT, **FLAG_VARIANTS[name]})
+        say("stages", run=name, shape=[1, 7, 1, 272, 480], card=card,
+            stages_ms=profiling.stage_times(model, x, reps=5))
+    del model, x
+    return counts["fast_resident_quad"]
+
+
 def phase_train(torch, card):
     """The training slice: one warm-up step, then a resumed run of 5 timed
     steps, with the launch counts of all 6 steps."""
@@ -1005,6 +1242,9 @@ def main() -> None:
     phase_zoo_grads(torch, dev)
     torch.cuda.empty_cache()
     phase_slice(torch, card)
+    torch.cuda.empty_cache()
+    fast_counts = phase_fast(torch, card)
+    torch.cuda.empty_cache()
     phase_zoo(torch, card)
     torch.cuda.empty_cache()
     zoo_counts = phase_zoo_train(torch, card)
@@ -1014,7 +1254,10 @@ def main() -> None:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path, counts = ("zoo training", zoo_counts) \
-            if name in ("dcn", "dcn_bwd") else ("training", train_counts)
+            if name in ("dcn", "dcn_bwd") else \
+            ("fast serving (resident, quad)", fast_counts) \
+            if name in ("iac_chain", "conv3x3_quad") \
+            else ("training", train_counts)
         if counts[name] == 0:
             fail(f"kernel {name} was not launched on the {path} path")
         kernels.append(dict(name=name, route="cuda", source=source,

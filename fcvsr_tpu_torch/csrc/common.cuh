@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <atomic>
@@ -9,6 +10,31 @@
 namespace fcvsr {
 
 constexpr int kThreads = 256;
+
+// Storage types.  The serving kernels (K1-K4, K6) store their feature maps
+// as T, float or __nv_bfloat16, and compute and accumulate in float: a
+// value is widened where it is loaded and rounded (to nearest even, as
+// torch's .to(torch.bfloat16)) where it is stored.  Weights, biases and
+// flows stay float.
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// A load cached in L2 only, for a map that other blocks of the same launch
+// wrote (L1 is not coherent across SMs).
+__device__ __forceinline__ float load_cg(const float* p) { return __ldcg(p); }
+__device__ __forceinline__ float load_cg(const __nv_bfloat16* p) {
+  const unsigned short bits = __ldcg(reinterpret_cast<const unsigned short*>(p));
+  return __uint_as_float(static_cast<unsigned>(bits) << 16);
+}
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
   return v < lo ? lo : (v > hi ? hi : v);

@@ -1,11 +1,11 @@
-// 3x3 SAME convolutions on NHWC float32 tensors, f32 accumulation.
+// 3x3 SAME convolutions on NHWC tensors, float accumulation.
 //
-// fcvsr_conv3x3 replaces fcvsr_tpu/ops/pallas_conv.py::_kernel (reached there
-// through conv3x3_rows and conv3x3_rows_nhwc): out = act(conv(x) + b + res),
-// the SCNet group conv with its fused residual and the C_out=1/3 conv_last0
-// of the upsampling tail.
+// fcvsr_conv3x3 (K3) replaces fcvsr_tpu/ops/pallas_conv.py::_kernel
+// (reached there through conv3x3_rows and conv3x3_rows_nhwc):
+// out = act(conv(x) + b + res), the SCNet group conv with its fused
+// residual and the C_out=1/3 conv_last0 of the upsampling tail.
 //
-// fcvsr_conv3x3_pair replaces fcvsr_tpu/ops/pallas_conv.py::_pair_kernel
+// fcvsr_conv3x3_pair (K2) replaces fcvsr_tpu/ops/pallas_conv.py::_pair_kernel
 // (conv3x3_pair_rows): out = conv2(lrelu_ns1(conv1(x) + b1)) + b2, with the
 // intermediate kept in shared memory and zero outside the frame, so conv2
 // sees SAME zero padding of it, as on the TPU.
@@ -16,79 +16,23 @@
 // (67 TFLOP/s peak), not the tensor cores.  The design: a block owns an
 // output tile of pixels and up to 64 output channels; input (or the
 // intermediate) and a 16-channel slice of the weights sit in shared memory,
-// and each thread keeps a register tile of 4 pixels x 8 channels, so every
-// shared-memory value it loads feeds 4-8 FMAs.  Neighbouring threads take
-// neighbouring output channels, so weight reads are conflict-free and input
-// reads broadcast.  The pair recomputes conv1 on a one-pixel ring around its
-// tile (1.4x conv1 work) instead of writing the intermediate to device
-// memory.
-#include "common.cuh"
+// with the register tiles of conv3x3.cuh.  The pair recomputes conv1 on a
+// one-pixel ring around its tile (1.4x conv1 work) instead of writing the
+// intermediate to device memory.
+//
+// Storage: the maps (x, res, out, and the pair's intermediate in shared
+// memory) are float or bf16 (T); weights and biases are float.  bf16
+// halves the bytes and the intermediate's shared memory, and rounds where
+// the kernel stores.
+#include "conv3x3.cuh"
 
 namespace fcvsr {
 namespace {
 
-constexpr int CIB = 16;  // input channels staged per step
-
-// acc[i][j] += sum over taps and ci < cn of
-//   src[(pixel_i + tap offset) * ld + ci] * w_s[(tap * CIB + ci) * COB + co_j]
-// pixel_i = pg + i * NPG in an npix-pixel region of width ow, read from a
-// source tile of width sw whose origin is one pixel up-left of the region.
-template <int NCG, int CPT, int PPT>
-__device__ __forceinline__ void accumulate(float (&acc)[PPT][CPT],
-                                           const float* src, int ld, int sw,
-                                           const float* w_s, int cn, int npix,
-                                           int ow) {
-  constexpr int NPG = kThreads / NCG, COB = NCG * CPT;
-  const int cg = threadIdx.x % NCG, pg = threadIdx.x / NCG;
-  int base[PPT];
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int p = min(pg + i * NPG, npix - 1);  // spare slots redo a pixel
-    base[i] = (p / ow) * sw + p % ow;
-  }
-#pragma unroll
-  for (int tap = 0; tap < 9; ++tap) {
-    const int toff = (tap / 3) * sw + tap % 3;
-    for (int ci = 0; ci < cn; ++ci) {
-      float wv[CPT];
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) wv[j] = w_s[(tap * CIB + ci) * COB + cg + NCG * j];
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) {
-        const float xv = src[(base[i] + toff) * ld + ci];
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(xv, wv[j], acc[i][j]);
-      }
-    }
-  }
-}
-
-// w (3,3,Cin,Cout) rows [ci0, ci0 + cn) x cols [co0, co0 + COB) -> w_s,
-// zero beyond Cin / Cout.
-template <int COB>
-__device__ __forceinline__ void stage_weights(float* w_s, const float* w, int Cin,
-                                              int Cout, int ci0, int cn, int co0) {
-  for (int e = threadIdx.x; e < 9 * CIB * COB; e += kThreads) {
-    const int co = e % COB, ci = (e / COB) % CIB, tap = e / (COB * CIB);
-    w_s[e] = (ci < cn && co0 + co < Cout)
-                 ? w[((size_t)tap * Cin + ci0 + ci) * Cout + co0 + co] : 0.f;
-  }
-}
-
-// x channels [ci0, ci0 + cn) on the ih x iw window at (y0, x0) -> in_s,
-// zero outside the frame.
-__device__ __forceinline__ void stage_input(float* in_s, int ld, const float* x,
-                                            int H, int W, int Cin, int ci0, int cn,
-                                            int y0, int x0, int ih, int iw) {
-  for (int e = threadIdx.x; e < ih * iw * CIB; e += kThreads) {
-    const int ci = e % CIB, p = e / CIB;
-    const int yy = y0 + p / iw, xx = x0 + p % iw;
-    float v = 0.f;
-    if (ci < cn && yy >= 0 && yy < H && xx >= 0 && xx < W)
-      v = x[((size_t)yy * W + xx) * Cin + ci0 + ci];
-    in_s[p * ld + ci] = v;
-  }
-}
+using conv::accumulate;
+using conv::CIB;
+using conv::stage_input;
+using conv::stage_weights;
 
 template <int TH, int TW, int NCG, int CPT>
 struct ConvCfg {
@@ -98,11 +42,11 @@ struct ConvCfg {
   static constexpr size_t smem = sizeof(float) * (IH * IW * LD + 9 * CIB * COB);
 };
 
-template <int TH, int TW, int NCG, int CPT>
+template <typename T, int TH, int TW, int NCG, int CPT>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, const float* __restrict__ res,
-               float* __restrict__ out, int H, int W, int Cin, int Cout, int act,
+conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
+               const float* __restrict__ bias, const T* __restrict__ res,
+               T* __restrict__ out, int H, int W, int Cin, int Cout, int act,
                float ns) {
   using Cfg = ConvCfg<TH, TW, NCG, CPT>;
   constexpr int COB = Cfg::COB, NPG = Cfg::NPG, PPT = Cfg::PPT;
@@ -113,7 +57,7 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int nco = (Cout + COB - 1) / COB;
   const int b = blockIdx.z / nco, co0 = (blockIdx.z % nco) * COB;
   const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const float* xb = x + (size_t)b * H * W * Cin;
+  const T* xb = x + (size_t)b * H * W * Cin;
 
   float acc[PPT][CPT] = {};
   for (int ci0 = 0; ci0 < Cin; ci0 += CIB) {
@@ -138,25 +82,37 @@ conv3x3_kernel(const float* __restrict__ x, const float* __restrict__ w,
       if (co >= Cout) continue;
       float v = acc[i][j];
       if (bias) v += bias[co];
-      if (res) v += res[o + co];
-      out[o + co] = act ? leaky(v, ns) : v;
+      if (res) v += to_f32(res[o + co]);
+      out[o + co] = from_f32<T>(act ? leaky(v, ns) : v);
     }
   }
 }
 
-template <int TH, int TW, int NCG, int CPT>
-int launch_conv(const float* x, const float* w, const float* bias, const float* res,
-                float* out, int B, int H, int W, int Cin, int Cout, int act, float ns,
+template <typename T, int TH, int TW, int NCG, int CPT>
+int launch_conv(const void* x, const float* w, const float* bias, const void* res,
+                void* out, int B, int H, int W, int Cin, int Cout, int act, float ns,
                 cudaStream_t stream) {
   using Cfg = ConvCfg<TH, TW, NCG, CPT>;
-  constexpr auto kernel = &conv3x3_kernel<TH, TW, NCG, CPT>;
+  constexpr auto kernel = &conv3x3_kernel<T, TH, TW, NCG, CPT>;
   cudaError_t err = allow_smem<kernel>(Cfg::smem);
   if (err != cudaSuccess) return (int)err;
   const int nco = (Cout + Cfg::COB - 1) / Cfg::COB;
   dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * nco);
-  kernel<<<grid, kThreads, Cfg::smem, stream>>>(x, w, bias, res, out, H, W, Cin, Cout,
-                                                act, ns);
+  kernel<<<grid, kThreads, Cfg::smem, stream>>>(
+      static_cast<const T*>(x), w, bias, static_cast<const T*>(res),
+      static_cast<T*>(out), H, W, Cin, Cout, act, ns);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int conv_dispatch(const void* x, const float* w, const float* bias, const void* res,
+                  void* out, int B, int H, int W, int Cin, int Cout, int act, float ns,
+                  cudaStream_t s) {
+  if (Cout <= 4)  // conv_last0: one pixel and 4 channels per thread
+    return launch_conv<T, 16, 16, 1, 4>(x, w, bias, res, out, B, H, W, Cin, Cout, act,
+                                        ns, s);
+  return launch_conv<T, 8, 16, 8, 8>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns,
+                                     s);
 }
 
 // The pair: output tile TH x TW, intermediate tile (TH+2) x (TW+2) x C1.
@@ -166,25 +122,33 @@ constexpr int MH = PTH + 2, MW = PTW + 2;   // intermediate region
 constexpr int PIH = PTH + 4, PIW = PTW + 4; // input window
 constexpr int PPT1 = (MH * MW + PNPG - 1) / PNPG, PPT2 = (PTH * PTW + PNPG - 1) / PNPG;
 
+// the intermediate's leading dimension in elements: one spare element
+// (two for bf16, which keeps rows 4-byte aligned)
+template <typename T>
+__host__ __device__ constexpr int mid_ld(int c1) { return c1 + (sizeof(T) == 4 ? 1 : 2); }
+
+template <typename T>
 size_t pair_smem(int c1) {
-  return sizeof(float) *
-         ((size_t)MH * MW * (c1 + 1) + PIH * PIW * (CIB + 1) + 9 * CIB * PCOB);
+  size_t mid = (sizeof(T) * (size_t)MH * MW * mid_ld<T>(c1) + 15) / 16 * 16;
+  return mid + sizeof(float) * (PIH * PIW * (CIB + 1) + 9 * CIB * PCOB);
 }
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
-conv3x3_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
+conv3x3_pair_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
-                    const float* __restrict__ b2, float* __restrict__ out, int H,
-                    int W, int Cin, int C1, int Cout, float ns1) {
-  extern __shared__ float smem[];
-  const int ldm = C1 + 1;
-  float* mid_s = smem;                          // [MH*MW][C1+1]
-  float* in_s = mid_s + MH * MW * ldm;          // [PIH*PIW][CIB+1]
+                    const float* __restrict__ b2, T* __restrict__ out, int H, int W,
+                    int Cin, int C1, int Cout, float ns1) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ldm = mid_ld<T>(C1);
+  T* mid_s = reinterpret_cast<T*>(smem_raw);    // [MH*MW][ldm]
+  float* in_s = reinterpret_cast<float*>(       // [PIH*PIW][CIB+1]
+      smem_raw + (sizeof(T) * (size_t)MH * MW * ldm + 15) / 16 * 16);
   float* w_s = in_s + PIH * PIW * (CIB + 1);    // [9][CIB][PCOB]
 
   const int b = blockIdx.z;
   const int x0 = blockIdx.x * PTW, y0 = blockIdx.y * PTH;
-  const float* xb = x + (size_t)b * H * W * Cin;
+  const T* xb = x + (size_t)b * H * W * Cin;
   const int cg = threadIdx.x % PNCG, pg = threadIdx.x / PNCG;
 
   // conv1 on the intermediate region at (y0-1, x0-1)
@@ -209,7 +173,7 @@ conv3x3_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
         const int co = co0 + cg + PNCG * j;
         if (co >= C1) continue;
         float v = acc[i][j] + (b1 ? b1[co] : 0.f);
-        mid_s[p * ldm + co] = inside ? leaky(v, ns1) : 0.f;
+        mid_s[p * ldm + co] = from_f32<T>(inside ? leaky(v, ns1) : 0.f);
       }
     }
   }
@@ -234,39 +198,53 @@ conv3x3_pair_kernel(const float* __restrict__ x, const float* __restrict__ w1,
 #pragma unroll
       for (int j = 0; j < PCPT; ++j) {
         const int co = co0 + cg + PNCG * j;
-        if (co < Cout) out[o + co] = acc[i][j] + (b2 ? b2[co] : 0.f);
+        if (co < Cout) out[o + co] = from_f32<T>(acc[i][j] + (b2 ? b2[co] : 0.f));
       }
     }
   }
 }
 
-}  // namespace
-}  // namespace fcvsr
-
-// w: (3,3,Cin,Cout) contiguous; bias (Cout) and res (B,H,W,Cout) may be null.
-extern "C" int fcvsr_conv3x3(const float* x, const float* w, const float* bias,
-                             const float* res, float* out, int B, int H, int W,
-                             int Cin, int Cout, int act, float ns, void* stream) {
-  using namespace fcvsr;
-  cudaStream_t s = (cudaStream_t)stream;
-  if (Cout <= 4)  // conv_last0: one pixel and 4 channels per thread
-    return launch_conv<16, 16, 1, 4>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, s);
-  return launch_conv<8, 16, 8, 8>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, s);
-}
-
-// w1: (3,3,Cin,C1), w2: (3,3,C1,Cout) contiguous; b1, b2 may be null.
-extern "C" int fcvsr_conv3x3_pair(const float* x, const float* w1, const float* b1,
-                                  const float* w2, const float* b2, float* out, int B,
-                                  int H, int W, int Cin, int C1, int Cout, float ns1,
-                                  void* stream) {
-  using namespace fcvsr;
-  const size_t smem = pair_smem(C1);
-  cudaError_t err = allow_smem<&conv3x3_pair_kernel>(smem);
+template <typename T>
+int launch_pair(const void* x, const float* w1, const float* b1, const float* w2,
+                const float* b2, void* out, int B, int H, int W, int Cin, int C1,
+                int Cout, float ns1, cudaStream_t stream) {
+  constexpr auto kernel = &conv3x3_pair_kernel<T>;
+  const size_t smem = pair_smem<T>(C1);
+  cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((W + PTW - 1) / PTW, (H + PTH - 1) / PTH, B);
-  conv3x3_pair_kernel<<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      x, w1, b1, w2, b2, out, H, W, Cin, C1, Cout, ns1);
+  kernel<<<grid, kThreads, smem, stream>>>(static_cast<const T*>(x), w1, b1, w2, b2,
+                                           static_cast<T*>(out), H, W, Cin, C1, Cout,
+                                           ns1);
   return (int)cudaGetLastError();
 }
 
-extern "C" size_t fcvsr_conv3x3_pair_smem(int c1) { return fcvsr::pair_smem(c1); }
+}  // namespace
+}  // namespace fcvsr
+
+// w: (3,3,Cin,Cout) contiguous; bias (Cout) and res (B,H,W,Cout) may be
+// null.  x, res and out are bf16 when bf16 is set, float otherwise.
+extern "C" int fcvsr_conv3x3(const void* x, const float* w, const float* bias,
+                             const void* res, void* out, int B, int H, int W, int Cin,
+                             int Cout, int act, float ns, int bf16, void* stream) {
+  using namespace fcvsr;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return conv_dispatch<__nv_bfloat16>(x, w, bias, res, out, B, H, W, Cin, Cout, act,
+                                        ns, s);
+  return conv_dispatch<float>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, s);
+}
+
+// w1: (3,3,Cin,C1), w2: (3,3,C1,Cout) contiguous; b1, b2 may be null.  x and
+// out (and the intermediate) are bf16 when bf16 is set, float otherwise.
+extern "C" int fcvsr_conv3x3_pair(const void* x, const float* w1, const float* b1,
+                                  const float* w2, const float* b2, void* out, int B,
+                                  int H, int W, int Cin, int C1, int Cout, float ns1,
+                                  int bf16, void* stream) {
+  using namespace fcvsr;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (bf16)
+    return launch_pair<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout,
+                                      ns1, s);
+  return launch_pair<float>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1, s);
+}

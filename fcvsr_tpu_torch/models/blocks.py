@@ -120,14 +120,18 @@ class SCGroup(nn.Module):
 class SCNet(nn.Module):
     """Stack of SCGroups with an outer residual, over NHWC [L1, L2, L3].
     Its 3x3 convs run on the CUDA conv kernels (their plain versions on the
-    CPU): see ``models.scnet_rows``."""
+    CPU): see ``models.scnet_rows``, which also says what the serving
+    options ``fuse`` ('pair' or 'quad') and ``dtype`` ('f32' or 'bf16')
+    do.  Neither changes the parameters."""
 
-    def __init__(self, nf: int, num_groups: int = 10):
+    def __init__(self, nf: int, num_groups: int = 10, fuse: str = "pair",
+                 dtype: str = "f32"):
         super().__init__()
+        self.fuse, self.dtype = fuse, dtype
         self.body = nn.Sequential(*[SCGroup(nf) for _ in range(num_groups)])
 
     def forward(self, xs):
-        return scnet_apply(self, xs)
+        return scnet_apply(self, xs, self.fuse, self.dtype)
 
 
 class DivEnh(nn.Module):

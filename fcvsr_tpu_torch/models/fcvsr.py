@@ -21,32 +21,63 @@ from ..ops import _native
 from ..ops.corr import corr_lookup
 from ..ops.freq import irfft_features, rfft_features, split_freq
 from ..ops.fused_conv import conv3x3
+from ..ops.psfold import fold_ps_bias, fold_ps_conv
 from ..ops.resize import resize_bilinear
 from ..ops.sac import iac
 from .basicvsr import MMResidualBlock, ModulatedDeformConv2d
 from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, PReLU, RCB,
                      SCNet, pixel_shuffle)
-from .scnet_rows import conv_bias, hwio
+from .scnet_rows import STORAGE, conv_bias, hwio
 
 __all__ = ["MGAA", "MFFR", "FCVSRNet", "init_weights"]
+
+
+def _check_iac(k_fused, iac_chain, iac_dtype):
+    if iac_chain not in ("periter", "resident"):
+        raise ValueError(f"iac_chain is 'periter' or 'resident', not "
+                         f"{iac_chain!r}")
+    if iac_chain == "resident" and k_fused:
+        raise ValueError("iac_chain='resident' takes materialised kernels: "
+                         "it does not combine with k_fused")
+    if iac_dtype not in STORAGE:
+        raise ValueError(f"iac_dtype is 'f32' or 'bf16', not {iac_dtype!r}")
 
 
 class MGAA(nn.Module):
     """Motion-guided adaptive alignment: (B, H, W, 3*dim) -> (B, H, W, dim),
     the centre group aligned with its two neighbours.
 
-    ``k_fused``: the IAC kernel computes the per-pixel kernels from F.0's
-    output and F.1's selected weights, so F.1's output is never made.  It
-    is inference only: a forward that autograd records raises."""
+    Options, none of which changes the parameters:
+
+    * ``k_fused``: the IAC kernel computes the per-pixel kernels from F.0's
+      output and F.1's selected weights, so F.1's output is never made.
+    * ``batch_fb``: the forward and backward ConvBlk calls run as one batch
+      (exact).
+    * ``iac_chain``: 'periter' (one IAC launch an iteration) or 'resident'
+      (the whole chain in one launch, materialised kernels only: with
+      ``k_fused`` it raises, as the JAX package has no resident kf chain).
+      A constructor argument, where the JAX package has the global
+      ``set_iac_chain``.
+    * ``iac_dtype``: 'f32' or 'bf16', the storage of the IAC chain's maps
+      (its inputs, kernels or F.0's output, and every iteration's output);
+      the aligned maps return to float32 for conv3.
+
+    ``k_fused``, ``iac_chain='resident'`` and ``iac_dtype='bf16'`` are
+    inference only: a forward that autograd records raises."""
 
     def __init__(self, dim: int, ac_ks: int = 3, ac_num: int = 6,
-                 corr_radius: int = 4, k_fused: bool = False):
+                 corr_radius: int = 4, k_fused: bool = False,
+                 batch_fb: bool = False, iac_chain: str = "periter",
+                 iac_dtype: str = "f32"):
         super().__init__()
         if ac_ks != 3:
             raise ValueError(f"the IAC kernel has 3 taps, not ac_ks={ac_ks}")
+        _check_iac(k_fused, iac_chain, iac_dtype)
         d = dim
         self.dim, self.ac_ks, self.ac_num = d, ac_ks, ac_num
         self.corr_radius, self.k_fused = corr_radius, k_fused
+        self.batch_fb, self.iac_chain = batch_fb, iac_chain
+        self.iac_dtype = iac_dtype
         self.convfuse = nn.Sequential(
             Conv2d(4 * d, 2 * d, 1, bias=False), nn.ReLU(),
             Conv2d(2 * d, 2 * d, 1, bias=False), nn.ReLU(),
@@ -109,8 +140,15 @@ class MGAA(nn.Module):
         # per-iteration offset fields: ConvBlk -> gate -> one batched irfft
         # over all 2*ac_num gated spectra, each [re(2), im(2)]
         gated = []
-        for blk in self.MConvB:
-            gated += [blk(off_f) * sim, blk(off_b) * sim]
+        if self.batch_fb:
+            off_fb = torch.cat([off_f, off_b], 0)
+            sim_fb = torch.cat([sim, sim], 0)
+            for blk in self.MConvB:
+                g = blk(off_fb) * sim_fb
+                gated += [g[:b], g[b:]]
+        else:
+            for blk in self.MConvB:
+                gated += [blk(off_f) * sim, blk(off_b) * sim]
         packed = torch.cat([g[..., :2] for g in gated]
                            + [g[..., 2:] for g in gated], -1)
         fields = irfft_features(packed, h, w)      # (B, H, W, 4 * ac_num)
@@ -121,19 +159,26 @@ class MGAA(nn.Module):
 
         f0 = self.F[0](self.conv_KP(x2))
         wsel, wsel_t, bsel = self.sel_weights()
-        if self.k_fused and (f0.requires_grad or wsel.requires_grad):
+        serving = [f"{k}={v!r}" for k, v, plain in (
+            ("k_fused", self.k_fused, False),
+            ("iac_chain", self.iac_chain, "periter"),
+            ("iac_dtype", self.iac_dtype, "f32")) if v != plain]
+        if serving and (f0.requires_grad or wsel.requires_grad):
             raise RuntimeError(
-                "MGAA(k_fused=True) is inference only: the fused kernel "
-                "prediction has no backward.  Train with k_fused=False, or "
-                "run the forward under torch.no_grad()")
+                f"MGAA({', '.join(serving)}) is inference only: the fused "
+                "kernel prediction, the resident chain and bf16 storage "
+                "have no backward.  Train without them, or run the forward "
+                "under torch.no_grad()")
+        st = STORAGE[self.iac_dtype]
         if self.k_fused:
-            k_parts = (f0.contiguous(), wsel_t, bsel)
+            k_parts = (f0.to(st).contiguous(), wsel_t, bsel)
             pred_k = None
         else:
             k_parts = None
             pred_k = F.conv2d(f0.permute(0, 3, 1, 2), wsel, bsel) \
-                .permute(0, 2, 3, 1)
-        aligned = [iac(feat, pred_k, offs, self.ac_num, d, k_parts=k_parts)
+                .permute(0, 2, 3, 1).to(st)
+        aligned = [iac(feat.to(st), pred_k, offs, self.ac_num, d,
+                       k_parts=k_parts, chain=self.iac_chain).float()
                    for feat, offs in ((x1, offsets_f), (x3, offsets_b))]
         return self.conv3(torch.cat(aligned, -1)) + x2
 
@@ -163,22 +208,48 @@ class FCVSRNet(nn.Module):
 
     ``in_channels`` is 1 (Y) or 3 (RGB).  FCVSR-S is the same topology with
     ac_num=3, freq_inv=4, sc_groups=4 and 1x1 upsampling convs
-    (:meth:`small`).  ``k_fused`` is MGAA's fused kernel prediction."""
+    (:meth:`small`).
+
+    The flags of the JAX package's ``--fast`` serving configuration, under
+    its names; none changes the ``state_dict``:
+
+    * ``batch_mgaa``: MGAA(f1) and MGAA(f3) run as one call at batch 2B,
+      with MGAA's ``batch_fb`` (exact);
+    * ``tail_impl``: 'xla' or 'folded', the upsampling tail with upconv2
+      and conv_last0 folded over the pixel shuffles (``ops.psfold``), all
+      at (H, W) (exact up to summation order);
+    * ``k_fused``, ``iac_chain`` ('periter' or 'resident') and
+      ``iac_dtype`` ('f32' or 'bf16'): MGAA's;
+    * ``scnet_dtype`` ('f32' or 'bf16', the storage of SCNet's maps; it
+      stands for the JAX package's ``scnet_impl='rows_bf16'``, since the
+      port has no rows layout) and ``scnet_fuse`` ('pair' or 'quad'):
+      SCNet's ``dtype`` and ``fuse`` (``models.scnet_rows``).
+
+    ``k_fused``, ``iac_chain='resident'``, ``scnet_fuse='quad'`` and bf16
+    storage are serving flags: they raise under autograd."""
 
     def __init__(self, n_feats: int = 64, in_channels: int = 1, ac_ks: int = 3,
                  ac_num: int = 6, freq_inv: int = 8, sc_groups: int = 10,
                  up_ksize: int = 3, num_frames: int = 7, k_fused: bool = False,
+                 batch_mgaa: bool = False, tail_impl: str = "xla",
+                 iac_chain: str = "periter", iac_dtype: str = "f32",
+                 scnet_dtype: str = "f32", scnet_fuse: str = "pair",
                  device=None):
         super().__init__()
+        _check_tail_scnet(tail_impl, scnet_dtype, scnet_fuse)
         nf = n_feats
         self.nf, self.num_frames = nf, num_frames
+        self.batch_mgaa, self.tail_impl = batch_mgaa, tail_impl
         self.feat_extract = nn.Sequential(
             Conv2d(num_frames * in_channels, num_frames * nf, 3))
         self.lrelu = PReLU()
-        self.MGAA = MGAA(nf, ac_ks, ac_num, k_fused=k_fused)
+        self.MGAA = MGAA(nf, ac_ks, ac_num, k_fused=k_fused,
+                         batch_fb=batch_mgaa, iac_chain=iac_chain,
+                         iac_dtype=iac_dtype)
         self.rconcat1 = Conv2d(nf, nf, 3, stride=2)
         self.rconcat2 = Conv2d(nf, nf, 3, stride=2)
-        self.recorb1 = SCNet(nf, sc_groups)
+        self.recorb1 = SCNet(nf, sc_groups, fuse=scnet_fuse,
+                             dtype=scnet_dtype)
         self.recorb0 = Conv2d(nf, nf, 3)
         ks = up_ksize
         self.upconv1_L2 = Conv2d(nf, nf, ks)
@@ -206,8 +277,12 @@ class FCVSRNet(nn.Module):
         feat = self.feat_extract(feats)
         f1, f2, f3 = feat[..., :3 * nf], feat[..., 3 * nf:4 * nf], \
             feat[..., 4 * nf:]
-        g1 = self.MGAA(f1)
-        g3 = self.MGAA(f3)
+        if self.batch_mgaa:
+            g13 = self.MGAA(torch.cat([f1, f3], 0))
+            g1, g3 = g13[:b], g13[b:]
+        else:
+            g1 = self.MGAA(f1)
+            g3 = self.MGAA(f3)
         g2 = self.MGAA(torch.cat([g1, f2, g3], -1))
 
         dec = self.MFFRblock(g2)
@@ -224,12 +299,87 @@ class FCVSRNet(nn.Module):
             out_l2 + self.upconv1_L2_2(torch.cat([out_l2, out_l3_1], -1)))
         fuse = torch.cat([l1, out_l2, out_l3_2], -1)
         fuse = self.recorb0(self.upconv_fuse(fuse))
-        up = lrelu(pixel_shuffle(self.upconv1(fuse)))
-        up = lrelu(pixel_shuffle(self.upconv2(up)))
-        last = self.conv_last0
-        out = conv3x3(up.contiguous(), hwio(last), conv_bias(last))
+        if self.tail_impl == "folded":
+            # upconv1 -> lrelu -> folded upconv2 -> lrelu -> doubly folded
+            # conv_last0, all at (H, W), then both shuffles (the PReLU has
+            # one slope, so it commutes with a shuffle)
+            w2, b2, wl, bl = self.folded_tail()
+            up = lrelu(_conv_nhwc(lrelu(self.upconv1(fuse)), w2, b2))
+            out = pixel_shuffle(pixel_shuffle(_conv_nhwc(up, wl, bl)))
+        else:
+            up = lrelu(pixel_shuffle(self.upconv1(fuse)))
+            up = lrelu(pixel_shuffle(self.upconv2(up)))
+            last = self.conv_last0
+            out = conv3x3(up.contiguous(), hwio(last), conv_bias(last))
         out = out + resize_bilinear(center, 4 * h, 4 * w)
         return out.permute(0, 3, 1, 2)
+
+    def serving_flags(self) -> dict:
+        """The serving flags, under the constructor's names."""
+        m, sc = self.MGAA, self.recorb1
+        return dict(batch_mgaa=self.batch_mgaa, k_fused=m.k_fused,
+                    tail_impl=self.tail_impl, iac_chain=m.iac_chain,
+                    iac_dtype=m.iac_dtype, scnet_dtype=sc.dtype,
+                    scnet_fuse=sc.fuse)
+
+    def set_serving_flags(self, **flags) -> dict:
+        """Set serving flags in place, checked as the constructor checks
+        them; returns the previous ones (the weights stay)."""
+        old = self.serving_flags()
+        unknown = set(flags) - set(old)
+        if unknown:
+            raise TypeError(f"not serving flags: {sorted(unknown)}")
+        new = {**old, **flags}
+        _check_tail_scnet(new["tail_impl"], new["scnet_dtype"],
+                          new["scnet_fuse"])
+        _check_iac(new["k_fused"], new["iac_chain"], new["iac_dtype"])
+        m, sc = self.MGAA, self.recorb1
+        self.batch_mgaa, self.tail_impl = new["batch_mgaa"], new["tail_impl"]
+        m.batch_fb, m.k_fused = new["batch_mgaa"], new["k_fused"]
+        m.iac_chain, m.iac_dtype = new["iac_chain"], new["iac_dtype"]
+        sc.dtype, sc.fuse = new["scnet_dtype"], new["scnet_fuse"]
+        return old
+
+    def folded_tail(self):
+        """upconv2 folded over one shuffle and conv_last0 over two (HWIO),
+        with their biases.  Under autograd they are folded from the live
+        parameters on every call; otherwise once, and again only when a
+        weight changes."""
+        convs = (self.upconv2, self.conv_last0)
+        params = [t for c in convs for t in (c.weight, c.bias)]
+        if _native.records(*params):
+            return _fold_tail(*params)
+        key = tuple((t.data_ptr(), t._version, t.device) for t in params)
+        cached = self.__dict__.get("_folded_tail")
+        if cached is None or cached[0] != key:
+            cached = (key, _fold_tail(*(t.detach() for t in params)))
+            self.__dict__["_folded_tail"] = cached
+        return cached[1]
+
+
+def _check_tail_scnet(tail_impl, scnet_dtype, scnet_fuse):
+    if tail_impl not in ("xla", "folded"):
+        raise ValueError(f"tail_impl is 'xla' or 'folded', not {tail_impl!r}")
+    if scnet_dtype not in STORAGE or scnet_fuse not in ("pair", "quad"):
+        raise ValueError(f"scnet_dtype is 'f32' or 'bf16' and scnet_fuse "
+                         f"'pair' or 'quad', not {scnet_dtype!r} and "
+                         f"{scnet_fuse!r}")
+
+
+def _fold_tail(w2, b2, wl, bl):
+    def to_hwio(w):
+        return w.permute(2, 3, 1, 0)
+
+    return (fold_ps_conv(to_hwio(w2), 2), fold_ps_bias(b2, 2),
+            fold_ps_conv(fold_ps_conv(to_hwio(wl), 2), 2),
+            fold_ps_bias(fold_ps_bias(bl, 2), 2))
+
+
+def _conv_nhwc(x, w_hwio, bias):
+    """SAME, stride-1 conv of an NHWC map with an HWIO weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1), bias,
+                 padding=w_hwio.shape[0] // 2)
+    return y.permute(0, 2, 3, 1)
 
 
 @torch.no_grad()

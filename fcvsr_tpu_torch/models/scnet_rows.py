@@ -3,14 +3,23 @@
 
 Runs ``blocks.SCNet``'s parameters with every 3x3 conv on a kernel
 of ``ops.fused_conv``: each BlockRCB body is two pair launches (body0 ->
-lrelu 0.1 -> body1, then the RCB's body.0 -> lrelu 0.2 -> body.2), and each
-group ends with one conv launch carrying the group residual.  Per SCGroup
-and frame that is 18 pair and 3 conv launches.  The 1x1 convs, the context
+lrelu 0.1 -> body1, then the RCB's body.0 -> lrelu 0.2 -> body.2), or with
+``fuse='quad'`` one quad launch of both, and each group ends with one conv
+launch carrying the group residual.  Per SCGroup and frame that is 18 pair
+(or 9 quad) and 3 conv launches.  The 1x1 convs, the context
 block and the bilinear exchange stay PyTorch ops, as they were XLA ops
 outside the Pallas kernels.  There is no rows layout on the GPU: tensors
 stay NHWC and the kernels zero-pad themselves.  Under autograd the same
 calls go through the kernels' autograd Functions (``ops.fused_conv``), with
 the weights made from the live parameters.
+
+``dtype='bf16'`` stores the chain's maps as bfloat16 (the counterpart of
+the JAX package's ``scnet_impl='rows_bf16'``): the inputs, every kernel's
+output and each BlockRCB's output are rounded to bf16; the PyTorch ops
+between the kernels (the context block, the 1x1 convs, the bilinear
+exchange, the residual sums) compute in float32 on the widened maps; the
+outputs are float32.  ``fuse='quad'`` and bf16 are serving options: they
+raise under autograd.
 """
 
 from __future__ import annotations
@@ -18,7 +27,9 @@ from __future__ import annotations
 import torch.nn.functional as F
 
 from ..ops import _native
-from ..ops.fused_conv import conv3x3, conv3x3_pair, prep_weight
+import torch
+
+from ..ops.fused_conv import conv3x3, conv3x3_pair, conv3x3_quad, prep_weight
 from ..ops.resize import downsample2x_bilinear, upsample2x_bilinear
 
 __all__ = ["scnet_apply", "hwio", "conv_bias"]
@@ -57,26 +68,46 @@ def cross_scale(down, up, xs, res):
     return [x + r + d + u for x, r, d, u in zip(xs, res, dn, upd)]
 
 
-def _block_rcb(blk, xs):
+def _block_rcb(blk, xs, fuse: str):
     body0, body1, rcb = blk.body[0], blk.body[2], blk.body[3]
     r0, r1 = rcb.body[0], rcb.body[2]
     res = []
     for x in xs:
-        y = conv3x3_pair(x, hwio(body0), conv_bias(body0), hwio(body1),
-                         conv_bias(body1), ns1=0.1)
-        r = conv3x3_pair(y, hwio(r0), None, hwio(r1), None, ns1=0.2)
-        res.append(y + F.leaky_relu(rcb.gcnet(r), 0.2))
+        if fuse == "quad":
+            y, r = conv3x3_quad(x, hwio(body0), conv_bias(body0), hwio(body1),
+                                conv_bias(body1), hwio(r0), None, hwio(r1),
+                                None, ns1=0.1, ns3=0.2)
+        else:
+            y = conv3x3_pair(x, hwio(body0), conv_bias(body0), hwio(body1),
+                             conv_bias(body1), ns1=0.1)
+            r = conv3x3_pair(y, hwio(r0), None, hwio(r1), None, ns1=0.2)
+        res.append(y.float() + F.leaky_relu(rcb.gcnet(r.float()), 0.2))
     return cross_scale(blk.down[0], blk.up[0], xs, res)
 
 
-def scnet_apply(scnet, xs):
-    """SCNet forward over NHWC [L1, L2, L3] through the conv kernels."""
-    xs = [x.contiguous() for x in xs]
+STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
+
+
+def scnet_apply(scnet, xs, fuse: str = "pair", dtype: str = "f32"):
+    """SCNet forward over NHWC [L1, L2, L3] through the conv kernels:
+    ``fuse`` 'pair' or 'quad' for the BlockRCB bodies, ``dtype`` 'f32' or
+    'bf16' for the maps between the kernels.  Returns float32 maps."""
+    if fuse not in ("pair", "quad") or dtype not in STORAGE:
+        raise ValueError(f"fuse is 'pair' or 'quad' and dtype 'f32' or "
+                         f"'bf16', not {fuse!r} and {dtype!r}")
+    if (fuse, dtype) != ("pair", "f32") and \
+            _native.records(*xs, *scnet.parameters()):
+        raise RuntimeError(
+            f"SCNet(fuse={fuse!r}, dtype={dtype!r}) is inference only: the "
+            "quad kernel and bf16 storage have no backward.  Train with "
+            "fuse='pair' and dtype='f32', or run under torch.no_grad()")
+    st = STORAGE[dtype]
+    xs = [x.to(st).contiguous() for x in xs]
     res = list(xs)
     for group in scnet.body:
         gin = res
         for blk in group.body:
-            res = [r.contiguous() for r in _block_rcb(blk, res)]
+            res = [r.to(st).contiguous() for r in _block_rcb(blk, res, fuse)]
         w, b = hwio(group.conv), conv_bias(group.conv)
         res = [conv3x3(r, w, b, res=x) for x, r in zip(gin, res)]
-    return [x + r for x, r in zip(xs, res)]
+    return [x.float() + r.float() for x, r in zip(xs, res)]

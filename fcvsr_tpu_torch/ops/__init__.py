@@ -19,12 +19,15 @@ __all__ = [
 ]
 
 # kernel name -> the wrappers that launch it (the IAC kernel has a
-# materialised-kernel and a fused-prediction variant; its adjoint and the
-# DCN's are two launches a call)
+# materialised-kernel and a fused-prediction variant; the resident chain
+# is one launch for all iterations; the IAC and DCN adjoints are two
+# launches a call)
 _WRAPPERS = {
     "iac": (fused_iac.warp_sac_fused, fused_iac.warp_sac_fused_kf),
+    "iac_chain": (fused_iac.iac_fused_resident,),
     "iac_bwd": (fused_iac.warp_sac_bwd,),
     "conv3x3_pair": (fused_conv.conv3x3_pair,),
+    "conv3x3_quad": (fused_conv.conv3x3_quad,),
     "conv3x3": (fused_conv.conv3x3,),
     "dcn": (fused_dcn.modulated_deform_conv2d_fused,),
     "dcn_bwd": (fused_dcn.modulated_deform_conv2d_fused_vjp,),

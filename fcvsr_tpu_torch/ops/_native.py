@@ -26,7 +26,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["lib", "check", "ptr", "require", "records", "on_cpu",
-           "stream_ptr", "BUILD_DIR"]
+           "stream_ptr", "storage", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -37,18 +37,26 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # feat, flow, k|wsel, k_ld, k_off, f0, bsel, c0, feat_in, out,
-    # B, H, W, C, act, stream
+    # B, H, W, C, act, bf16, stream
     "fcvsr_iac_step": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
-                       _I, _I, _I, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _I, _P],
+    # feat_in, flows, k, buf0, buf1, out, B, H, W, C, ac, act_last, bf16,
+    # stream
+    "fcvsr_iac_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _P],
     # src, flow, k, k_ld, k_off, gz, dk, dwarped, B, H, W, C, stream
     "fcvsr_iac_bwd_sac": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # src, flow, dwarped, dsrc, dflow, B, H, W, C, stream
     "fcvsr_iac_bwd_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, stream
-    "fcvsr_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
-    # x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1, stream
+    # x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, bf16, stream
+    "fcvsr_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
+                      _P],
+    # x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1, bf16, stream
     "fcvsr_conv3x3_pair": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _F, _P],
+                           _F, _I, _P],
+    # x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C, C1, C2, C3,
+    # Cout, ns1, ns3, bf16, stream
+    "fcvsr_conv3x3_quad": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, dg, stream
     "fcvsr_dcn3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, g, dx, doffset, dmask, B, H, W, Cin, Cout, dg,
@@ -62,6 +70,7 @@ _SIGNATURES = {
 
 _lock = threading.Lock()
 _lib = None
+_build_error = None  # a failed build, raised again without rebuilding
 build_seconds = None  # wall time of the build in this process, or None
 
 
@@ -124,14 +133,21 @@ def _build() -> Path:
 
 def lib() -> ctypes.CDLL:
     """The kernel library, built on first call."""
-    global _lib
+    global _lib, _build_error
     with _lock:
         if _lib is None:
             if not torch.cuda.is_available():
                 raise RuntimeError(
                     "fcvsr_tpu_torch: the CUDA kernels need a CUDA device; "
                     "torch.cuda.is_available() is False")
-            handle = ctypes.CDLL(str(_build()))
+            if _build_error is not None:
+                raise _build_error
+            try:
+                path = _build()
+            except RuntimeError as err:
+                _build_error = err
+                raise
+            handle = ctypes.CDLL(str(path))
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = argtypes
@@ -159,13 +175,15 @@ def ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
 
 
-def require(t, name: str, device: torch.device, shape=None) -> None:
-    """Raise unless ``t`` is a contiguous float32 tensor on ``device`` with
-    ``shape``, and carries no autograd history the launch would drop."""
+def require(t, name: str, device: torch.device, shape=None,
+            dtype=torch.float32) -> None:
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor on ``device``
+    with ``shape``, and carries no autograd history the launch would
+    drop."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
@@ -178,6 +196,17 @@ def require(t, name: str, device: torch.device, shape=None) -> None:
             "fused_conv.conv3x3[_pair] and "
             "fused_dcn.modulated_deform_conv2d_fused, which route to their "
             "autograd Functions, or run under torch.no_grad()")
+
+
+def storage(t) -> int:
+    """The kernels' storage flag of a map: 0 for float32, 1 for bfloat16;
+    any other type raises."""
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"the kernels store maps as float32 or bfloat16, not "
+                    f"{t.dtype}")
 
 
 def records(*tensors) -> bool:

@@ -1,15 +1,23 @@
-"""Wrappers of the 3x3 conv kernels (``csrc/conv3x3.cu``) and their plain
-versions.
+"""Wrappers of the 3x3 conv kernels (``csrc/conv3x3.cu``,
+``csrc/conv3x3_quad.cu``) and their plain versions.
 
 Counterpart of ``fcvsr_tpu.ops.pallas_conv``'s ``conv3x3_rows`` (with
-``conv3x3_rows_nhwc``) and ``conv3x3_pair_rows``.  The TPU kernels carry a
+``conv3x3_rows_nhwc``), ``conv3x3_pair_rows`` and ``conv3x3_quad_rows``.  The TPU kernels carry a
 zero-ringed "rows" layout; here tensors stay NHWC and the kernels pad with
 zeros themselves.  Weights are HWIO (3, 3, Cin, Cout), the layout the kernels
 read; :func:`prep_weight` makes it from a torch OIHW weight once.
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
-it runs the plain version, under ordinary autograd.  ``conv3x3.launches``
-and ``conv3x3_pair.launches`` count kernel launches.
+it runs the plain version, under ordinary autograd.  ``conv3x3.launches``,
+``conv3x3_pair.launches`` and ``conv3x3_quad.launches`` count kernel
+launches.
+
+Storage: the maps (x, res, the outputs, and the pair's intermediate) are
+float32 or bfloat16, weights and biases float32.  The kernels compute in
+float32 and round where they store; the plain versions compute in float32
+and round at the same handoffs: the pair's intermediate and each output.
+bf16 and :func:`conv3x3_quad` are serving options: under autograd the
+wrappers take float32 only and the quad raises.
 
 Training: on a CUDA tensor that autograd records, a wrapper runs its
 ``autograd.Function`` (:class:`Conv3x3Fn`, :class:`Conv3x3PairFn`): the
@@ -27,8 +35,9 @@ import torch.nn.functional as F
 
 from . import _native
 
-__all__ = ["conv3x3", "conv3x3_pair", "conv3x3_plain", "conv3x3_pair_plain",
-           "prep_weight", "Conv3x3Fn", "Conv3x3PairFn"]
+__all__ = ["conv3x3", "conv3x3_pair", "conv3x3_quad", "conv3x3_plain",
+           "conv3x3_pair_plain", "conv3x3_quad_plain", "prep_weight",
+           "Conv3x3Fn", "Conv3x3PairFn"]
 
 
 def prep_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
@@ -44,17 +53,26 @@ def _conv_plain(x, w_hwio, bias):
 
 def conv3x3_plain(x, w_hwio, bias=None, res=None, act: bool = False,
                   neg_slope: float = 0.2):
-    """act(conv3x3_same(x) + bias + res), NHWC."""
-    y = _conv_plain(x, w_hwio, bias)
+    """act(conv3x3_same(x) + bias + res), NHWC, in x's storage type."""
+    y = _conv_plain(x.float(), w_hwio, bias)
     if res is not None:
-        y = y + res
-    return F.leaky_relu(y, neg_slope) if act else y
+        y = y + res.float()
+    return (F.leaky_relu(y, neg_slope) if act else y).to(x.dtype)
 
 
 def conv3x3_pair_plain(x, w1, b1, w2, b2, ns1: float = 0.2):
     """conv2(leaky_relu_ns1(conv1(x) + b1)) + b2, NHWC, SAME zero padding of
-    both convs."""
-    return _conv_plain(F.leaky_relu(_conv_plain(x, w1, b1), ns1), w2, b2)
+    both convs; the intermediate and the output in x's storage type."""
+    mid = F.leaky_relu(_conv_plain(x.float(), w1, b1), ns1).to(x.dtype)
+    return _conv_plain(mid.float(), w2, b2).to(x.dtype)
+
+
+def conv3x3_quad_plain(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
+                       ns3: float = 0.2):
+    """(y, out): y = conv3x3_pair_plain(x, w1, b1, w2, b2, ns1), out =
+    conv3x3_pair_plain(y, w3, b3, w4, b4, ns3), a BlockRCB body."""
+    y = conv3x3_pair_plain(x, w1, b1, w2, b2, ns1)
+    return y, conv3x3_pair_plain(y, w3, b3, w4, b4, ns3)
 
 
 def _conv_vjp(g, x, w_hwio, has_bias: bool, need_x: bool = True):
@@ -118,6 +136,13 @@ class Conv3x3PairFn(torch.autograd.Function):
         return gx, gw1, gb1, gw2, gb2, None
 
 
+def _train_f32(x, name):
+    if x.dtype != torch.float32:
+        raise RuntimeError(
+            f"{name} trains in float32, not {x.dtype}: bf16 storage is a "
+            "serving option (run under torch.no_grad())")
+
+
 def _check_weight(w, b, cin, name, dev):
     _native.require(w, name, dev)
     if w.shape[:3] != (3, 3, cin):
@@ -137,19 +162,20 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
     if _native.on_cpu(x):
         return conv3x3_plain(x, w_hwio, bias, res, act, neg_slope)
     if _native.records(x, w_hwio, bias, res):
+        _train_f32(x, "conv3x3")
         return Conv3x3Fn.apply(x, w_hwio, bias, res, act, neg_slope)
     b, h, w, cin = x.shape
     dev = x.device
-    _native.require(x, "x", dev)
+    _native.require(x, "x", dev, dtype=x.dtype)
     cout = _check_weight(w_hwio, bias, cin, "w", dev)
     if res is not None:
-        _native.require(res, "res", dev, (b, h, w, cout))
+        _native.require(res, "res", dev, (b, h, w, cout), dtype=x.dtype)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()
     rc = lib.fcvsr_conv3x3(
         x.data_ptr(), w_hwio.data_ptr(), _native.ptr(bias), _native.ptr(res),
         out.data_ptr(), b, h, w, cin, cout, int(act), float(neg_slope),
-        _native.stream_ptr(dev))
+        _native.storage(x), _native.stream_ptr(dev))
     _native.check(rc, "conv3x3")
     conv3x3.launches += 1
     return out
@@ -166,10 +192,11 @@ def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     if _native.on_cpu(x):
         return conv3x3_pair_plain(x, w1, b1, w2, b2, ns1)
     if _native.records(x, w1, b1, w2, b2):
+        _train_f32(x, "conv3x3_pair")
         return Conv3x3PairFn.apply(x, w1, b1, w2, b2, ns1)
     b, h, w, cin = x.shape
     dev = x.device
-    _native.require(x, "x", dev)
+    _native.require(x, "x", dev, dtype=x.dtype)
     c1 = _check_weight(w1, b1, cin, "w1", dev)
     cout = _check_weight(w2, b2, c1, "w2", dev)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
@@ -177,10 +204,48 @@ def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     rc = lib.fcvsr_conv3x3_pair(
         x.data_ptr(), w1.data_ptr(), _native.ptr(b1), w2.data_ptr(),
         _native.ptr(b2), out.data_ptr(), b, h, w, cin, c1, cout, float(ns1),
-        _native.stream_ptr(dev))
+        _native.storage(x), _native.stream_ptr(dev))
     _native.check(rc, "conv3x3_pair")
     conv3x3_pair.launches += 1
     return out
 
 
 conv3x3_pair.launches = 0
+
+
+def conv3x3_quad(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
+                 ns3: float = 0.2):
+    """(y, out) of a BlockRCB body in one kernel: y = conv3x3_pair(x, w1,
+    b1, w2, b2, ns1), out = conv3x3_pair(y, w3, b3, w4, b4, ns3), y kept
+    on chip for the second pair and also returned (the RCB residual needs
+    it).  x: (B, H, W, C); w1..w4 HWIO, each conv's Cin the previous one's
+    Cout; biases (Cout,) or None.  Serving only: it raises under
+    autograd."""
+    if _native.on_cpu(x):
+        return conv3x3_quad_plain(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1, ns3)
+    if _native.records(x, w1, b1, w2, b2, w3, b3, w4, b4):
+        raise RuntimeError(
+            "conv3x3_quad is a serving kernel with no backward: train "
+            "through conv3x3_pair, or run under torch.no_grad()")
+    b, h, w, cin = x.shape
+    dev = x.device
+    _native.require(x, "x", dev, dtype=x.dtype)
+    c1 = _check_weight(w1, b1, cin, "w1", dev)
+    c2 = _check_weight(w2, b2, c1, "w2", dev)
+    c3 = _check_weight(w3, b3, c2, "w3", dev)
+    cout = _check_weight(w4, b4, c3, "w4", dev)
+    y = torch.empty((b, h, w, c2), device=dev, dtype=x.dtype)
+    out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
+    lib = _native.lib()
+    rc = lib.fcvsr_conv3x3_quad(
+        x.data_ptr(), w1.data_ptr(), _native.ptr(b1), w2.data_ptr(),
+        _native.ptr(b2), w3.data_ptr(), _native.ptr(b3), w4.data_ptr(),
+        _native.ptr(b4), y.data_ptr(), out.data_ptr(), b, h, w, cin, c1, c2,
+        c3, cout, float(ns1), float(ns3), _native.storage(x),
+        _native.stream_ptr(dev))
+    _native.check(rc, "conv3x3_quad")
+    conv3x3_quad.launches += 1
+    return y, out
+
+
+conv3x3_quad.launches = 0

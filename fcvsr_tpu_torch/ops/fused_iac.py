@@ -1,16 +1,26 @@
-"""Wrappers of the IAC kernels (``csrc/iac.cu``, ``csrc/iac_bwd.cu``) and
-their plain versions.
+"""Wrappers of the IAC kernels (``csrc/iac.cu``, ``csrc/iac_chain.cu``,
+``csrc/iac_bwd.cu``) and their plain versions.
 
 Counterpart of ``fcvsr_tpu.ops.pallas_iac``'s ``warp_sac_fused``,
-``iac_fused``, ``iac_fused_kf`` and ``iac_fused_vjp`` (here
-:class:`IACChainFn`).  One forward launch is one exact IAC iteration:
+``iac_fused``, ``iac_fused_kf``, ``iac_fused_resident`` and
+``iac_fused_vjp`` (here :class:`IACChainFn`).  One forward launch of
+``iac.cu`` is one exact IAC iteration:
 
     out = leaky_relu_0.1(sac_k1,k1(flow_warp(feat, flow)) + feat_in)
 
 with the activation skipped when ``act`` is False.  Unlike the TPU kernel
 the warp is unbounded (no radius clamp) and nothing constrains H, W or C.
-:func:`warp_sac_bwd` is its exact adjoint without the residual and the
-activation, two launches (the SAC adjoint, then the warp adjoint).
+:func:`iac_fused_resident` runs the whole chain in one launch of
+``iac_chain.cu``.  :func:`warp_sac_bwd` is the iteration's exact adjoint
+without the residual and the activation, two launches (the SAC adjoint,
+then the warp adjoint).
+
+Storage: the serving wrappers take float32 or bfloat16 maps (feat, k, f0,
+feat_in; the output has their type) and float32 flows, ``wsel`` and
+``bsel``.  The kernels compute in float32 and round where they store; the
+plain versions compute in float32 and round each iteration's output to
+the maps' type, as the kernels store it.  bf16 is a serving option: the
+training path (:class:`IACChainFn`, the adjoint) is float32.
 
 Training: on a CUDA tensor that autograd records, :func:`iac_fused` runs
 :class:`IACChainFn`, whose forward launches the iterations and keeps each
@@ -20,8 +30,8 @@ kernels.  (The JAX package re-runs the forward in its VJP instead.)
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs the plain version, under ordinary autograd.  ``warp_sac_fused``,
-``warp_sac_fused_kf`` and ``warp_sac_bwd`` count their launches in
-``.launches``.
+``warp_sac_fused_kf``, ``iac_fused_resident`` and ``warp_sac_bwd`` count
+their launches in ``.launches``.
 """
 
 from __future__ import annotations
@@ -34,31 +44,46 @@ from .sac import sac
 from .warp import flow_warp
 
 __all__ = ["warp_sac_fused", "warp_sac_fused_kf", "warp_sac_bwd", "iac_fused",
-           "iac_fused_kf", "IACChainFn", "warp_sac_plain",
-           "warp_sac_vjp_plain", "predict_kernels"]
+           "iac_fused_kf", "iac_fused_resident", "IACChainFn",
+           "warp_sac_plain", "iac_chain_plain", "warp_sac_vjp_plain",
+           "predict_kernels"]
 
 
 def predict_kernels(f0, wsel, bsel, it: int, channels: int):
     """k = f0 . wsel + bsel for iteration ``it``'s 3C columns.  f0:
     (B, H, W, C0); wsel: (C0, n*3C); bsel: (n*3C,)."""
     cols = slice(it * 3 * channels, (it + 1) * 3 * channels)
-    return torch.einsum("bhwc,ck->bhwk", f0, wsel[:, cols]) + bsel[cols]
+    return torch.einsum("bhwc,ck->bhwk", f0.float(), wsel[:, cols]) \
+        + bsel[cols]
 
 
 def warp_sac_plain(feat, flow, k, feat_in, act: bool = True, it: int = 0):
-    """The plain version: k (B, H, W, n*3C) tap-major, iteration ``it``."""
+    """The plain version: k (B, H, W, n*3C) tap-major, iteration ``it``;
+    float32 arithmetic, the output rounded to feat's type."""
     c = feat.shape[-1]
-    k1 = k[..., it * 3 * c:(it + 1) * 3 * c]
-    out = sac(flow_warp(feat, flow), k1, k1, 3, tap_major=True) + feat_in
-    return F.leaky_relu(out, 0.1) if act else out
+    k1 = k[..., it * 3 * c:(it + 1) * 3 * c].float()
+    out = sac(flow_warp(feat.float(), flow), k1, k1, 3, tap_major=True) \
+        + feat_in.float()
+    return (F.leaky_relu(out, 0.1) if act else out).to(feat.dtype)
+
+
+def iac_chain_plain(feat_in, k, offsets, ac_num: int, act_last: bool = True):
+    """The plain chain: ``ac_num`` :func:`warp_sac_plain` iterations, with
+    feat_in the first source and every iteration's residual, each output
+    rounded to feat_in's type."""
+    cur = feat_in
+    for i in range(ac_num):
+        cur = warp_sac_plain(cur, offsets[i], k, feat_in,
+                             _act(i, ac_num, act_last), i)
+    return cur
 
 
 def _check_common(feat, flow, feat_in):
     b, h, w, c = feat.shape
-    dev = feat.device
-    _native.require(feat, "feat", dev)
+    dev, dt = feat.device, feat.dtype
+    _native.require(feat, "feat", dev, dtype=dt)
     _native.require(flow, "flow", dev, (b, h, w, 2))
-    _native.require(feat_in, "feat_in", dev, (b, h, w, c))
+    _native.require(feat_in, "feat_in", dev, (b, h, w, c), dtype=dt)
     return b, h, w, c
 
 
@@ -66,7 +91,7 @@ def _check_k(k, feat, it: int) -> int:
     """Validate the materialised kernels for iteration ``it``; returns
     their row length."""
     c = feat.shape[-1]
-    _native.require(k, "k", feat.device)
+    _native.require(k, "k", feat.device, dtype=feat.dtype)
     k_ld = k.shape[-1]
     if k.shape[:3] != feat.shape[:3] or k_ld % (3 * c) or \
             not 0 <= it < k_ld // (3 * c):
@@ -88,7 +113,8 @@ def warp_sac_fused(feat, flow, k, feat_in, act: bool = True, it: int = 0):
     rc = lib.fcvsr_iac_step(
         feat.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
         None, None, 0, feat_in.data_ptr(), out.data_ptr(),
-        b, h, w, c, int(act), _native.stream_ptr(feat.device))
+        b, h, w, c, int(act), _native.storage(feat),
+        _native.stream_ptr(feat.device))
     _native.check(rc, "iac")
     warp_sac_fused.launches += 1
     return out
@@ -100,15 +126,16 @@ warp_sac_fused.launches = 0
 def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
                       it: int = 0):
     """One IAC iteration with fused kernel prediction: the kernels are
-    f0 . wsel + bsel, computed in the kernel.  f0: (B, H, W, C0); wsel:
-    (C0, n*3C); bsel: (n*3C,), iteration ``it``'s 3C columns used."""
+    f0 . wsel + bsel, computed in the kernel.  f0: (B, H, W, C0), a map
+    (feat's type); wsel: (C0, n*3C) and bsel: (n*3C,) float32, iteration
+    ``it``'s 3C columns used."""
     c = feat.shape[-1]
     if _native.on_cpu(feat):
         k = predict_kernels(f0, wsel, bsel, it, c)
         return warp_sac_plain(feat, flow, k, feat_in, act)
     b, h, w, c = _check_common(feat, flow, feat_in)
     dev = feat.device
-    _native.require(f0, "f0", dev)
+    _native.require(f0, "f0", dev, dtype=feat.dtype)
     c0 = f0.shape[-1]
     _native.require(wsel, "wsel", dev)
     k_ld = wsel.shape[-1]
@@ -122,7 +149,8 @@ def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
     rc = lib.fcvsr_iac_step(
         feat.data_ptr(), flow.data_ptr(), wsel.data_ptr(), k_ld, it * 3 * c,
         f0.data_ptr(), bsel.data_ptr(), c0, feat_in.data_ptr(),
-        out.data_ptr(), b, h, w, c, int(act), _native.stream_ptr(dev))
+        out.data_ptr(), b, h, w, c, int(act), _native.storage(feat),
+        _native.stream_ptr(dev))
     _native.check(rc, "iac (kf)")
     warp_sac_fused_kf.launches += 1
     return out
@@ -247,18 +275,58 @@ def iac_fused(feat_in, pred_k_tap_major, offsets, ac_num: int, channels: int,
               act_last: bool = True):
     """IAC chain, one launch per iteration.  pred_k_tap_major:
     (B, H, W, ac_num*3C); offsets: (AC, B, H, W, 2).  On a CUDA tensor
-    that autograd records it runs :class:`IACChainFn`."""
+    that autograd records it runs :class:`IACChainFn` (float32 only)."""
     feat_in, k, offsets = _chain_inputs(feat_in, pred_k_tap_major, offsets,
                                         channels)
     if not _native.on_cpu(feat_in) and _native.records(feat_in, k, offsets):
+        if feat_in.dtype != torch.float32:
+            raise RuntimeError(
+                f"the IAC chain trains in float32, not {feat_in.dtype}: "
+                "bf16 storage is a serving option (run under "
+                "torch.no_grad())")
         return IACChainFn.apply(feat_in, k, offsets, ac_num, act_last)
     return _chain_forward(feat_in, k, offsets, ac_num, act_last)[-1]
 
 
+def iac_fused_resident(feat_in, k, offsets, ac_num: int,
+                       act_last: bool = True):
+    """The whole IAC chain in one launch (``csrc/iac_chain.cu``), the
+    counterpart of ``pallas_iac.iac_fused_resident``: the same function as
+    :func:`iac_fused`, with the map kept between iterations in two scratch
+    buffers instead of one launch an iteration.  feat_in: (B, H, W, C);
+    k: (B, H, W, ac_num*3C) tap-major kernels of feat_in's type (float32
+    or bfloat16); offsets: (AC, B, H, W, 2) float32.  Serving only: it
+    raises under autograd."""
+    if _native.on_cpu(feat_in):
+        return iac_chain_plain(feat_in, k, offsets, ac_num, act_last)
+    b, h, w, c = feat_in.shape
+    dev, dt = feat_in.device, feat_in.dtype
+    _native.require(feat_in, "feat_in", dev, dtype=dt)
+    _native.require(k, "k", dev, (b, h, w, ac_num * 3 * c), dtype=dt)
+    _native.require(offsets, "offsets", dev, (ac_num, b, h, w, 2))
+    out = torch.empty_like(feat_in)
+    bufs = torch.empty((2,) + tuple(feat_in.shape), device=dev, dtype=dt) \
+        if ac_num > 1 else None
+    lib = _native.lib()
+    rc = lib.fcvsr_iac_chain(
+        feat_in.data_ptr(), offsets.data_ptr(), k.data_ptr(),
+        _native.ptr(None if bufs is None else bufs[0]),
+        _native.ptr(None if bufs is None else bufs[1]), out.data_ptr(),
+        b, h, w, c, ac_num, int(act_last), _native.storage(feat_in),
+        _native.stream_ptr(dev))
+    _native.check(rc, "iac_chain")
+    iac_fused_resident.launches += 1
+    return out
+
+
+iac_fused_resident.launches = 0
+
+
 def iac_fused_kf(feat_in, f0, wsel, bsel, offsets, ac_num: int,
                  channels: int, act_last: bool = True):
-    """IAC chain with fused kernel prediction.  f0: (B, H, W, C0); wsel:
-    (C0, ac_num*3C) in tap-major column order; bsel: (ac_num*3C,)."""
+    """IAC chain with fused kernel prediction.  f0: (B, H, W, C0) of
+    feat_in's type; wsel: (C0, ac_num*3C) in tap-major column order and
+    bsel: (ac_num*3C,), float32."""
     feat_in, f0, offsets = _chain_inputs(feat_in, f0, offsets, channels)
     wsel, bsel = wsel.contiguous(), bsel.contiguous()
     cur = feat_in

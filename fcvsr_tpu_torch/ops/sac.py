@@ -8,7 +8,8 @@ with); ``kernel1_both`` keeps it.  IAC iterates warp -> SAC -> + input ->
 leaky-relu(0.1).
 
 ``iac`` goes through ``ops.fused_iac``: one CUDA kernel launch per
-iteration on a CUDA tensor, its plain version on a CPU tensor.
+iteration (or one for the whole chain) on a CUDA tensor, its plain version
+on a CPU tensor.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ def sac(x: torch.Tensor, kernel1: torch.Tensor, kernel2: torch.Tensor,
 
 
 def iac(feat_in: torch.Tensor, pred_k, offsets: torch.Tensor, ac_num: int,
-        channels: int, act_last: bool = True, k_parts=None) -> torch.Tensor:
+        channels: int, act_last: bool = True, k_parts=None,
+        chain: str = "periter") -> torch.Tensor:
     """Iterative adaptive convolution in the configuration FCVSR runs: 3
     taps, kernel1 in both passes, tap-major kernel1 halves only.
 
@@ -55,10 +57,23 @@ def iac(feat_in: torch.Tensor, pred_k, offsets: torch.Tensor, ac_num: int,
     inside each iteration's 3C block; offsets: (AC, B, H, W, 2) flows.
     ``k_parts = (f0, wsel, bsel)`` replaces pred_k (then None) by its
     factors: k = f0 . wsel + bsel, computed inside the IAC kernel.
+    ``chain``: 'periter' launches one kernel an iteration; 'resident' runs
+    the whole chain in one launch (materialised kernels only, serving
+    only), the JAX package's ``set_iac_chain`` as an argument.
     """
     # fused_iac's plain version is built on ``sac`` above
     from . import fused_iac
 
+    if chain not in ("periter", "resident"):
+        raise ValueError(f"chain is 'periter' or 'resident', not {chain!r}")
+    if chain == "resident":
+        if k_parts is not None:
+            raise ValueError("the resident IAC chain takes materialised "
+                             "kernels, not k_parts")
+        feat_in, k, offsets = fused_iac._chain_inputs(feat_in, pred_k,
+                                                      offsets, channels)
+        return fused_iac.iac_fused_resident(feat_in, k, offsets, ac_num,
+                                            act_last)
     if k_parts is None:
         return fused_iac.iac_fused(feat_in, pred_k, offsets, ac_num, channels,
                                    act_last=act_last)

@@ -3,20 +3,25 @@ GPU.
 
     python -m fcvsr_tpu_torch.profiling [--preset fcvsr_cvcpLD_QP22]
         [--reps 10] [--out chiprun_out/profile.json]
+        [--fast] [--iac-chain resident] [--scnet-fuse quad]
 
 At the FPS shape (1 x 7 x C x 272 x 480), seeded random weights, TF32 off:
   1. stages: the CUDA-event time of each stage of ``FCVSRNet.forward``
-     (forward hooks on its children), median over ``--reps`` forwards.
+     (forward hooks on its children), median over ``--reps`` forwards,
+     with the serving flags that ``--fast``, ``--iac-chain`` and
+     ``--scnet-fuse`` select as the CLI's do (the exact path without).
      ``rest`` is the forward less the stages: conv_last0, the bilinear base,
      pixel shuffles and glue;
   2. device: ``torch.profiler`` over 3 forwards: device time and launches by
      kernel name, device busy time (the union of kernel intervals) against
      the host's wall time, and the idle share.  The profiler's own host cost
      is in the wall time, so the idle share is an upper bound;
-  3. serving: materialised kernels against fused kernel prediction
-     (``k_fused``) on the same weights, the forwards interleaved, median ms
-     of each;
-then at the preset's training batch and LR patch (random data):
+  3. serving: the exact path with materialised kernels, with fused kernel
+     prediction (``k_fused``), ``--fast``, and ``--fast`` with the
+     resident IAC chain and the quad SCNet bodies, on the same weights, the
+     forwards interleaved, median ms of each;
+then at the preset's training batch and LR patch (random data), on the
+exact path:
   4. train: CUDA-event ms of the forward with the loss, the backward and
      the Adam update, median over ``--reps`` steps after a warm-up step;
   5. train device: ``torch.profiler`` over 2 steps, as in 2.
@@ -34,7 +39,7 @@ import time
 import numpy as np
 import torch
 
-from .cli import build_model
+from .cli import EXACT, FAST, build_model, serving_flags
 from .train.losses import LOSSES
 from .train.lr_schedule import build_schedule
 from .train.trainer import TrainState
@@ -162,32 +167,40 @@ def _profile(run, dev, n: int) -> dict:
             "kernels": kernels}
 
 
+# phase 3's serving configurations: name -> flags over the exact path
+VARIANTS = {"materialised": {}, "k_fused": dict(k_fused=True), "fast": FAST,
+            "fast_resident_quad": serving_flags(True, "resident", "quad")}
+
+
 @torch.no_grad()
-def serving_compare(model, x, reps: int = 10, warmup: int = 2) -> dict:
-    """Median ms per forward with materialised kernels and with ``k_fused``,
-    same weights, forwards interleaved; ``model.MGAA.k_fused`` is restored."""
+def serving_compare(model, x, reps: int = 10, warmup: int = 2,
+                    variants=None) -> dict:
+    """Median ms per forward of each variant (name -> serving flags over
+    the exact path; by default materialised kernels and ``k_fused``), same
+    weights, forwards interleaved; the model's flags are restored."""
     dev = x.device
-    keep = model.MGAA.k_fused
-    times = {False: [], True: []}
+    variants = variants or {k: VARIANTS[k] for k in ("materialised",
+                                                     "k_fused")}
+    keep = model.serving_flags()
+    times = {name: [] for name in variants}
     try:
-        for kf in (False, True):
-            model.MGAA.k_fused = kf
+        for flags in variants.values():
+            model.set_serving_flags(**{**EXACT, **flags})
             for _ in range(warmup):
                 model(x)
         for _ in range(reps):
-            for kf in (False, True):
-                model.MGAA.k_fused = kf
+            for name, flags in variants.items():
+                model.set_serving_flags(**{**EXACT, **flags})
                 t0 = _mark(dev)
                 model(x)
                 t1 = _mark(dev)
                 _sync(dev)
-                times[kf].append(_ms(t0, t1))
+                times[name].append(_ms(t0, t1))
     finally:
-        model.MGAA.k_fused = keep
+        model.set_serving_flags(**keep)
     return {name: {"median_ms": float(np.median(ts)),
                    "min_ms": float(np.min(ts)), "max_ms": float(np.max(ts))}
-            for name, ts in (("materialised", times[False]),
-                             ("k_fused", times[True]))}
+            for name, ts in times.items()}
 
 
 def _train_step(state, loss_fn, lrs, gt, marks=None):
@@ -239,13 +252,18 @@ def main(argv=None):
     parser.add_argument("--width", type=int, default=480)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--out", type=str, default="")
+    parser.add_argument("--fast", action="store_true")
+    parser.add_argument("--iac-chain", default="periter",
+                        choices=["periter", "resident"])
+    parser.add_argument("--scnet-fuse", default="pair", choices=["pair", "quad"])
     args = parser.parse_args(argv)
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(args.device)
     cfg = preset(args.preset)
-    model = build_model(cfg, args.seed, dev)
+    model = build_model(cfg, args.seed, dev, **serving_flags(
+        args.fast, args.iac_chain, args.scnet_fuse))
     x = torch.from_numpy(np.random.default_rng(args.seed).uniform(
         0, 1, (1, 7, cfg.model.in_channels, args.height, args.width))
         .astype(np.float32)).to(dev)
@@ -257,6 +275,7 @@ def main(argv=None):
             check=True).stdout.strip().splitlines()[0]
     shape = list(x.shape)
     report = {"preset": args.preset, "shape": shape, "card": card,
+              "flags": model.serving_flags(),
               "stages_ms": stage_times(model, x, args.reps)}
     print("[stages] " + json.dumps(report), flush=True)
     prof = device_profile(model, x)
@@ -265,7 +284,8 @@ def main(argv=None):
                                         if k != "kernels"},
                                      "top_kernels": prof["kernels"][:12],
                                      "card": card}), flush=True)
-    report["serving"] = serving_compare(model, x, args.reps)
+    report["serving"] = serving_compare(model, x, args.reps,
+                                        variants=VARIANTS)
     print("[serving] " + json.dumps({"shape": shape, "card": card,
                                       **report["serving"]}), flush=True)
 
@@ -275,6 +295,7 @@ def main(argv=None):
                            .astype(np.float32)).to(dev)
     gt = torch.from_numpy(rng.uniform(0, 1, (b, c, 4 * p, 4 * p))
                           .astype(np.float32)).to(dev)
+    model.set_serving_flags(**EXACT)  # the serving flags have no backward
     state = TrainState(model, build_schedule(cfg.train), cfg.train.betas)
     loss_fn = LOSSES[cfg.train.loss]
     train_shape = list(lrs.shape)

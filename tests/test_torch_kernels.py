@@ -215,11 +215,15 @@ def test_wrappers_on_cpu_leave_launch_counts_at_zero():
                              _t(feat_in))
     fused_iac.warp_sac_bwd(_t(feat_in), _t(offsets[0]), _t(pred_k),
                            _t(feat_in))
+    fused_iac.iac_fused_resident(_t(feat_in), _t(pred_k), _t(offsets), 1)
+    fused_conv.conv3x3_quad(_t(x), _t(w1), _t(b1), _t(w2), _t(b2), _t(w1),
+                            None, _t(w2), None)
     fused_dcn.modulated_deform_conv2d_fused(
         _t(x), torch.zeros(2, 5, 6, 18), None, _t(w1), _t(b1))
     fused_dcn.modulated_deform_conv2d_fused_vjp(
         _t(x), torch.zeros(2, 5, 6, 18), None, _t(w1), _t(b1),
         torch.ones(2, 5, 6, 8))
-    assert launch_counts() == before == {"iac": 0, "iac_bwd": 0,
-                                         "conv3x3_pair": 0, "conv3x3": 0,
+    assert launch_counts() == before == {"iac": 0, "iac_chain": 0,
+                                         "iac_bwd": 0, "conv3x3_pair": 0,
+                                         "conv3x3_quad": 0, "conv3x3": 0,
                                          "dcn": 0, "dcn_bwd": 0}

@@ -24,6 +24,15 @@ to their plain versions the same way, and the model's: the whole gradient
 and the median tensor to 1e-3 of their norm, the per-tensor bar of the CPU test against JAX
 (tests/test_torch_train.py), each tensor to 5e-2 (an activation within f32
 noise of 0 flips on one device; chip_smoke.py says more).
+
+The serving kernels of the --fast path: the resident IAC chain (K4, one
+cooperative launch) and the BlockRCB quad (K6), in float32 and bf16
+storage, and K1-K3 in bf16, against their plain versions; float32 bars as
+above (1e-4 for the chain, carried through its iterations), bf16 two bf16
+steps of the output's magnitude (1.6e-2), since the two versions round at
+the same handoffs but a value within reassociation noise of a rounding
+boundary rounds either way.  FCVSR-S under the serving flags on the card
+against the CPU, with its launches.
 """
 
 import numpy as np
@@ -475,3 +484,185 @@ def test_small_model_gpu_grads_match_cpu(cuda, cin):
     # a missing or wrong gradient is off by its own size
     assert whole <= 1e-3 and float(np.median(list(rel.values()))) <= 1e-3
     assert max(rel.values()) <= 5e-2, rel
+
+
+# bf16 storage: the kernels and the plain versions round at the same
+# handoffs, so they differ where a float32 value within reassociation noise
+# of a rounding boundary rounds the other way, one bf16 step (2^-8 to 2^-7
+# of the value) that later iterations or convs carry on: two steps of the
+# output's magnitude
+BF16_RTOL = 1.6e-2
+# the resident chain against the plain chain in float32: the 2e-5 of one
+# iteration, carried through up to 6
+CHAIN_RTOL = 1e-4
+
+
+def _bf16(t):
+    return t.to(torch.bfloat16)
+
+
+def _assert_close_as(got, ref, rtol_f32):
+    """``got`` against ``ref`` in float32 at ``rtol_f32`` for float32
+    storage, at BF16_RTOL for bf16; both of the same storage type."""
+    assert got.dtype == ref.dtype
+    rtol = rtol_f32 if got.dtype == torch.float32 else BF16_RTOL
+    _assert_close(got.float(), ref.float(), rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,c,ac,act_last", [
+    (2, 13, 29, 20, 3, True), (1, 5, 7, 64, 6, False), (2, 40, 33, 16, 2, True),
+    (1, 9, 17, 8, 1, False)])
+def test_iac_chain_kernel_matches_plain(cuda, dtype, b, h, w, c, ac, act_last):
+    """K4, the whole chain in one cooperative launch, against the plain
+    chain and against K1 launched once an iteration, with flows beyond
+    +-20 px and out of the frame; B 1 and 2, tiles cut at the frame's
+    edges, channel chunks cut short."""
+    fin = _rand(cuda, 50, b, h, w, c).to(dtype)
+    k = _rand(cuda, 51, b, h, w, ac * 3 * c, scale=0.3).to(dtype)
+    offs = torch.stack([_flows(cuda, 52 + i, b, h, w, 1.5) for i in range(ac)])
+    before = launch_counts()
+    got = fused_iac.iac_fused_resident(fin, k, offs, ac, act_last)
+    mid = launch_counts()
+    assert mid["iac_chain"] - before["iac_chain"] == 1 and \
+        mid["iac"] == before["iac"]
+    assert got.dtype == dtype and got.shape == fin.shape
+    _assert_close_as(got, fused_iac.iac_chain_plain(fin, k, offs, ac, act_last),
+                     CHAIN_RTOL)
+    periter = fused_iac.iac_fused(fin, k, offs, ac, c, act_last)
+    assert launch_counts()["iac"] - mid["iac"] == ac
+    _assert_close_as(got, periter, 2e-5)
+
+
+@pytest.mark.parametrize("h,w,c", [(13, 29, 20), (5, 7, 64)])
+def test_iac_kernels_bf16_match_plain(cuda, h, w, c):
+    """K1's bf16 variants, materialised and fused kernel prediction."""
+    b, n_it, c0 = 2, 2, 24
+    feat = _bf16(_rand(cuda, 60, b, h, w, c))
+    fin = _bf16(_rand(cuda, 61, b, h, w, c))
+    flow = _flows(cuda, 62, b, h, w, 1.5)
+    k = _bf16(_rand(cuda, 63, b, h, w, n_it * 3 * c, scale=0.3))
+    f0 = _bf16(_rand(cuda, 64, b, h, w, c0))
+    wsel = _rand(cuda, 65, c0, n_it * 3 * c, scale=0.2)
+    bsel = _rand(cuda, 66, n_it * 3 * c, scale=0.1)
+    for it in range(n_it):
+        _assert_close_as(fused_iac.warp_sac_fused(feat, flow, k, fin, True, it),
+                         fused_iac.warp_sac_plain(feat, flow, k, fin, True, it),
+                         2e-5)
+        got = fused_iac.warp_sac_fused_kf(feat, flow, f0, wsel, bsel, fin,
+                                          False, it)
+        ref = fused_iac.warp_sac_plain(
+            feat, flow, fused_iac.predict_kernels(f0, wsel, bsel, it, c), fin,
+            False)
+        _assert_close_as(got, ref, 2e-5)
+
+
+@pytest.mark.parametrize("h,w,cin,c1,cout,bias", [
+    (9, 19, 64, 128, 64, True), (17, 5, 24, 40, 3, False)])
+def test_conv_kernels_bf16_match_plain(cuda, h, w, cin, c1, cout, bias):
+    """K2 and K3 with bf16 maps (float32 weights and biases)."""
+    x = _bf16(_rand(cuda, 70, 2, h, w, cin))
+    w1 = _rand(cuda, 71, 3, 3, cin, c1, scale=0.1)
+    w2 = _rand(cuda, 72, 3, 3, c1, cout, scale=0.1)
+    b1 = _rand(cuda, 73, c1) if bias else None
+    b2 = _rand(cuda, 74, cout) if bias else None
+    _assert_close_as(fused_conv.conv3x3_pair(x, w1, b1, w2, b2, 0.1),
+                     fused_conv.conv3x3_pair_plain(x, w1, b1, w2, b2, 0.1),
+                     1e-4)
+    wt = _rand(cuda, 75, 3, 3, cin, cout, scale=0.1)
+    res = _bf16(_rand(cuda, 76, 2, h, w, cout))
+    _assert_close_as(fused_conv.conv3x3(x, wt, b2, res, True, 0.2),
+                     fused_conv.conv3x3_plain(x, wt, b2, res, True, 0.2), 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,chans,bias", [
+    (2, 5, 7, (64, 128, 64, 64, 64), True),     # H and W below one tile
+    (1, 37, 50, (64, 128, 64, 64, 64), False),  # tiles cut at both edges
+    (2, 19, 21, (16, 40, 24, 20, 12), True),    # chunks cut short
+    (1, 1, 33, (8, 16, 8, 8, 3), False)])
+def test_quad_kernel_matches_plain(cuda, dtype, b, h, w, chans, bias):
+    """K6 against its plain version (two plain pairs) and against two K2
+    launches; y and out both."""
+    c, c1, c2, c3, cout = chans
+    x = _rand(cuda, 80, b, h, w, c).to(dtype)
+    ws = [_rand(cuda, 81 + i, 3, 3, ci, co, scale=0.1)
+          for i, (ci, co) in enumerate(zip(chans, chans[1:]))]
+    bs = [_rand(cuda, 85 + i, co, scale=0.1) if bias or i < 2 else None
+          for i, co in enumerate(chans[1:])]
+    args = [t for pair in zip(ws, bs) for t in pair]
+    before = launch_counts()
+    y, out = fused_conv.conv3x3_quad(x, *args)
+    after = launch_counts()
+    assert after["conv3x3_quad"] - before["conv3x3_quad"] == 1
+    assert after["conv3x3_pair"] == before["conv3x3_pair"]
+    assert y.shape == (b, h, w, c2) and out.shape == (b, h, w, cout)
+    y_ref, out_ref = fused_conv.conv3x3_quad_plain(x, *args)
+    _assert_close_as(y, y_ref, 1e-4)
+    _assert_close_as(out, out_ref, 1e-4)
+    y2 = fused_conv.conv3x3_pair(x, *args[:4], 0.1)
+    _assert_close_as(y, y2, 1e-4)
+    _assert_close_as(out, fused_conv.conv3x3_pair(y2, *args[4:], 0.2), 1e-4)
+
+
+def test_serving_kernels_raise_under_autograd(cuda):
+    """K4, K6 and bf16 storage have no backward: on the card they refuse
+    inputs that autograd records, where the plain versions would train."""
+    x = _rand(cuda, 90, 1, 6, 7, 8).requires_grad_()
+    wt = _rand(cuda, 91, 3, 3, 8, 8)
+    with pytest.raises(RuntimeError, match="serving kernel"):
+        fused_conv.conv3x3_quad(x, wt, None, wt, None, wt, None, wt, None)
+    k = _rand(cuda, 92, 1, 6, 7, 24)
+    offs = _rand(cuda, 93, 1, 1, 6, 7, 2)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        fused_iac.iac_fused_resident(x, k, offs, 1)
+    xb = _bf16(_rand(cuda, 94, 1, 6, 7, 8))
+    with pytest.raises(RuntimeError, match="float32"):
+        fused_conv.conv3x3(xb, wt.requires_grad_())
+    with pytest.raises(TypeError, match="bfloat16"):
+        fused_conv.conv3x3(xb.float(), wt.detach(), res=_bf16(x.detach()))
+
+
+FAST_SETS = {
+    "exact flags": dict(batch_mgaa=True, tail_impl="folded",
+                        iac_chain="resident", scnet_fuse="quad"),
+    "fast": dict(batch_mgaa=True, k_fused=True, tail_impl="folded",
+                 iac_dtype="bf16", scnet_dtype="bf16"),
+    "fast resident quad": dict(batch_mgaa=True, tail_impl="folded",
+                               iac_chain="resident", scnet_fuse="quad",
+                               iac_dtype="bf16", scnet_dtype="bf16"),
+}
+
+
+@pytest.mark.parametrize("name", list(FAST_SETS))
+def test_small_model_serving_flags_gpu_match_cpu(cuda, name):
+    """FCVSR-S under each serving flag set on the card against the same
+    model on the CPU: 1e-4 for the exact flags (as the flagless model),
+    the JAX package's --fast bars for bf16 (max 0.02, mean 2e-3); the
+    launches of a forward: 2 MGAA calls x 2 directions x 3 iterations (or
+    4 chains), 2 x 3 x 3 pairs a group (or half as many quads), 3 group
+    convs a group, conv_last0 folded into the tail."""
+    flags = FAST_SETS[name]
+    model = init_weights(FCVSRNet.small(in_channels=1, **flags),
+                         torch.Generator().manual_seed(0)).eval()
+    x = torch.from_numpy(np.random.default_rng(22).uniform(
+        0, 1, (1, 7, 1, 20, 28)).astype(np.float32))
+    with torch.no_grad():
+        ref = model(x)
+        model.to(cuda)
+        before = launch_counts()
+        got = model(x.to(cuda)).cpu()
+        after = launch_counts()
+    n = {k: after[k] - before[k] for k in after}
+    resident = flags.get("iac_chain") == "resident"
+    quad = flags.get("scnet_fuse") == "quad"
+    want = dict.fromkeys(n, 0)
+    want.update(iac=0 if resident else 12, iac_chain=4 if resident else 0,
+                conv3x3_pair=0 if quad else 72, conv3x3_quad=36 if quad else 0,
+                conv3x3=12)
+    assert n == want, n
+    d = (got - ref).abs()
+    if "bf16" in flags.values():
+        assert float(d.max()) < 0.02 and float(d.mean()) < 2e-3
+    else:
+        assert float(d.max()) <= 1e-4
