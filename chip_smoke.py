@@ -4,6 +4,10 @@
     python3 chip_smoke.py
 
 Phases, one line or more each:
+  0. the toolchain probe: ``python -m fcvsr_tpu_torch.tools.gpu_probe`` in a
+     subprocess (a matrix product on the card, cuDNN's bf16 against float32
+     conv, and the probe kernel K12 built alone by nvcc, loaded by ctypes
+     and checked), its JSON printed;
   1. device and build: the card's name and power limit (nvidia-smi), torch
      and CUDA versions, the nvcc build of ``fcvsr_tpu_torch/csrc`` (one nvcc
      a source, in parallel);
@@ -20,8 +24,11 @@ Phases, one line or more each:
      training shape and at small odd shapes, the deformable conv (K7) at
      EDVR-M's and BasicVSR++'s shapes, without a mask and at small odd
      shapes, its adjoint (K8) at the same cases and at the zoo's two
-     training shapes (each gradient's error over its max), and the conv
-     autograd Functions' gradients at the three SCNet levels;
+     training shapes (each gradient's error over its max), the BlockRCB
+     level (K11) at 272x480x64 with C1 64 and 128, at SCNet's levels 2 and 3
+     and at B 2, beside the unfused path (2 K2 launches and the
+     ContextBlock), the probe kernel (K12), and the conv autograd
+     Functions' gradients at the three SCNet levels;
   3. model parity, seeded weights, the GPU (kernels) against the same model
      on the CPU (plain versions): FCVSR full, Y, the output at
      (1, 7, 1, 64, 96) (also under each serving flag set: the exact flags,
@@ -58,11 +65,16 @@ Phases, one line or more each:
      6, 128x128 LR patches from the clip, Adam, Charbonnier-sum) for one
      warm-up step, then resumes from its checkpoint for 5 timed steps; the
      losses, ms per step, peak memory and launch counts per step, checked;
+  7b. the BlockRCB A/B (``python -m
+     fcvsr_tpu_torch.benchmarks.microbench_blockrcb_kernel``) at 272x480x64
+     with C1 64 and 128: K11 against the unfused path, both timed, their
+     deviation held to 2e-2 of max|unfused|;
   8. a JSON line of the kernels (launches from the run of the path that
      launches each: FCVSR training for FCVSR's, fast serving with the
-     resident chain and the quad for K4 and K6, zoo training for K7 and K8;
-     each kernel's least time on the card from its bytes and operations),
-     the nvidia-smi line, and the result line.
+     resident chain and the quad for K4 and K6, zoo training for K7 and K8,
+     the BlockRCB A/B for K11, the probe for K12; each kernel's least time
+     on the card from its bytes and operations), the nvidia-smi line, and
+     the result line.
 
 Any failure exits non-zero without a result line; so does a run without a
 CUDA device or outside the repository.  Imports nothing of JAX.
@@ -139,6 +151,9 @@ KERNELS = {
     "dcn": ("fcvsr_tpu_torch/csrc/dcn.cu", "fcvsr_tpu/ops/pallas_dcn.py:58"),
     "dcn_bwd": ("fcvsr_tpu_torch/csrc/dcn_bwd.cu",
                 "fcvsr_tpu/ops/pallas_dcn.py:397"),
+    "blockrcb": ("fcvsr_tpu_torch/csrc/blockrcb.cu",
+                 "benchmarks/microbench_blockrcb_kernel.py:76"),
+    "scale2": ("fcvsr_tpu_torch/csrc/probe/scale2.cu", "tools/tpu_probe.py:89"),
 }
 # f32 kernels against f32 plain versions that sum in another order: the
 # bound scales with the output's magnitude (IAC: 3x3 taps of a warped value
@@ -179,10 +194,14 @@ FLIP_RTOL = 5e-2
 # sums in the plain version; f32 rounding of such sums stays near 1e-6 of
 # the max
 DCN_BWD_RTOL = 1e-4
-# NVIDIA's published H100 SXM peaks (data sheet): HBM bytes/s and float32
-# flop/s outside the tensor cores
-HBM_BYTES_S = 3.35e12
-F32_FLOP_S = 67e12
+# K11 against the unfused path in the A/B: the unfused pair kernels keep
+# their weights float32 where K11 rounds them to bf16, as the TPU kernel
+# does; the JAX A/B's "max dev 2% of scale" for the same comparison
+AB_RTOL = 2e-2
+# K11's mean abs error against its plain version, relative to max|plain|, as
+# tests/test_torch_blockrcb.py holds the plain version to JAX: the bf16 bar
+# above allows a flipped rounding here and there, not a shifted map
+BF16_MEAN_RTOL = 1e-3
 
 
 def fail(msg: str) -> None:
@@ -201,32 +220,6 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(torch, fns, reps: int = 7, warmup: int = 2):
-    """Median CUDA-event ms of each callable, the callables timed in turns."""
-    for f in fns:
-        for _ in range(warmup):
-            f()
-    times = [[] for _ in fns]
-    for _ in range(reps):
-        for f, ts in zip(fns, times):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            f()
-            end.record()
-            torch.cuda.synchronize()
-            ts.append(start.elapsed_time(end))
-    return [float(np.median(ts)) for ts in times]
-
-
-def bound(nbytes: float, flops: float):
-    """The least time the card could take: bytes over the memory rate or
-    operations over the f32 rate, the larger; and which one it is."""
-    t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / F32_FLOP_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def mixed_flows(rng, b, h, w, c=2):
     """Small displacements, +-20 px in the top third, out of the frame at
     the bottom and at the left edge: c channels of (first, second) axis
@@ -241,6 +234,7 @@ def mixed_flows(rng, b, h, w, c=2):
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
+    from fcvsr_tpu_torch.profiling import BF16_FLOP_S, bound, cuda_ms
     from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac
     from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
 
@@ -252,13 +246,15 @@ def phase_kernels(torch, dev):
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def check(name, label, kern, plain, rtol, work=None, library=None,
-              yardstick=None):
+              yardstick=None, mean_rtol=None):
         """Kernel against plain version; a tuple of outputs is checked one
         by one (in float32, whatever the storage).  ``work`` = (bytes,
-        flops) marks a timed case, with its bound; the first such case of
-        a kernel goes into the result line.  ``yardstick`` = (label, fn):
-        the same function by other kernels, checked at ``rtol`` and timed
-        beside."""
+        flops[, flop/s]) marks a timed case, with its bound at that rate
+        (default the float32 pipes'); the first such case of a kernel goes
+        into the result line.  ``yardstick`` = (label, fn[, rtol]): the
+        same function by other kernels, checked at its own rtol (default
+        ``rtol``) and timed beside.  ``mean_rtol`` also holds the kernel's
+        mean abs error to that share of max|plain|."""
         outs, refs = kern(), plain()
         if isinstance(outs, torch.Tensor):
             outs, refs = (outs,), (refs,)
@@ -267,23 +263,35 @@ def phase_kernels(torch, dev):
                 for o, r in zip(outs, refs)]
         tols = [rtol * max(1.0, float(r.float().abs().max())) for r in refs]
         line = dict(kernel=name, case=label, max_abs_err=errs, tol=tols)
+        if mean_rtol is not None:
+            means = [float((o.float() - r.float()).abs().mean())
+                     for o, r in zip(outs, refs)]
+            mean_tols = [mean_rtol * float(r.float().abs().max())
+                         for r in refs]
+            line.update(mean_abs_err=means, mean_tol=mean_tols)
+            for e, tol in zip(means, mean_tols):
+                if not e <= tol:
+                    fail(f"{name} {label}: mean abs error {e} > {tol}")
         if yardstick is not None:
             ys = yardstick[1]()
             ys = (ys,) if isinstance(ys, torch.Tensor) else ys
             yerrs = [float((o.float() - r.float()).abs().max())
                      for o, r in zip(outs, ys)]
+            yrtol = yardstick[2] if len(yardstick) > 2 else rtol
             errs = errs + yerrs
-            tols = tols + [rtol * max(1.0, float(r.float().abs().max()))
+            tols = tols + [yrtol * max(1.0, float(r.float().abs().max()))
                            for r in ys]
             line.update(max_abs_err=errs, tol=tols, yardstick=yardstick[0])
         if work is not None:
             fns = [kern, plain] + ([library] if library else []) \
                 + ([yardstick[1]] if yardstick else [])
-            times = cuda_ms(torch, fns)
+            times = cuda_ms(fns)
             bound_ms, bound_by = bound(*work)
             line.update(ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
                         bound_by=bound_by,
                         library_ms=times[2] if library else None)
+            if len(work) > 2:
+                line["f32_pipes_bound_ms"] = bound(*work[:2])[0]
             if yardstick:
                 line["yardstick_ms"] = times[-1]
             if "ms" not in results[name]:
@@ -436,6 +444,47 @@ def phase_kernels(torch, dev):
                                (22 + 6 * c) * px * c))
         del fin32, k32, offs, featb, finb, kb, f0b
 
+    # the BlockRCB level (K11) at SCNet's level 1 with C1 = C (the JAX A/B's
+    # configuration) and FCVSR's C1 = 128, at levels 2 and 3, and at B 2:
+    # input uniform(-1, 1), weights N(0, 0.2) as the A/B draws them (at B 2
+    # the second image from another seed, so that a softmax partial mixed
+    # across images shows); beside the unfused path (2 K2 launches, the
+    # ContextBlock, lrelu and the add) on the same weights; its work is
+    # ab.level_work's, its bound at the bf16 tensor-core rate (bf16 maps
+    # times bf16-rounded weights), with the float32 pipes' beside it
+    from fcvsr_tpu_torch.benchmarks import microbench_blockrcb_kernel as ab
+    from fcvsr_tpu_torch.models.scnet_rows import block_rcb_level
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb, block_rcb_plain
+    from fcvsr_tpu_torch.utils.convert import block_rcb_args
+
+    for (b, h, w, c1) in ((1, 272, 480, 64), (1, 272, 480, 128),
+                          (1, 136, 240, 128), (1, 68, 120, 128),
+                          (2, 272, 480, 128)):
+        xs, blk = ab.seeded_level(0, h, w, 64, c1)
+        xs = torch.cat([xs] + [ab.seeded_level(s, h, w, 64, c1)[0]
+                               for s in range(1, b)])
+        xs, blk = xs.to(dev), blk.to(dev)
+        with torch.no_grad():
+            kw = block_rcb_args(blk)
+            check("blockrcb", f"B{b} {h}x{w}x64 C1 {c1}",
+                  lambda: block_rcb(xs, **kw),
+                  lambda: block_rcb_plain(xs, **kw), BF16_RTOL,
+                  work=(*ab.level_work(b, h, w, 64, c1), BF16_FLOP_S),
+                  yardstick=("unfused: 2 K2 launches + ContextBlock",
+                             lambda: block_rcb_level(blk, xs, "pair"),
+                             AB_RTOL), mean_rtol=BF16_MEAN_RTOL)
+        del xs, blk, kw
+
+    # the probe kernel (K12): o = 2 x on an (8, 128) float32 tensor, exact;
+    # 8 KB of traffic, so its time is a launch's latency
+    from fcvsr_tpu_torch.tools import gpu_probe
+
+    x = t(rng.standard_normal((8, 128)))
+    check("scale2", "(8, 128) float32", lambda: gpu_probe.scale2(x),
+          lambda: gpu_probe.scale2_plain(x), 0.0,
+          work=(2 * 4 * x.numel(), x.numel()),
+          library=lambda: torch.mul(x, 2.0))
+
     x = t(rng.uniform(-1, 1, (1, 1088, 1920, 64)))
     wl = t(rng.standard_normal((3, 3, 64, 1)) * 0.04)
     bl = t(rng.standard_normal(1))
@@ -528,6 +577,7 @@ def phase_dcn_bwd(torch, dev):
     the result-line fields of the first timed case."""
     from fcvsr_tpu_torch.ops import fused_dcn
     from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d_vjp
+    from fcvsr_tpu_torch.profiling import bound, cuda_ms
 
     rng = np.random.default_rng(7)
 
@@ -584,7 +634,7 @@ def phase_dcn_bwd(torch, dev):
             work = (4 * (px * (2 * chans + cout) + 2 * 9 * cin * cout
                          + 2 * cout),
                     px * 9 * cin * (4 * cout + 32))
-            times = cuda_ms(torch, [kern, plain, library])
+            times = cuda_ms([kern, plain, library])
             bound_ms, bound_by = bound(*work)
             line.update(ms=times[0], plain_ms=times[1], library_ms=times[2],
                         bound_ms=bound_ms, bound_by=bound_by,
@@ -1202,6 +1252,45 @@ def phase_train(torch, card):
     return counts
 
 
+def phase_probe(torch):
+    """The toolchain probe in its own process: every probe must pass.
+    Returns its kernel's launches (the checked one)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "gpu_probe.json")
+        proc = subprocess.run(
+            [sys.executable, "-m", "fcvsr_tpu_torch.tools.gpu_probe",
+             "--out", out], cwd=HERE, capture_output=True, text=True,
+            timeout=900)
+        if not os.path.isfile(out):
+            fail(f"gpu_probe wrote no JSON (exit {proc.returncode}): "
+                 f"{proc.stderr[-2000:]}")
+        with open(out) as f:
+            res = json.load(f)
+    say("probe", **res)
+    if proc.returncode != 0 or not res["ok"]:
+        fail(f"gpu_probe failed (exit {proc.returncode}): {res}")
+    return res["kernel"]["launches"]
+
+
+def phase_blockrcb_ab(torch):
+    """The BlockRCB A/B entry point at 272x480x64, C1 64 and 128: K11
+    against the unfused path, AB_RTOL of max|unfused|.  Returns K11's
+    launches over both runs."""
+    from fcvsr_tpu_torch.benchmarks import microbench_blockrcb_kernel as ab
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb
+
+    block_rcb.launches = 0
+    for c1 in (64, 128):
+        rep = ab.main(["--c1", str(c1)])
+        say("blockrcb_ab", tol=AB_RTOL, **rep)
+        if not (rep["finite"] and rep["rel_dev"] <= AB_RTOL):
+            fail(f"BlockRCB A/B C1 {c1}: fused against unfused "
+                 f"{rep['rel_dev']} of max|unfused| > {AB_RTOL}")
+        if not (rep["fused_ms"] > 0 and rep["unfused_ms"] > 0):
+            fail(f"BlockRCB A/B C1 {c1}: bad timing {rep}")
+    return block_rcb.launches
+
+
 def main() -> None:
     try:
         import torch
@@ -1220,6 +1309,7 @@ def main() -> None:
 
     card = nvidia_smi()
     print(card, flush=True)
+    probe_launches = phase_probe(torch)
     from fcvsr_tpu_torch.ops import _native
 
     t0 = time.perf_counter()
@@ -1250,13 +1340,17 @@ def main() -> None:
     zoo_counts = phase_zoo_train(torch, card)
     torch.cuda.empty_cache()
     train_counts = phase_train(torch, card)
+    torch.cuda.empty_cache()
+    ab_counts = {"blockrcb": phase_blockrcb_ab(torch)}
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         path, counts = ("zoo training", zoo_counts) \
             if name in ("dcn", "dcn_bwd") else \
             ("fast serving (resident, quad)", fast_counts) \
-            if name in ("iac_chain", "conv3x3_quad") \
+            if name in ("iac_chain", "conv3x3_quad") else \
+            ("BlockRCB A/B", ab_counts) if name == "blockrcb" else \
+            ("gpu probe", {"scale2": probe_launches}) if name == "scale2" \
             else ("training", train_counts)
         if counts[name] == 0:
             fail(f"kernel {name} was not launched on the {path} path")

@@ -6,10 +6,13 @@ The port of ``fcvsr_tpu`` (JAX, the reference it is tested against; the
 port imports nothing of it):
 
   ops/     channels-last functional ops, and the wrappers of the CUDA
-           kernels (``fused_iac``, ``fused_conv``, ``fused_dcn``), each
-           beside its plain PyTorch version, with the autograd Functions
-           that train through them
+           kernels (``fused_iac``, ``fused_conv``, ``fused_dcn``,
+           ``fused_blockrcb``), each beside its plain PyTorch version, with
+           the autograd Functions that train through them
   csrc/    the CUDA sources, built with nvcc for sm_90a at first use
+  benchmarks/  the BlockRCB level A/B (fused kernel against the unfused
+           path)
+  tools/   the GPU toolchain probe (``python -m fcvsr_tpu_torch.tools.gpu_probe``)
   models/  FCVSRNet (full and -S) with reference state_dict keys; EDVRNet,
            BasicVSRPlusPlus and SpyNet with mmedit's; the registry; the
            restorer that trains and evaluates the zoo (VideoRestorer)

@@ -1,9 +1,10 @@
 // Device helpers of the 3x3 SAME conv kernels (conv3x3.cu: K2 and K3;
-// conv3x3_quad.cu: K6).  A block stages 16 input channels of a window and
-// of the weights in shared memory; each thread keeps a register tile of
-// PPT pixels x CPT output channels, so every shared-memory value it loads
-// feeds 4-8 FMAs.  Neighbouring threads take neighbouring output channels,
-// so weight reads are conflict-free and input reads broadcast.
+// conv3x3_quad.cu: K6; blockrcb.cu: K11).  A block stages 16 input
+// channels of a window and of the weights in shared memory; each thread
+// keeps a register tile of PPT pixels x CPT output channels, so every
+// shared-memory value it loads feeds 4-8 FMAs.  Neighbouring threads take
+// neighbouring output channels, so weight reads are conflict-free and
+// input reads broadcast.
 #pragma once
 
 #include "common.cuh"
@@ -48,20 +49,23 @@ __device__ __forceinline__ void accumulate(float (&acc)[PPT][CPT], const S* src,
 }
 
 // w (3,3,Cin,Cout) rows [ci0, ci0 + cn) x cols [co0, co0 + COB) -> w_s,
-// zero beyond Cin / Cout.
-template <int COB>
+// zero beyond Cin / Cout; with BF16W each weight rounded to bf16 first.
+template <int COB, bool BF16W = false>
 __device__ __forceinline__ void stage_weights(float* w_s, const float* w, int Cin,
                                               int Cout, int ci0, int cn, int co0) {
   for (int e = threadIdx.x; e < 9 * CIB * COB; e += kThreads) {
     const int co = e % COB, ci = (e / COB) % CIB, tap = e / (COB * CIB);
-    w_s[e] = (ci < cn && co0 + co < Cout)
-                 ? w[((size_t)tap * Cin + ci0 + ci) * Cout + co0 + co] : 0.f;
+    float v = (ci < cn && co0 + co < Cout)
+                  ? w[((size_t)tap * Cin + ci0 + ci) * Cout + co0 + co] : 0.f;
+    if (BF16W) v = __bfloat162float(__float2bfloat16_rn(v));
+    w_s[e] = v;
   }
 }
 
 // x channels [ci0, ci0 + cn) on the ih x iw window at (y0, x0) -> in_s
-// (float), zero outside the frame.
-template <typename T>
+// (float), zero outside the frame.  CG reads x through L2 only (a map that
+// other blocks of the same launch wrote).
+template <bool CG = false, typename T>
 __device__ __forceinline__ void stage_input(float* in_s, int ld, const T* x, int H,
                                             int W, int Cin, int ci0, int cn, int y0,
                                             int x0, int ih, int iw) {
@@ -69,8 +73,10 @@ __device__ __forceinline__ void stage_input(float* in_s, int ld, const T* x, int
     const int ci = e % CIB, p = e / CIB;
     const int yy = y0 + p / iw, xx = x0 + p % iw;
     float v = 0.f;
-    if (ci < cn && yy >= 0 && yy < H && xx >= 0 && xx < W)
-      v = to_f32(x[((size_t)yy * W + xx) * Cin + ci0 + ci]);
+    if (ci < cn && yy >= 0 && yy < H && xx >= 0 && xx < W) {
+      const T* src = x + ((size_t)yy * W + xx) * Cin + ci0 + ci;
+      v = CG ? load_cg(src) : to_f32(*src);
+    }
     in_s[p * ld + ci] = v;
   }
 }

@@ -32,7 +32,7 @@ import torch
 from ..ops.fused_conv import conv3x3, conv3x3_pair, conv3x3_quad, prep_weight
 from ..ops.resize import downsample2x_bilinear, upsample2x_bilinear
 
-__all__ = ["scnet_apply", "hwio", "conv_bias"]
+__all__ = ["scnet_apply", "block_rcb_level", "hwio", "conv_bias"]
 
 
 def hwio(conv):
@@ -68,20 +68,26 @@ def cross_scale(down, up, xs, res):
     return [x + r + d + u for x, r, d, u in zip(xs, res, dn, upd)]
 
 
-def _block_rcb(blk, xs, fuse: str):
+def block_rcb_level(blk, x, fuse: str = "pair"):
+    """One level of a BlockRCB's body on the kernels: y = body1(lrelu_0.1(
+    body0(x))), r = the RCB's conv pair of y, then y + lrelu_0.2(
+    ContextBlock(r)), in float32.  ``fuse`` 'pair' (two pair launches) or
+    'quad' (one quad launch); the maps in x's storage type."""
     body0, body1, rcb = blk.body[0], blk.body[2], blk.body[3]
     r0, r1 = rcb.body[0], rcb.body[2]
-    res = []
-    for x in xs:
-        if fuse == "quad":
-            y, r = conv3x3_quad(x, hwio(body0), conv_bias(body0), hwio(body1),
-                                conv_bias(body1), hwio(r0), None, hwio(r1),
-                                None, ns1=0.1, ns3=0.2)
-        else:
-            y = conv3x3_pair(x, hwio(body0), conv_bias(body0), hwio(body1),
-                             conv_bias(body1), ns1=0.1)
-            r = conv3x3_pair(y, hwio(r0), None, hwio(r1), None, ns1=0.2)
-        res.append(y.float() + F.leaky_relu(rcb.gcnet(r.float()), 0.2))
+    if fuse == "quad":
+        y, r = conv3x3_quad(x, hwio(body0), conv_bias(body0), hwio(body1),
+                            conv_bias(body1), hwio(r0), None, hwio(r1),
+                            None, ns1=0.1, ns3=0.2)
+    else:
+        y = conv3x3_pair(x, hwio(body0), conv_bias(body0), hwio(body1),
+                         conv_bias(body1), ns1=0.1)
+        r = conv3x3_pair(y, hwio(r0), None, hwio(r1), None, ns1=0.2)
+    return y.float() + F.leaky_relu(rcb.gcnet(r.float()), 0.2)
+
+
+def _block_rcb(blk, xs, fuse: str):
+    res = [block_rcb_level(blk, x, fuse) for x in xs]
     return cross_scale(blk.down[0], blk.up[0], xs, res)
 
 

@@ -2,7 +2,7 @@
 its CUDA kernels.  Importing builds nothing: the kernel library is compiled
 and loaded at the first launch on a CUDA tensor (``ops._native``)."""
 
-from . import fused_conv, fused_dcn, fused_iac
+from . import fused_blockrcb, fused_conv, fused_dcn, fused_iac
 from .corr import corr_lookup
 from .dcn import modulated_deform_conv2d, modulated_deform_conv2d_vjp
 from .freq import gaussian_band_masks, irfft_features, rfft_features, split_freq

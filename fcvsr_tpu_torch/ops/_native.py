@@ -13,6 +13,7 @@ There is no fallback: without ``nvcc`` or a CUDA device, :func:`lib` raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -26,7 +27,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["lib", "check", "ptr", "require", "records", "on_cpu",
-           "stream_ptr", "storage", "BUILD_DIR"]
+           "launch_guard", "storage", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -57,6 +58,9 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C, C1, C2, C3,
     # Cout, ns1, ns3, bf16, stream
     "fcvsr_conv3x3_quad": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
+    # x, wb0, bb0, wb1, bb1, wr0, wr1, wmask, a0, a1, a, y, out, part,
+    # part_blocks, B, H, W, C, C1, ns_body, stream
+    "fcvsr_blockrcb": [_P] * 14 + [_I] * 6 + [_F, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, dg, stream
     "fcvsr_dcn3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, g, dx, doffset, dmask, B, H, W, Cin, Cout, dg,
@@ -166,8 +170,14 @@ def check(rc: int, what: str) -> None:
                            f"CUDA error {rc} ({msg})")
 
 
-def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+@contextlib.contextmanager
+def launch_guard(t):
+    """Make ``t``'s device the current one for a launch and give its current
+    stream (a handle for the C side).  The C side launches on the current
+    device and asks it for its attributes (shared memory, occupancy), so a
+    launch outside this guard would run on another card than its tensors."""
+    with torch.cuda.device(t.device):
+        yield torch.cuda.current_stream(t.device).cuda_stream
 
 
 def ptr(t) -> int | None:

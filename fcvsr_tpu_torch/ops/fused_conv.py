@@ -172,10 +172,11 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
         _native.require(res, "res", dev, (b, h, w, cout), dtype=x.dtype)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()
-    rc = lib.fcvsr_conv3x3(
-        x.data_ptr(), w_hwio.data_ptr(), _native.ptr(bias), _native.ptr(res),
-        out.data_ptr(), b, h, w, cin, cout, int(act), float(neg_slope),
-        _native.storage(x), _native.stream_ptr(dev))
+    with _native.launch_guard(x) as stream:
+        rc = lib.fcvsr_conv3x3(
+            x.data_ptr(), w_hwio.data_ptr(), _native.ptr(bias),
+            _native.ptr(res), out.data_ptr(), b, h, w, cin, cout, int(act),
+            float(neg_slope), _native.storage(x), stream)
     _native.check(rc, "conv3x3")
     conv3x3.launches += 1
     return out
@@ -201,10 +202,11 @@ def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     cout = _check_weight(w2, b2, c1, "w2", dev)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()
-    rc = lib.fcvsr_conv3x3_pair(
-        x.data_ptr(), w1.data_ptr(), _native.ptr(b1), w2.data_ptr(),
-        _native.ptr(b2), out.data_ptr(), b, h, w, cin, c1, cout, float(ns1),
-        _native.storage(x), _native.stream_ptr(dev))
+    with _native.launch_guard(x) as stream:
+        rc = lib.fcvsr_conv3x3_pair(
+            x.data_ptr(), w1.data_ptr(), _native.ptr(b1), w2.data_ptr(),
+            _native.ptr(b2), out.data_ptr(), b, h, w, cin, c1, cout,
+            float(ns1), _native.storage(x), stream)
     _native.check(rc, "conv3x3_pair")
     conv3x3_pair.launches += 1
     return out
@@ -237,12 +239,12 @@ def conv3x3_quad(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
     y = torch.empty((b, h, w, c2), device=dev, dtype=x.dtype)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()
-    rc = lib.fcvsr_conv3x3_quad(
-        x.data_ptr(), w1.data_ptr(), _native.ptr(b1), w2.data_ptr(),
-        _native.ptr(b2), w3.data_ptr(), _native.ptr(b3), w4.data_ptr(),
-        _native.ptr(b4), y.data_ptr(), out.data_ptr(), b, h, w, cin, c1, c2,
-        c3, cout, float(ns1), float(ns3), _native.storage(x),
-        _native.stream_ptr(dev))
+    with _native.launch_guard(x) as stream:
+        rc = lib.fcvsr_conv3x3_quad(
+            x.data_ptr(), w1.data_ptr(), _native.ptr(b1), w2.data_ptr(),
+            _native.ptr(b2), w3.data_ptr(), _native.ptr(b3), w4.data_ptr(),
+            _native.ptr(b4), y.data_ptr(), out.data_ptr(), b, h, w, cin, c1,
+            c2, c3, cout, float(ns1), float(ns3), _native.storage(x), stream)
     _native.check(rc, "conv3x3_quad")
     conv3x3_quad.launches += 1
     return y, out

@@ -98,10 +98,11 @@ def modulated_deform_conv2d_fused(x, offset, mask, weight, bias=None,
         _native.require(bias, "bias", dev, (cout,))
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()
-    rc = lib.fcvsr_dcn3x3(
-        x.data_ptr(), offset.data_ptr(), _native.ptr(mask), weight.data_ptr(),
-        _native.ptr(bias), out.data_ptr(), b, h, w, cin, cout, deform_groups,
-        _native.stream_ptr(dev))
+    with _native.launch_guard(x) as stream:
+        rc = lib.fcvsr_dcn3x3(
+            x.data_ptr(), offset.data_ptr(), _native.ptr(mask),
+            weight.data_ptr(), _native.ptr(bias), out.data_ptr(), b, h, w,
+            cin, cout, deform_groups, stream)
     _native.check(rc, "dcn3x3")
     modulated_deform_conv2d_fused.launches += 1
     return out
@@ -127,17 +128,17 @@ def modulated_deform_conv2d_fused_vjp(x, offset, mask, weight, bias, g,
     dmask = None if mask is None else torch.zeros_like(mask)
     db = None if bias is None else weight.new_zeros(cout)
     lib = _native.lib()
-    stream = _native.stream_ptr(dev)
-    rc = lib.fcvsr_dcn3x3_bwd_data(
-        x.data_ptr(), offset.data_ptr(), _native.ptr(mask), weight.data_ptr(),
-        g.data_ptr(), dx.data_ptr(), doff.data_ptr(), _native.ptr(dmask), b,
-        h, w, cin, cout, deform_groups, stream)
-    _native.check(rc, "dcn3x3_bwd (data adjoint)")
-    modulated_deform_conv2d_fused_vjp.launches += 1
-    rc = lib.fcvsr_dcn3x3_bwd_weight(
-        x.data_ptr(), offset.data_ptr(), _native.ptr(mask), g.data_ptr(),
-        dw.data_ptr(), _native.ptr(db), b, h, w, cin, cout, deform_groups,
-        stream)
+    with _native.launch_guard(x) as stream:
+        rc = lib.fcvsr_dcn3x3_bwd_data(
+            x.data_ptr(), offset.data_ptr(), _native.ptr(mask),
+            weight.data_ptr(), g.data_ptr(), dx.data_ptr(), doff.data_ptr(),
+            _native.ptr(dmask), b, h, w, cin, cout, deform_groups, stream)
+        _native.check(rc, "dcn3x3_bwd (data adjoint)")
+        modulated_deform_conv2d_fused_vjp.launches += 1
+        rc = lib.fcvsr_dcn3x3_bwd_weight(
+            x.data_ptr(), offset.data_ptr(), _native.ptr(mask), g.data_ptr(),
+            dw.data_ptr(), _native.ptr(db), b, h, w, cin, cout,
+            deform_groups, stream)
     _native.check(rc, "dcn3x3_bwd (weight adjoint)")
     modulated_deform_conv2d_fused_vjp.launches += 1
     return dx, doff, dmask, dw, db

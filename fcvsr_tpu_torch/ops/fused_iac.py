@@ -110,11 +110,11 @@ def warp_sac_fused(feat, flow, k, feat_in, act: bool = True, it: int = 0):
     k_ld = _check_k(k, feat, it)
     out = torch.empty_like(feat)
     lib = _native.lib()
-    rc = lib.fcvsr_iac_step(
-        feat.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
-        None, None, 0, feat_in.data_ptr(), out.data_ptr(),
-        b, h, w, c, int(act), _native.storage(feat),
-        _native.stream_ptr(feat.device))
+    with _native.launch_guard(feat) as stream:
+        rc = lib.fcvsr_iac_step(
+            feat.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
+            None, None, 0, feat_in.data_ptr(), out.data_ptr(),
+            b, h, w, c, int(act), _native.storage(feat), stream)
     _native.check(rc, "iac")
     warp_sac_fused.launches += 1
     return out
@@ -146,11 +146,12 @@ def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
                          f"do not fit feat {tuple(feat.shape)}, it={it}")
     out = torch.empty_like(feat)
     lib = _native.lib()
-    rc = lib.fcvsr_iac_step(
-        feat.data_ptr(), flow.data_ptr(), wsel.data_ptr(), k_ld, it * 3 * c,
-        f0.data_ptr(), bsel.data_ptr(), c0, feat_in.data_ptr(),
-        out.data_ptr(), b, h, w, c, int(act), _native.storage(feat),
-        _native.stream_ptr(dev))
+    with _native.launch_guard(feat) as stream:
+        rc = lib.fcvsr_iac_step(
+            feat.data_ptr(), flow.data_ptr(), wsel.data_ptr(), k_ld,
+            it * 3 * c, f0.data_ptr(), bsel.data_ptr(), c0,
+            feat_in.data_ptr(), out.data_ptr(), b, h, w, c, int(act),
+            _native.storage(feat), stream)
     _native.check(rc, "iac (kf)")
     warp_sac_fused_kf.launches += 1
     return out
@@ -195,15 +196,16 @@ def warp_sac_bwd(src, flow, k, gz, it: int = 0, dk=None):
     dsrc = torch.zeros_like(src)
     dflow = torch.empty_like(flow)
     lib = _native.lib()
-    stream = _native.stream_ptr(dev)
-    rc = lib.fcvsr_iac_bwd_sac(
-        src.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
-        gz.data_ptr(), dk.data_ptr(), dwarped.data_ptr(), b, h, w, c, stream)
-    _native.check(rc, "iac_bwd (SAC adjoint)")
-    warp_sac_bwd.launches += 1
-    rc = lib.fcvsr_iac_bwd_warp(
-        src.data_ptr(), flow.data_ptr(), dwarped.data_ptr(), dsrc.data_ptr(),
-        dflow.data_ptr(), b, h, w, c, stream)
+    with _native.launch_guard(src) as stream:
+        rc = lib.fcvsr_iac_bwd_sac(
+            src.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
+            gz.data_ptr(), dk.data_ptr(), dwarped.data_ptr(), b, h, w, c,
+            stream)
+        _native.check(rc, "iac_bwd (SAC adjoint)")
+        warp_sac_bwd.launches += 1
+        rc = lib.fcvsr_iac_bwd_warp(
+            src.data_ptr(), flow.data_ptr(), dwarped.data_ptr(),
+            dsrc.data_ptr(), dflow.data_ptr(), b, h, w, c, stream)
     _native.check(rc, "iac_bwd (warp adjoint)")
     warp_sac_bwd.launches += 1
     return dsrc, dflow, dk
@@ -308,12 +310,13 @@ def iac_fused_resident(feat_in, k, offsets, ac_num: int,
     bufs = torch.empty((2,) + tuple(feat_in.shape), device=dev, dtype=dt) \
         if ac_num > 1 else None
     lib = _native.lib()
-    rc = lib.fcvsr_iac_chain(
-        feat_in.data_ptr(), offsets.data_ptr(), k.data_ptr(),
-        _native.ptr(None if bufs is None else bufs[0]),
-        _native.ptr(None if bufs is None else bufs[1]), out.data_ptr(),
-        b, h, w, c, ac_num, int(act_last), _native.storage(feat_in),
-        _native.stream_ptr(dev))
+    with _native.launch_guard(feat_in) as stream:
+        rc = lib.fcvsr_iac_chain(
+            feat_in.data_ptr(), offsets.data_ptr(), k.data_ptr(),
+            _native.ptr(None if bufs is None else bufs[0]),
+            _native.ptr(None if bufs is None else bufs[1]), out.data_ptr(),
+            b, h, w, c, ac_num, int(act_last), _native.storage(feat_in),
+            stream)
     _native.check(rc, "iac_chain")
     iac_fused_resident.launches += 1
     return out

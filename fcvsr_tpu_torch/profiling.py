@@ -45,7 +45,8 @@ from .train.lr_schedule import build_schedule
 from .train.trainer import TrainState
 from .utils.config import preset
 
-__all__ = ["stage_times", "device_profile", "serving_compare",
+__all__ = ["cuda_ms", "bound", "stage_times", "device_profile",
+           "serving_compare",
            "train_step_times", "train_profile", "main"]
 
 # FCVSRNet children timed as stages; the tail convs are summed as one
@@ -55,6 +56,43 @@ STAGES = {"feat_extract": "feat_extract", "MGAA": "MGAA",
           "upconv1_L2": "tail convs", "upconv1_L2_2": "tail convs",
           "upconv_fuse": "tail convs", "recorb0": "tail convs",
           "upconv1": "tail convs", "upconv2": "tail convs"}
+
+
+# NVIDIA's published H100 SXM peaks (data sheet, dense, at 700 W): HBM
+# bytes/s, float32 flop/s outside the tensor cores, and bf16 flop/s on the
+# tensor cores (bf16 operands, float32 sums)
+HBM_BYTES_S = 3.35e12
+F32_FLOP_S = 67e12
+BF16_FLOP_S = 989e12
+
+
+def cuda_ms(fns, reps: int = 7, warmup: int = 2) -> list:
+    """Median CUDA-event ms of each callable, the callables timed in
+    turns."""
+    for f in fns:
+        for _ in range(warmup):
+            f()
+    times = [[] for _ in fns]
+    for _ in range(reps):
+        for f, ts in zip(fns, times):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            f()
+            end.record()
+            torch.cuda.synchronize()
+            ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
+
+
+def bound(nbytes: float, flops: float, flop_s: float = F32_FLOP_S):
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    the larger of the bytes over the memory rate and the operations over
+    ``flop_s``, the card's peak for the operands' type (float32 by
+    default; ``BF16_FLOP_S`` where both factors are bf16)."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / flop_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def _mark(dev):

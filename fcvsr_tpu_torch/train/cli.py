@@ -38,8 +38,10 @@ __all__ = ["main", "sample_batch"]
 
 def sample_batch(rng: np.random.Generator, dataset: ClipFolderDataset,
                  batch_size: int, lr_patch: int):
-    """(lrs (B, T, C, p, p), gt (B, C, 4p, 4p)) float32, in the JAX
-    package's sampling order."""
+    """(lrs (B, T, C, p, p), gt (B, C, 4p, 4p)) float32, drawn as the JAX
+    package's ``train.sample_batch`` draws them.  :func:`main` draws one
+    batch and drops it before its loop, as the JAX CLI draws the batch that
+    initialises its state, so step i of both trains on the same batch."""
     lrs, gts = [], []
     for _ in range(batch_size):
         lr, gt = dataset.sample_train_window(rng, lr_patch)
@@ -124,8 +126,11 @@ def main(argv=None) -> dict:
                                 window=cfg.model.num_frames,
                                 grayscale=cfg.model.in_channels == 1,
                                 padding=cfg.data.window_padding)
-    # as in the JAX CLI, the data stream starts from the seed on every run
+    # as in the JAX CLI, the data stream starts from the seed on every run,
+    # resumed runs included, and its first batch (JAX initialises its state
+    # with it) is not trained on
     rng = np.random.default_rng(cfg.train.seed)
+    sample_batch(rng, dataset, cfg.data.batch_size, cfg.data.lr_patch)
     step = make_train_step(state, cfg.train.loss)
     timed = device.type == "cuda"
     losses, events, pending = [], [], []

@@ -6,6 +6,11 @@ the JAX package's key map; the zoo's (EDVR, BasicVSR++, SPyNet) through
 patterns onto mmedit's names.  Kernels and DCN weights go from HWIO to OIHW,
 PReLU's ``alpha`` becomes ``weight`` (1,) and DivEnh's ``a``/``b`` become
 (C, 1, 1).
+
+:func:`block_rcb_args_from_jax` and :func:`block_rcb_args` give the
+arguments of the BlockRCB level kernel (``ops.fused_blockrcb.block_rcb``)
+from the JAX benchmark's ``block_rcb_rows`` arguments and from a port
+``BlockRCB``.
 """
 
 from __future__ import annotations
@@ -16,7 +21,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "flax_to_torch_key"]
+__all__ = ["state_dict_from_jax", "flax_to_torch_key",
+           "block_rcb_args_from_jax", "block_rcb_args"]
 
 _TOP_CONVS = {
     "feat_extract": "feat_extract.0", "rconcat1": "rconcat1",
@@ -193,3 +199,50 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
         out[f"{base}.Conv.weight"] = torch.zeros(c, c, 3, 3)
         out[f"{base}.Conv.bias"] = torch.zeros(c)
     return out
+
+
+def _from_cat3(w3) -> torch.Tensor:
+    """The JAX conv kernels' cat3 layout (3, Cout, 3 Cin), ``w3[dy, co,
+    dx Cin + ci] = W[dy, dx, ci, co]`` (``pallas_conv.prep_weight``), back
+    to HWIO (3, 3, Cin, Cout)."""
+    w3 = np.asarray(w3, np.float32)
+    kh, cout, k = w3.shape
+    if kh != 3 or k % 3:
+        raise ValueError(f"not a cat3 weight: {w3.shape}")
+    return torch.from_numpy(np.ascontiguousarray(
+        w3.reshape(3, cout, 3, k // 3).transpose(0, 2, 3, 1)))
+
+
+def _vec(v):
+    return None if v is None else torch.from_numpy(
+        np.ascontiguousarray(np.asarray(v, np.float32).reshape(-1)))
+
+
+def block_rcb_args_from_jax(wb0, bb0, wb1, bb1, wr0, wr1, w_mask, w_add0,
+                            w_add1) -> dict:
+    """``block_rcb_rows``'s weights (cat3 convs, (C,) biases or None, the
+    (C,) mask and the (C, C) MLP matrices) as ``block_rcb``'s keyword
+    arguments: HWIO float32 CPU tensors."""
+    return dict(wb0=_from_cat3(wb0), bb0=_vec(bb0), wb1=_from_cat3(wb1),
+                bb1=_vec(bb1), wr0=_from_cat3(wr0), wr1=_from_cat3(wr1),
+                w_mask=_vec(w_mask),
+                w_add0=torch.from_numpy(np.array(w_add0, np.float32)),
+                w_add1=torch.from_numpy(np.array(w_add1, np.float32)))
+
+
+def block_rcb_args(blk) -> dict:
+    """A port ``BlockRCB``'s weights as ``block_rcb``'s keyword arguments,
+    on the module's device: HWIO convs, the ContextBlock's 1x1 mask (C,)
+    and MLP matrices (C, C) laid out (in, out)."""
+    from ..models.scnet_rows import conv_bias, hwio
+
+    body0, body1, rcb = blk.body[0], blk.body[2], blk.body[3]
+    gc = rcb.gcnet
+    return dict(wb0=hwio(body0), bb0=conv_bias(body0), wb1=hwio(body1),
+                bb1=conv_bias(body1), wr0=hwio(rcb.body[0]),
+                wr1=hwio(rcb.body[2]),
+                w_mask=gc.conv_mask.weight.detach()[0, :, 0, 0].contiguous(),
+                w_add0=gc.channel_add_conv[0].weight.detach()[:, :, 0, 0]
+                .t().contiguous(),
+                w_add1=gc.channel_add_conv[2].weight.detach()[:, :, 0, 0]
+                .t().contiguous())

@@ -33,6 +33,14 @@ steps of the output's magnitude (1.6e-2), since the two versions round at
 the same handoffs but a value within reassociation noise of a rounding
 boundary rounds either way.  FCVSR-S under the serving flags on the card
 against the CPU, with its launches.
+
+The BlockRCB level (K11, one cooperative launch, bf16 maps) against its
+plain version at the bf16 bar, at H and W below and not multiples of its
+8x16 tile, C1 = C and 2C, B 1 and 2; the toolchain probe's kernel (K12),
+exact.  Every launch enters its tensors' device: K1, K2, K7, K8 and K11 on
+cuda:1 with cuda:0 current (skips below two cards), and K2 and K11
+launched from a side stream, complete once that stream alone is
+synchronised.
 """
 
 import numpy as np
@@ -666,3 +674,108 @@ def test_small_model_serving_flags_gpu_match_cpu(cuda, name):
         assert float(d.max()) < 0.02 and float(d.mean()) < 2e-3
     else:
         assert float(d.max()) <= 1e-4
+
+
+def _block_rcb_case(dev, seed, b, h, w, c, c1):
+    """A BlockRCB level's input (bf16) and weights, N(0, 0.2) as the A/B
+    draws them."""
+    x = _bf16(_rand(dev, seed, b, h, w, c).clamp(-1, 1))
+    r = lambda i, *s: _rand(dev, seed + i, *s, scale=0.2)  # noqa: E731
+    return x, dict(wb0=r(1, 3, 3, c, c1), bb0=r(2, c1), wb1=r(3, 3, 3, c1, c),
+                   bb1=r(4, c), wr0=r(5, 3, 3, c, c), wr1=r(6, 3, 3, c, c),
+                   w_mask=r(7, c), w_add0=r(8, c, c), w_add1=r(9, c, c))
+
+
+@pytest.mark.parametrize("b,h,w,c,c1", [
+    (1, 5, 7, 16, 16),     # H and W below one 8x16 tile
+    (2, 13, 29, 16, 32),   # tiles cut at both edges, C1 = 2C, two images
+    (1, 37, 50, 64, 128),  # FCVSR's widths
+    (2, 9, 17, 24, 24),    # channel chunks cut short, 256 not a multiple of C
+    (2, 20, 33, 64, 64)])  # C1 = C, two images
+def test_blockrcb_kernel_matches_plain(cuda, b, h, w, c, c1):
+    """K11, one cooperative launch, against its plain version at the bf16
+    bar; each image's softmax over its own pixels only."""
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb, block_rcb_plain
+
+    x, kw = _block_rcb_case(cuda, 90, b, h, w, c, c1)
+    n0 = block_rcb.launches
+    got = block_rcb(x, **kw)
+    assert block_rcb.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    _assert_close_as(got, block_rcb_plain(x, **kw), 1e-4)
+    if b == 2:  # the first image alone gives the same output
+        _assert_close_as(block_rcb(x[:1].contiguous(), **kw), got[:1], 1e-4)
+
+
+def test_probe_kernel_builds_and_runs(cuda):
+    """K12: scale2.cu built alone for sm_90a, loaded by ctypes; o = 2 x
+    exactly, at the probe's (8, 128) and at a size with a ragged block."""
+    from fcvsr_tpu_torch.tools import gpu_probe
+
+    for shape in ((8, 128), (1000,)):
+        x = _rand(cuda, 95, *shape)
+        n0 = gpu_probe.scale2.launches
+        got = gpu_probe.scale2(x)
+        torch.cuda.synchronize()
+        assert gpu_probe.scale2.launches == n0 + 1
+        assert torch.equal(got, 2 * x)
+    assert gpu_probe.probe_lib()[0] is not None
+
+
+def test_kernels_launch_on_their_tensors_device(cuda):
+    """K1, K2, K7, K8 and K11 on cuda:1 with cuda:0 current, against their
+    plain versions at each kernel's bar: every launch enters its tensors'
+    device.  Needs two cards."""
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb, block_rcb_plain
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    dev = torch.device("cuda", 1)
+    feat, fin = _rand(dev, 0, 2, 13, 29, 20), _rand(dev, 1, 2, 13, 29, 20)
+    flow = _flows(dev, 2, 2, 13, 29, 1.5)
+    k = _rand(dev, 3, 2, 13, 29, 60, scale=0.3)
+    x = _rand(dev, 10, 2, 9, 19, 24)
+    w1, w2 = _rand(dev, 11, 3, 3, 24, 40, scale=0.1), \
+        _rand(dev, 12, 3, 3, 40, 24, scale=0.1)
+    dcn = _dcn_case(dev, 60, 2, 13, 29, 24, 40, 3, True)
+    xb, kw = _block_rcb_case(dev, 90, 2, 13, 29, 16, 32)
+    with torch.cuda.device(0):
+        iac = fused_iac.warp_sac_fused(feat, flow, k, fin)
+        pair = fused_conv.conv3x3_pair(x, w1, None, w2, None)
+        out = fused_dcn.modulated_deform_conv2d_fused(*dcn[:5],
+                                                      deform_groups=3)
+        grads = fused_dcn.modulated_deform_conv2d_fused_vjp(*dcn,
+                                                            deform_groups=3)
+        level = block_rcb(xb, **kw)
+        assert torch.cuda.current_device() == 0
+    for t in (iac, pair, out, level, *grads):
+        assert t.device == dev
+    torch.cuda.synchronize(dev)
+    _assert_close(iac, fused_iac.warp_sac_plain(feat, flow, k, fin), 2e-5)
+    _assert_close(pair, fused_conv.conv3x3_pair_plain(x, w1, None, w2, None),
+                  1e-4)
+    _assert_close(out, modulated_deform_conv2d(*dcn[:5], deform_groups=3),
+                  1e-4)
+    _assert_grads_close(grads, modulated_deform_conv2d_vjp(*dcn, 3), 1e-4)
+    _assert_close_as(level, block_rcb_plain(xb, **kw), 1e-4)
+
+
+def test_kernels_launch_on_the_current_stream(cuda):
+    """K2 and K11 launched from a side stream: their results are complete
+    once that stream alone is synchronised."""
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb, block_rcb_plain
+
+    x = _rand(cuda, 10, 2, 37, 50, 64)
+    w1, w2 = _rand(cuda, 11, 3, 3, 64, 128, scale=0.05), \
+        _rand(cuda, 12, 3, 3, 128, 64, scale=0.05)
+    xb, kw = _block_rcb_case(cuda, 90, 2, 37, 50, 64, 128)
+    ref_pair = fused_conv.conv3x3_pair_plain(x, w1, None, w2, None)
+    ref_level = block_rcb_plain(xb, **kw)
+    torch.cuda.synchronize()
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        pair = fused_conv.conv3x3_pair(x, w1, None, w2, None)
+        level = block_rcb(xb, **kw)
+    s.synchronize()
+    _assert_close(pair, ref_pair, 1e-4)
+    _assert_close_as(level, ref_level, 1e-4)
