@@ -69,12 +69,21 @@ Phases, one line or more each:
      fcvsr_tpu_torch.benchmarks.microbench_blockrcb_kernel``) at 272x480x64
      with C1 64 and 128: K11 against the unfused path, both timed, their
      deviation held to 2e-2 of max|unfused|;
+  7c. the rows-conv probes (K9, ``python -m
+     fcvsr_tpu_torch.benchmarks.microbench_conv2``) and the window-copy
+     probes (K10, ``... .microbench_dma``, float32 and bf16) at their real
+     shapes (17 tiles of 16 rows, C 64, WP 512): their library built from
+     ``csrc/microbench/``, each kernel held to its plain version (K9 within
+     MB_RTOL of max|plain|, every tile's checksum finite and the same; K10
+     bit for bit, the copied row and the fold of every copied byte), timed
+     (mm probes warm, the rest cold) beside its bound, its plain version,
+     its library call (held to the plain version too) and its yardstick;
   8. a JSON line of the kernels (launches from the run of the path that
      launches each: FCVSR training for FCVSR's, fast serving with the
      resident chain and the quad for K4 and K6, zoo training for K7 and K8,
-     the BlockRCB A/B for K11, the probe for K12; each kernel's least time
-     on the card from its bytes and operations), the nvidia-smi line, and
-     the result line.
+     the BlockRCB A/B for K11, the probe for K12, the probes' entry points
+     for K9 and K10; each kernel's least time on the card from its bytes
+     and operations), the nvidia-smi line, and the result line.
 
 Any failure exits non-zero without a result line; so does a run without a
 CUDA device or outside the repository.  Imports nothing of JAX.
@@ -155,6 +164,20 @@ KERNELS = {
                  "benchmarks/microbench_blockrcb_kernel.py:76"),
     "scale2": ("fcvsr_tpu_torch/csrc/probe/scale2.cu", "tools/tpu_probe.py:89"),
 }
+# K9 and K10: the probes' kernels, on their own entry points
+MICROBENCH = {
+    "mm_stream": "benchmarks/microbench_conv2.py:62",
+    "mm_stream3": "benchmarks/microbench_conv2.py:82",
+    "im2col": "benchmarks/microbench_conv2.py:107",
+    "dma_window": "benchmarks/microbench_conv2.py:140",
+    "dma_one_shot": "benchmarks/microbench_dma.py:60",
+    "dma_serial": "benchmarks/microbench_dma.py:80",
+    "dma_dbuf": "benchmarks/microbench_dma.py:102",
+}
+KERNELS.update({name: ("fcvsr_tpu_torch/csrc/microbench/"
+                       + ("dma.cu" if "microbench_dma" in where
+                          else "conv2.cu"), where)
+                for name, where in MICROBENCH.items()})
 # f32 kernels against f32 plain versions that sum in another order: the
 # bound scales with the output's magnitude (IAC: 3x3 taps of a warped value
 # and a 64-term kernel dot in kf mode; convs: up to 1152-term dot products;
@@ -198,6 +221,9 @@ DCN_BWD_RTOL = 1e-4
 # their weights float32 where K11 rounds them to bf16, as the TPU kernel
 # does; the JAX A/B's "max dev 2% of scale" for the same comparison
 AB_RTOL = 2e-2
+# K9 against its plain versions: float32 sums of up to 576 bf16 values
+# (exact products in the mm probes) taken in another order
+MB_RTOL = 1e-4
 # K11's mean abs error against its plain version, relative to max|plain|, as
 # tests/test_torch_blockrcb.py holds the plain version to JAX: the bf16 bar
 # above allows a flipped rounding here and there, not a shifted map
@@ -246,7 +272,7 @@ def phase_kernels(torch, dev):
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def check(name, label, kern, plain, rtol, work=None, library=None,
-              yardstick=None, mean_rtol=None):
+              yardstick=None, mean_rtol=None, beside=None):
         """Kernel against plain version; a tuple of outputs is checked one
         by one (in float32, whatever the storage).  ``work`` = (bytes,
         flops[, flop/s]) marks a timed case, with its bound at that rate
@@ -254,7 +280,11 @@ def phase_kernels(torch, dev):
         into the result line.  ``yardstick`` = (label, fn[, rtol]): the
         same function by other kernels, checked at its own rtol (default
         ``rtol``) and timed beside.  ``mean_rtol`` also holds the kernel's
-        mean abs error to that share of max|plain|."""
+        mean abs error to that share of max|plain|.  ``library`` is one
+        PyTorch call computing the same function; ``beside`` = (label, fn)
+        one that does not (a plain conv beside a deformable one), timed
+        beside it and not checked.  The result line's max_abs_err is the
+        kernel's against its plain version."""
         outs, refs = kern(), plain()
         if isinstance(outs, torch.Tensor):
             outs, refs = (outs,), (refs,)
@@ -283,17 +313,19 @@ def phase_kernels(torch, dev):
                            for r in ys]
             line.update(max_abs_err=errs, tol=tols, yardstick=yardstick[0])
         if work is not None:
-            fns = [kern, plain] + ([library] if library else []) \
-                + ([yardstick[1]] if yardstick else [])
-            times = cuda_ms(fns)
+            extra = {"library_ms": library,
+                     "yardstick_ms": yardstick and yardstick[1],
+                     "beside_ms": beside and beside[1]}
+            extra = {k: f for k, f in extra.items() if f}
+            times = cuda_ms([kern, plain, *extra.values()])
             bound_ms, bound_by = bound(*work)
             line.update(ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
-                        bound_by=bound_by,
-                        library_ms=times[2] if library else None)
+                        bound_by=bound_by, library_ms=None)
+            line.update(zip(extra, times[2:]))
+            if beside:
+                line["beside"] = beside[0]
             if len(work) > 2:
                 line["f32_pipes_bound_ms"] = bound(*work[:2])[0]
-            if yardstick:
-                line["yardstick_ms"] = times[-1]
             if "ms" not in results[name]:
                 results[name].update((k, line[k]) for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))
@@ -302,7 +334,7 @@ def phase_kernels(torch, dev):
             if not e <= tol:
                 fail(f"{name} {label}: max abs error {e} > {tol}")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"],
-                                           *errs)
+                                           *errs[:len(refs)])
 
     # IAC at the FCVSR shape: B=1, C=64, 272x480, 6 iterations of kernels;
     # flows mix small, +-20 px and out-of-frame displacements
@@ -368,14 +400,17 @@ def phase_kernels(torch, dev):
               CONV_RTOL, work=conv_work(px, 64, 64, 64) if h == 272 else None)
         res = t(rng.standard_normal((1, h, w, 64)))
         rw = conv_work(px, 64, 64)
-        # the library yardstick: one cuDNN conv with bias (no residual)
+        # no single call adds the residual: one cuDNN conv with bias is
+        # timed beside it
         check("conv3x3", f"64->64 +res {h}x{w}",
               lambda: fused_conv.conv3x3(x, r1, b2, res=res),
               lambda: fused_conv.conv3x3_plain(x, r1, b2, res=res),
               CONV_RTOL,
               work=(rw[0] + 4 * px * 64, rw[1]) if h == 272 else None,
-              library=lambda: F.conv2d(x.permute(0, 3, 1, 2),
-                                       r1.permute(3, 2, 0, 1), b2, padding=1))
+              beside=("cuDNN conv, no residual",
+                      lambda: F.conv2d(x.permute(0, 3, 1, 2),
+                                       r1.permute(3, 2, 0, 1), b2,
+                                       padding=1)))
         # bf16 storage (float32 weights): 2-byte maps
         xb, resb = x.bfloat16(), res.bfloat16()
         cw = conv_work(px, 64, 128, 64, storage=2)
@@ -557,8 +592,10 @@ def phase_kernels(torch, dev):
               lambda: modulated_deform_conv2d(x, off, mask, wd, bd,
                                               deform_groups=dg),
               CONV_RTOL, work=work if timed else None,
-              library=lambda: F.conv2d(x.permute(0, 3, 1, 2),
-                                       wd.permute(3, 2, 0, 1), bd, padding=1))
+              beside=("cuDNN plain conv (no offsets, no mask)",
+                      lambda: F.conv2d(x.permute(0, 3, 1, 2),
+                                       wd.permute(3, 2, 0, 1), bd,
+                                       padding=1)))
     del x, off, mask
     return results
 
@@ -567,9 +604,10 @@ def phase_dcn_bwd(torch, dev):
     """The DCN adjoint (K8, two launches a call) against the plain VJP
     (autograd through the plain forward) on the card, at K7's cases and at
     the zoo's two training shapes.  Each of the five gradients is held to
-    DCN_BWD_RTOL of its own max; the timed cases time K8, the plain VJP and
-    cuDNN's convolution_backward (input, weight and bias gradients of the
-    plain conv of the same shapes, the zero-offset special case) in turns.
+    DCN_BWD_RTOL of its own max; the timed cases time K8, the plain VJP and,
+    beside them, cuDNN's convolution_backward (input, weight and bias
+    gradients of the plain conv of the same shapes: not the same function,
+    so no library call) in turns.
     Work: x, offsets, mask, weights and g read, the five gradients
     written; 2 flops a multiply-add of both 9 * Cin * Cout contractions
     (g W^T and cols^T g) and 32 a sampled value (the sample, its two
@@ -609,7 +647,7 @@ def phase_dcn_bwd(torch, dev):
         def plain():
             return modulated_deform_conv2d_vjp(x, off, mask, wd, bd, g, dg)
 
-        def library():
+        def beside():
             return torch.ops.aten.convolution_backward(
                 g.permute(0, 3, 1, 2), x.permute(0, 3, 1, 2),
                 wd.permute(3, 2, 0, 1), [cout], [1, 1], [1, 1], [1, 1], False,
@@ -634,9 +672,11 @@ def phase_dcn_bwd(torch, dev):
             work = (4 * (px * (2 * chans + cout) + 2 * 9 * cin * cout
                          + 2 * cout),
                     px * 9 * cin * (4 * cout + 32))
-            times = cuda_ms([kern, plain, library])
+            times = cuda_ms([kern, plain, beside])
             bound_ms, bound_by = bound(*work)
-            line.update(ms=times[0], plain_ms=times[1], library_ms=times[2],
+            line.update(ms=times[0], plain_ms=times[1], library_ms=None,
+                        beside="cuDNN plain conv backward (no offsets, no "
+                        "mask)", beside_ms=times[2],
                         bound_ms=bound_ms, bound_by=bound_by,
                         gflop=work[1] / 1e9, gbytes=work[0] / 1e9)
             if "ms" not in result:
@@ -1291,6 +1331,59 @@ def phase_blockrcb_ab(torch):
     return block_rcb.launches
 
 
+def phase_microbench(torch):
+    """The K9 and K10 entry points in-process on cuda:0 at their real
+    shapes; every probe held to its plain version (K9 within MB_RTOL of
+    max|plain|, each tile's checksum finite and the same, and within its
+    tolerance of the plain version's; K10's row and folds bit for bit,
+    float32 and bf16), every library call within MB_RTOL of the plain
+    version and every time positive.  Returns the launches of the seven wrappers
+    over both runs and each kernel's line for the result (the first case
+    timed; its max error over all cases)."""
+    from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
+    from fcvsr_tpu_torch.benchmarks import microbench_dma as dma
+
+    wrappers = {name: getattr(conv2 if "microbench_conv2" in where else dma,
+                              name) for name, where in MICROBENCH.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    reports = conv2.main([])["probes"] + dma.main([])["probes"]
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    results = {}
+    for rep in reports:
+        name = rep["probe"]
+        label = f"{name} {rep.get('case', 'f32')}"
+        say("microbench", tol=0.0 if "case" in rep else MB_RTOL, **rep)
+        if "case" in rep:
+            if not rep["equal"]:
+                fail(f"{label}: differs from its plain version: row by "
+                     f"{rep['max_abs_dev']}, {rep['folds_differing']} of "
+                     f"the folds {rep['folds']}")
+        elif not (rep["finite"] and rep["rel_dev"] <= MB_RTOL):
+            fail(f"{label}: {rep['rel_dev']} of max|plain| > {MB_RTOL}")
+        if "checksums" in rep and not (
+                rep["checksums_finite"] and rep["checksums_equal"]
+                and rep["checksum_dev"] <= rep["checksum_tol"]):
+            fail(f"{label}: tile checksums {rep['checksums']} against the "
+                 f"plain {rep['checksum_plain']}")
+        has_lib = not rep["library"].startswith("none")
+        if has_lib and not rep["library_rel_dev"] <= MB_RTOL:
+            fail(f"{label}: the library call {rep['library']} is "
+                 f"{rep['library_rel_dev']} of max|plain| off")
+        times = [rep["ms"], rep["plain_ms"], rep["yardstick_ms"]] + (
+            [rep["library_ms"]] if has_lib else [])
+        if not all(v is not None and v > 0 for v in times):
+            fail(f"{label}: bad timing {times}")
+        line = results.setdefault(name, dict(
+            max_abs_err=0.0, **{k: rep[k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
+        line["max_abs_err"] = max(line["max_abs_err"], rep["max_abs_dev"])
+    say("microbench_phase", seconds=time.perf_counter() - t0,
+        launches=launches)
+    return launches, results
+
+
 def main() -> None:
     try:
         import torch
@@ -1342,6 +1435,9 @@ def main() -> None:
     train_counts = phase_train(torch, card)
     torch.cuda.empty_cache()
     ab_counts = {"blockrcb": phase_blockrcb_ab(torch)}
+    torch.cuda.empty_cache()
+    mb_counts, mb_results = phase_microbench(torch)
+    results.update(mb_results)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1350,6 +1446,7 @@ def main() -> None:
             ("fast serving (resident, quad)", fast_counts) \
             if name in ("iac_chain", "conv3x3_quad") else \
             ("BlockRCB A/B", ab_counts) if name == "blockrcb" else \
+            ("microbench", mb_counts) if name in MICROBENCH else \
             ("gpu probe", {"scale2": probe_launches}) if name == "scale2" \
             else ("training", train_counts)
         if counts[name] == 0:

@@ -30,7 +30,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 
 import numpy as np
 import torch
@@ -38,7 +37,7 @@ import torch
 from ..models.blocks import BlockRCB
 from ..models.scnet_rows import block_rcb_level
 from ..ops.fused_blockrcb import block_rcb
-from ..profiling import BF16_FLOP_S, bound, cuda_ms
+from ..profiling import BF16_FLOP_S, bound, card, cuda_ms, need_device
 from ..utils.convert import block_rcb_args
 
 __all__ = ["seeded_level", "level_work", "main"]
@@ -97,10 +96,7 @@ def main(argv=None) -> dict:
     parser.add_argument("--device", type=str, default="cuda")
     args = parser.parse_args(argv)
     c1 = args.c1 or args.c
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: torch.cuda.is_available() is "
-                           "False (pass --device cpu for the plain versions)")
+    dev = need_device(args.device)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     x, blk = seeded_level(args.seed, args.h, args.w, args.c, c1)
@@ -127,10 +123,7 @@ def main(argv=None) -> dict:
                   card=None)
     if dev.type == "cuda":
         report["fused_ms"], report["unfused_ms"] = cuda_ms([fused, unfused])
-        report["card"] = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+        report["card"] = card()
     print(json.dumps(report), flush=True)
     return report
 

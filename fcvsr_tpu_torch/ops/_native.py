@@ -8,6 +8,11 @@ library it already built.  The library has a plain C interface, bound here
 with ``ctypes``: each entry point takes device pointers, sizes and a CUDA
 stream, launches on that stream and returns ``cudaGetLastError()``.
 
+Kernels off the model paths (the toolchain probe, the microbenchmarks)
+live in their own libraries, built the same way from their own sources into
+``_build/<name>/`` by :func:`side_lib`: the main library's glob takes only
+``csrc/*.cu``, so a fault in one of those sources cannot break it.
+
 There is no fallback: without ``nvcc`` or a CUDA device, :func:`lib` raises.
 """
 
@@ -26,8 +31,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "check", "ptr", "require", "records", "on_cpu",
-           "launch_guard", "storage", "BUILD_DIR"]
+__all__ = ["lib", "check", "side_lib", "check_side", "ptr", "require",
+           "records", "on_cpu", "launch_guard", "storage", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -92,31 +97,30 @@ def _nvcc() -> str:
         "the CUDA kernels are built from csrc/ with nvcc at first use")
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
 def _raise_if_failed(cmd, rc: int, out: str) -> None:
     if rc != 0:
         raise RuntimeError(f"fcvsr_tpu_torch: nvcc failed ({rc}):\n"
                            f"{' '.join(cmd)}\n{out}")
 
 
-def _build() -> Path:
-    global build_seconds
+def _build_lib(name: str, sources, build_dir: Path, headers=()):
+    """(path of the shared library ``lib<name>_<hash>.so`` in ``build_dir``,
+    the build's wall seconds or None when it was built already).  The hash
+    covers the flags, ``sources`` and ``headers``; nvcc compiles each source
+    in its own process, all started together, then links the objects."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in [*sources, *headers]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    target = BUILD_DIR / f"libfcvsr_kernels_{digest.hexdigest()[:16]}.so"
+    target = build_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
     if target.is_file():
-        return target
+        return target, None
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
         objs, jobs = [], []
-        for src in sorted(CSRC.glob("*.cu")):
+        for src in sources:
             objs.append(os.path.join(tmp, src.stem + ".o"))
             cmd = [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", objs[-1]]
             jobs.append((cmd, subprocess.Popen(
@@ -131,8 +135,58 @@ def _build() -> Path:
         proc = subprocess.run(link, capture_output=True, text=True)
         _raise_if_failed(link, proc.returncode, proc.stdout + proc.stderr)
         os.replace(lib_tmp, target)
-    build_seconds = time.perf_counter() - t0
+    return target, time.perf_counter() - t0
+
+
+def _build() -> Path:
+    global build_seconds
+    target, seconds = _build_lib(
+        "fcvsr_kernels", sorted(CSRC.glob("*.cu")), BUILD_DIR,
+        sorted(CSRC.glob("*.cuh")))
+    if seconds is not None:
+        build_seconds = seconds
     return target
+
+
+_side_libs = {}
+
+
+def side_lib(name: str, sources, signatures: dict, error_string: str):
+    """(a library of its own, its build seconds or None): ``sources`` (and
+    ``csrc/common.cuh``, which they may include) built by :func:`_build_lib`
+    into ``_build/<name>/``, apart from the model's library, so that a fault
+    in one cannot break the other.  ``signatures`` maps each entry point to
+    its argtypes (each returns a CUDA error code); ``error_string`` names
+    the library's ``cudaGetErrorString``, kept as ``lib.error_string``.
+    Built once a process; a failed build raises again on every call."""
+    with _lock:
+        if name not in _side_libs:
+            try:
+                path, seconds = _build_lib(name, sorted(sources),
+                                           BUILD_DIR / name,
+                                           [CSRC / "common.cuh"])
+                handle = ctypes.CDLL(str(path))
+                for fn, argtypes in signatures.items():
+                    getattr(handle, fn).argtypes = argtypes
+                    getattr(handle, fn).restype = ctypes.c_int
+                handle.error_string = getattr(handle, error_string)
+                handle.error_string.argtypes = [ctypes.c_int]
+                handle.error_string.restype = ctypes.c_char_p
+                _side_libs[name] = (handle, seconds)
+            except (RuntimeError, OSError) as err:
+                _side_libs[name] = err
+        got = _side_libs[name]
+        if isinstance(got, Exception):
+            raise got
+        return got
+
+
+def check_side(lib, rc: int, what: str) -> None:
+    """Raise if a launch from a :func:`side_lib` library returned a CUDA
+    error code."""
+    if rc != 0:
+        raise RuntimeError(f"fcvsr_tpu_torch: {what} launch failed: CUDA "
+                           f"error {rc} ({lib.error_string(rc).decode()})")
 
 
 def lib() -> ctypes.CDLL:

@@ -45,9 +45,9 @@ from .train.lr_schedule import build_schedule
 from .train.trainer import TrainState
 from .utils.config import preset
 
-__all__ = ["cuda_ms", "bound", "stage_times", "device_profile",
-           "serving_compare",
-           "train_step_times", "train_profile", "main"]
+__all__ = ["cuda_ms", "bound", "card", "need_device", "stage_times",
+           "device_profile", "serving_compare", "train_step_times",
+           "train_profile", "main"]
 
 # FCVSRNet children timed as stages; the tail convs are summed as one
 STAGES = {"feat_extract": "feat_extract", "MGAA": "MGAA",
@@ -93,6 +93,24 @@ def bound(nbytes: float, flops: float, flop_s: float = F32_FLOP_S):
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def need_device(name: str) -> torch.device:
+    """An entry point's ``--device`` argument as a device; ``cuda`` without
+    a card raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: torch.cuda.is_available() is "
+                           "False (pass --device cpu for the plain versions)")
+    return dev
 
 
 def _mark(dev):
@@ -298,21 +316,16 @@ def main(argv=None):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device(args.device)
+    dev = need_device(args.device)
     cfg = preset(args.preset)
     model = build_model(cfg, args.seed, dev, **serving_flags(
         args.fast, args.iac_chain, args.scnet_fuse))
     x = torch.from_numpy(np.random.default_rng(args.seed).uniform(
         0, 1, (1, 7, cfg.model.in_channels, args.height, args.width))
         .astype(np.float32)).to(dev)
-    card = "cpu"
-    if dev.type == "cuda":
-        card = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            check=True).stdout.strip().splitlines()[0]
+    gpu = card() if dev.type == "cuda" else "cpu"
     shape = list(x.shape)
-    report = {"preset": args.preset, "shape": shape, "card": card,
+    report = {"preset": args.preset, "shape": shape, "card": gpu,
               "flags": model.serving_flags(),
               "stages_ms": stage_times(model, x, args.reps)}
     print("[stages] " + json.dumps(report), flush=True)
@@ -321,10 +334,10 @@ def main(argv=None):
     print("[device] " + json.dumps({**{k: v for k, v in prof.items()
                                         if k != "kernels"},
                                      "top_kernels": prof["kernels"][:12],
-                                     "card": card}), flush=True)
+                                     "card": gpu}), flush=True)
     report["serving"] = serving_compare(model, x, args.reps,
                                         variants=VARIANTS)
-    print("[serving] " + json.dumps({"shape": shape, "card": card,
+    print("[serving] " + json.dumps({"shape": shape, "card": gpu,
                                       **report["serving"]}), flush=True)
 
     b, p, c = cfg.data.batch_size, cfg.data.lr_patch, cfg.model.in_channels
@@ -338,14 +351,14 @@ def main(argv=None):
     loss_fn = LOSSES[cfg.train.loss]
     train_shape = list(lrs.shape)
     report["train"] = train_step_times(state, loss_fn, lrs, gt, args.reps)
-    print("[train] " + json.dumps({"shape": train_shape, "card": card,
+    print("[train] " + json.dumps({"shape": train_shape, "card": gpu,
                                     **report["train"]}), flush=True)
     prof = train_profile(state, loss_fn, lrs, gt)
     report["train_device"] = prof
     print("[train_device] " + json.dumps(
         {**{k: v for k, v in prof.items() if k != "kernels"},
          "top_kernels": prof["kernels"][:16], "shape": train_shape,
-         "card": card}), flush=True)
+         "card": gpu}), flush=True)
     if args.out:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
         with open(args.out, "w") as f:

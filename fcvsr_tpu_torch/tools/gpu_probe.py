@@ -29,8 +29,6 @@ from __future__ import annotations
 
 import argparse
 import ctypes
-import functools
-import hashlib
 import json
 import os
 import subprocess
@@ -47,39 +45,19 @@ __all__ = ["scale2", "scale2_plain", "probe_lib", "main"]
 
 PKG = Path(__file__).resolve().parent.parent
 SOURCE = PKG / "csrc" / "probe" / "scale2.cu"
-PROBE_DIR = _native.BUILD_DIR / "probe"
 DEFAULT_OUT = _native.BUILD_DIR / "gpu_probe.json"
 TIMEOUTS = {"dot": 300, "bf16_conv": 300, "kernel": 600}
 
 
-@functools.lru_cache(maxsize=None)
 def probe_lib():
     """(the probe's library, its build seconds or None when it was built
-    already): nvcc compiles ``scale2.cu`` alone into a shared library under
-    ``_build/probe/`` named by a hash of the source and flags."""
-    digest = hashlib.sha256(" ".join(_native.NVCC_FLAGS).encode()
-                            + SOURCE.read_bytes()).hexdigest()[:16]
-    target = PROBE_DIR / f"libscale2_{digest}.so"
-    seconds = None
-    if not target.is_file():
-        PROBE_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared", str(SOURCE),
-               "-o", str(tmp)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, target)
-        seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(target))
-    lib.fcvsr_probe_scale2.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int, ctypes.c_void_p]
-    lib.fcvsr_probe_scale2.restype = ctypes.c_int
-    lib.fcvsr_probe_error_string.argtypes = [ctypes.c_int]
-    lib.fcvsr_probe_error_string.restype = ctypes.c_char_p
-    return lib, seconds
+    already): ``scale2.cu`` built alone by ``_native.side_lib`` into
+    ``_build/probe/``."""
+    return _native.side_lib(
+        "probe", [SOURCE],
+        {"fcvsr_probe_scale2": [ctypes.c_void_p, ctypes.c_void_p,
+                                ctypes.c_int, ctypes.c_void_p]},
+        "fcvsr_probe_error_string")
 
 
 def scale2_plain(x):
@@ -97,9 +75,7 @@ def scale2(x):
     with _native.launch_guard(x) as stream:
         rc = lib.fcvsr_probe_scale2(x.data_ptr(), out.data_ptr(), x.numel(),
                                     stream)
-    if rc != 0:
-        raise RuntimeError(f"scale2 launch failed: CUDA error {rc} "
-                           f"({lib.fcvsr_probe_error_string(rc).decode()})")
+    _native.check_side(lib, rc, "scale2")
     scale2.launches += 1
     return out
 

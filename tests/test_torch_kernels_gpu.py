@@ -779,3 +779,88 @@ def test_kernels_launch_on_the_current_stream(cuda):
     s.synchronize()
     _assert_close(pair, ref_pair, 1e-4)
     _assert_close_as(level, ref_level, 1e-4)
+
+
+# K9 and K10, the probes' kernels (csrc/microbench/), against their plain
+# versions: at the probes' real shape and at 3 tiles of 200 lanes, where
+# the mm kernel's last 128-lane chunk and the window kernel's last 16-lane
+# strip are cut.  The mm and window probes sum up to 576 float32 values in
+# another order: 1e-4 of max|plain|; the copies are exact.
+MB_SHAPES = [dict(th=16, c=64, wp=512, tiles=17),
+             dict(th=16, c=64, wp=200, tiles=3)]
+
+
+@pytest.mark.parametrize("shape", MB_SHAPES, ids=["real", "odd"])
+@pytest.mark.parametrize("probe", ["mm_stream", "mm_stream3"])
+def test_mm_probe_kernel_matches_plain(cuda, probe, shape):
+    """Twice: each call's checksums come out the same, bit for bit."""
+    from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
+
+    rhs, w, _ = (t.to(cuda) for t in conv2.seeded_operands(1, **shape))
+    fn = getattr(conv2, probe)
+    n0 = fn.launches
+    out, sums = fn(rhs, w, shape["tiles"])
+    out2, sums2 = fn(rhs, w, shape["tiles"])
+    assert fn.launches == n0 + 2
+    ref, ref_sums = getattr(conv2, probe + "_plain")(rhs, w, shape["tiles"])
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape == (16, 64, shape["wp"])
+    assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.isfinite(sums).all() and torch.equal(sums, sums[:1].expand(
+        shape["tiles"]))
+    assert torch.equal(sums, sums2) and torch.equal(out, out2)
+    tol = 1e-4 * float(ref.double().abs().sum())
+    assert float((sums.double() - ref_sums.double()).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("shape", MB_SHAPES, ids=["real", "odd"])
+@pytest.mark.parametrize("probe", ["im2col", "dma_window"])
+def test_window_probe_kernel_matches_plain(cuda, probe, shape):
+    from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
+
+    _, _, src = conv2.seeded_operands(2, **shape)
+    src = src.to(cuda)
+    fn = getattr(conv2, probe)
+    n0 = fn.launches
+    got = fn(src, shape["th"])
+    assert fn.launches == n0 + 1
+    ref = getattr(conv2, probe + "_plain")(src, shape["th"])
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", MB_SHAPES, ids=["real", "odd"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("probe", ["dma_one_shot", "dma_serial", "dma_dbuf"])
+def test_copy_probe_kernel_matches_plain(cuda, probe, dtype, shape):
+    from fcvsr_tpu_torch.benchmarks import microbench_dma as dma
+
+    src32, src16 = dma.seeded_source(3, **shape)
+    src = (src32 if dtype == torch.float32 else src16).to(cuda)
+    fn = getattr(dma, probe)
+    args = (src,) if probe == "dma_one_shot" else (src, shape["th"])
+    n0 = fn.launches
+    got, folds = fn(*args)
+    assert fn.launches == n0 + 1
+    ref, ref_folds = getattr(dma, probe + "_plain")(*args)
+    torch.cuda.synchronize()
+    assert got.shape == (1, 1, shape["wp"]) and torch.equal(got, ref)
+    assert folds.shape == ref_folds.shape and torch.equal(folds, ref_folds)
+
+
+def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
+    """C other than 64 for the mm kernel (the wrapper), a window larger
+    than a block's shared memory and rows that are not a multiple of 16
+    bytes for the bulk copies (the launch refuses them)."""
+    from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
+    from fcvsr_tpu_torch.benchmarks import microbench_dma as dma
+
+    rhs, w, _ = (t.to(cuda) for t in conv2.seeded_operands(
+        0, th=4, c=8, wp=128, tiles=3))
+    with pytest.raises(ValueError, match="C = 64"):
+        conv2.mm_stream(rhs, w, 3)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        conv2.im2col(torch.zeros(1, 130, 256, 16, device=cuda), 128)
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        dma.dma_serial(torch.zeros(1, 18, 3, 5, device=cuda), 16)
