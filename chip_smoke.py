@@ -20,10 +20,10 @@ Phases, one line or more each:
      storage; the resident IAC chain (K4) at 272x480x64, 6 iterations, B 1
      and 2, float32 and bf16, also against 6 K1 launches; the BlockRCB quad
      (K6) at SCNet's three levels, float32 and bf16, also against 2 K2
-     launches; the IAC adjoint (K5) at the
-     training shape and at small odd shapes, the deformable conv (K7) at
-     EDVR-M's and BasicVSR++'s shapes, without a mask and at small odd
-     shapes, its adjoint (K8) at the same cases and at the zoo's two
+     launches; the IAC adjoint (K5) at the training shape and at small odd
+     shapes, the deformable conv (K7) at EDVR-M's and BasicVSR++'s shapes
+     (its serving 192x320 and training 64x64), without a mask and at small
+     odd shapes, its adjoint (K8) at the same cases and at the zoo's two
      training shapes (each gradient's error over its max), the BlockRCB
      level (K11) at 272x480x64 with C1 64 and 128, at SCNet's levels 2 and 3
      and at B 2, beside the unfused path (2 K2 launches and the
@@ -77,7 +77,10 @@ Phases, one line or more each:
      MB_RTOL of max|plain|, every tile's checksum finite and the same; K10
      bit for bit, the copied row and the fold of every copied byte), timed
      (mm probes warm, the rest cold) beside its bound, its plain version,
-     its library call (held to the plain version too) and its yardstick;
+     its library call (held to the plain version too) and its yardstick,
+     the mm probes also with the L2 bytes they read and that rate; then the
+     mm kernel's SASS (``cuobjdump -sass`` of the library) must hold wgmma
+     (HGMMA) and TMA tensor loads (UTMALDG) and no mma.sync or ldmatrix;
   8. a JSON line of the kernels (launches from the run of the path that
      launches each: FCVSR training for FCVSR's, fast serving with the
      resident chain and the quad for K4 and K6, zoo training for K7 and K8,
@@ -174,6 +177,8 @@ MICROBENCH = {
     "dma_serial": "benchmarks/microbench_dma.py:80",
     "dma_dbuf": "benchmarks/microbench_dma.py:102",
 }
+# the mm probes' route within CUDA: Hopper's warpgroup MMA fed by TMA
+MM_DESIGN = dict.fromkeys(("mm_stream", "mm_stream3"), "wgmma + TMA")
 KERNELS.update({name: ("fcvsr_tpu_torch/csrc/microbench/"
                        + ("dma.cu" if "microbench_dma" in where
                           else "conv2.cu"), where)
@@ -563,15 +568,17 @@ def phase_kernels(torch, dev):
 
     # the deformable conv (K7) at EDVR-M's level 1 (the 5 frames of a REDS
     # window, 64 -> 64, 8 deform groups) and BasicVSR++'s alignment (128 ->
-    # 64, 16 groups), offsets mixed as the flows above; without a mask; at
-    # small odd shapes.  Work: x, offsets, mask and weights read, out
-    # written; 2 flops a multiply-add of the 9 * Cin * Cout contraction and
-    # 8 a sampled value (4 corner products and their sum, the weights).  The
-    # library yardstick is cuDNN's conv of the same shapes, the zero-offset
-    # special case
+    # 64, 16 groups), serving 192x320 and training 64x64 (the shape of its
+    # 116 launches a step), offsets mixed as the flows above; without a
+    # mask; at small odd shapes.  Work: x, offsets, mask and weights read,
+    # out written; 2 flops a multiply-add of the 9 * Cin * Cout contraction
+    # and 8 a sampled value (4 corner products and their sum, the weights).
+    # The library yardstick is cuDNN's conv of the same shapes, the
+    # zero-offset special case
     for (b, h, w, cin, cout, dg, with_mask, timed) in (
             (5, 180, 320, 64, 64, 8, True, True),
             (1, 192, 320, 128, 64, 16, True, True),
+            (1, 64, 64, 128, 64, 16, True, True),
             (2, 64, 96, 64, 64, 8, False, False),
             (2, 13, 29, 24, 40, 3, True, False),
             (1, 5, 7, 8, 70, 1, True, False)):
@@ -1379,6 +1386,15 @@ def phase_microbench(torch):
             max_abs_err=0.0, **{k: rep[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
         line["max_abs_err"] = max(line["max_abs_err"], rep["max_abs_dev"])
+    sass = conv2.mm_sass()
+    say("microbench_sass", kernels=sass,
+        note=None if sass is not None else "no cuobjdump in the toolkit")
+    for kernel, ops in (sass or {}).items():
+        if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"] or ops["LDSM"]:
+            fail(f"{kernel}: SASS {ops}, expected HGMMA and UTMALDG and no "
+                 "HMMA or LDSM")
+    if sass is not None and list(sass) != ["mm_stream_kernel"]:
+        fail(f"the mm kernel's SASS: found {sorted(sass)}")
     say("microbench_phase", seconds=time.perf_counter() - t0,
         launches=launches)
     return launches, results
@@ -1454,6 +1470,8 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=counts[name],
                             **results[name]))
+        if name in MM_DESIGN:
+            kernels[-1]["design"] = MM_DESIGN[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

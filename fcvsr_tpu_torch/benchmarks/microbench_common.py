@@ -43,9 +43,8 @@ COLD_SPIN, WARM_SPIN = 1_000_000, 20_000_000
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
-    # rhs, w, out, checksums, partials, counters, TH, WP, tiles, passes,
-    # stream
-    "fcvsr_mb_mm_stream": [_P] * 6 + [_I] * 4 + [_P],
+    # rhs, w, out, checksums, partials, counters, TH, WP, tiles, stream
+    "fcvsr_mb_mm_stream": [_P] * 6 + [_I] * 3 + [_P],
     # src, out, TH, C, WP, tiles, build, stream
     "fcvsr_mb_window": [_P, _P] + [_I] * 5 + [_P],
     # src, out, folds, total bytes, WP, bf16, stream

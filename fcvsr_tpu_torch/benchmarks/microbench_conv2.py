@@ -24,14 +24,30 @@ real and checkable:
               window copy and a reduce; (tiles, TH + 2, WP).  The JAX output
               is o[-1].
 
-Each wrapper launches its kernel (``csrc/microbench/conv2.cu``, C = 64 for
-the mm probes) on a CUDA tensor, or raises; on a CPU tensor it runs its
-plain version.  ``<wrapper>.launches`` counts the launches.  The operands
-are drawn from seed 0 in the JAX script's order (:func:`seeded_operands`).
+Each wrapper launches its kernel (``csrc/microbench/conv2.cu``) on a CUDA
+tensor, or raises; on a CPU tensor it runs its plain version.
+``<wrapper>.launches`` counts the launches.  The operands are drawn from
+seed 0 in the JAX script's order (:func:`seeded_operands`).
+
+The mm probes' kernel replaces the TPU's ``mm_stream_kernel`` and
+``mm_stream3_kernel`` (``benchmarks/microbench_conv2.py:62, 82``) with
+Hopper's warpgroup MMA (``wgmma``, bf16, float32 sums) fed by TMA: one
+persistent block an SM rounds w to bf16 into shared memory once; two
+consumer warpgroups take its units of work in turn (tile, row, 128 lanes;
+64 in the last round, so that no SM takes a whole item more than
+another), each fed through its own ring of 4 swizzled stages on
+mbarriers by a producer lane.  mm_stream3 runs the same kernel: one
+float32 accumulator takes its three passes in turn.  It takes C = 64 (one
+wgmma m64 tile) and, on a CUDA tensor, WP a multiple of 8 (TMA's 16-byte
+row stride).  Its bound is the operations' (0.0104 ms at the real shape),
+but since it stands for K2, where every tile's operand differs, each tile
+reads its rhs again: 17 x 9.4 MB through L2, and each SM's intake of those
+bytes is what holds it; the report gives that rate beside the TFLOP/s.
 
 On a CUDA device each probe is checked against its plain version and timed
 with CUDA events: the mm probes warm (their fixed rhs is resident by design,
-as the TPU kept it in VMEM: 50 launches between one event pair), the window
+as the TPU kept it in VMEM: 50 launches between one event pair; the kernel
+and its library call in turns, the median of 3 each), the window
 probes cold (the 35.9 MB source fits in the 50 MB L2: a 128 MiB write, read
 back, before each launch, the median of 30).  One JSON line a probe: the
 card's name and power limit, the kernel's ms and TFLOP/s or GB/s, the least
@@ -39,8 +55,10 @@ time the card could take (:func:`work`, ``profiling.bound``; the mm probes
 at the bf16 tensor-core rate, with the float32 pipes' beside it) and the
 kernel's share of it, the plain version's ms, the library call's ms and its
 deviation from the plain version, and the max deviation of the kernel from
-the plain version.  The library calls compute the same function in one
-call: for the mm probes ``torch.bmm`` of the bf16 weights by the tile's rhs
+the plain version; the mm probes also the L2 bytes their kernel reads
+(every tile's rhs, and w once a block) and that rate.  The library calls
+compute the same function in one call: for the mm probes ``torch.bmm`` of
+the bf16 weights by the tile's rhs
 (576, TH*WP), both expanded over the tiles with a stride of 0, so that
 cuBLAS reads the rhs from L2 as the kernel does (but writes every tile's
 output: its own bound beside it); the repeated rhs of 160 MB that cuBLAS
@@ -55,6 +73,11 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
+import shutil
+import statistics
+import subprocess
 
 import numpy as np
 import torch
@@ -66,15 +89,16 @@ from . import microbench_common as common
 __all__ = ["TH", "C", "WP", "TILES", "seeded_operands", "mm_stream",
            "mm_stream3", "im2col", "dma_window", "mm_stream_plain",
            "mm_stream3_plain", "im2col_plain", "dma_window_plain", "work",
-           "main"]
+           "mm_l2_bytes", "mm_sass", "main"]
 
 TH, C, WP, TILES = 16, 64, 512, 17
 REPLACES = {"mm_stream": "benchmarks/microbench_conv2.py:62",
             "mm_stream3": "benchmarks/microbench_conv2.py:82",
             "im2col": "benchmarks/microbench_conv2.py:107",
             "dma_window": "benchmarks/microbench_conv2.py:140"}
-MM_C = 64  # the mm kernel's output channels (the tensor-core tile's M)
-MM_LANES = 128  # output lanes a work item of the mm kernel
+MM_C = 64  # the mm kernel's output channels (the wgmma tile's M)
+MM_LANES = 128  # output lanes a work item of the mm kernel (the wgmma N)
+MM_WP_STEP = 8  # the kernel's WP is a multiple of this: TMA's row stride
 
 
 def seeded_operands(seed: int = 0, th: int = TH, c: int = C, wp: int = WP,
@@ -131,44 +155,51 @@ def mm_stream3_plain(rhs, w, tiles: int = TILES):
     return _mm_plain(rhs, w, tiles, 3)
 
 
-def _mm(rhs, w, tiles: int, passes: int):
+def _mm(rhs, w, tiles: int, what: str):
     _check_mm(rhs, w, tiles)
     th, _, wp = rhs.shape
     if w.shape[0] != MM_C:
         raise ValueError(f"the mm kernel takes C = {MM_C}, got {w.shape[0]}")
+    if wp % MM_WP_STEP:
+        raise ValueError(f"the mm kernel takes WP a multiple of "
+                         f"{MM_WP_STEP} (TMA's 16-byte row stride), got {wp}")
     dev = rhs.device
     out = torch.empty(th, MM_C, wp, device=dev)
     sums = torch.empty(tiles, device=dev)
-    partials = torch.empty(tiles * th * -(-wp // MM_LANES), device=dev)
+    partials = torch.empty(tiles * th * -(-wp // MM_LANES) * 2, device=dev)
     counters = torch.zeros(tiles, dtype=torch.int32, device=dev)
     lib = common.lib()
     with _native.launch_guard(rhs) as stream:
         rc = lib.fcvsr_mb_mm_stream(
             rhs.data_ptr(), w.data_ptr(), out.data_ptr(), sums.data_ptr(),
-            partials.data_ptr(), counters.data_ptr(), th, wp, tiles, passes,
-            stream)
-    _native.check_side(lib, rc, f"mm_stream (passes {passes})")
+            partials.data_ptr(), counters.data_ptr(), th, wp, tiles, stream)
+    _native.check_side(lib, rc, what)
     return out, sums
 
 
 def mm_stream(rhs, w, tiles: int = TILES):
-    """The mm_stream kernel (bf16 tensor cores, float32 sums) on a CUDA
-    tensor, :func:`mm_stream_plain` on a CPU tensor.  rhs (TH, 576, WP)
-    bf16, w (64, 576) float32 (16-byte aligned, or the launch fails).  Each
-    call zeroes the tiles' counters the kernel's blocks count off on (one
-    memset before the launch)."""
+    """The mm_stream kernel (``wgmma`` bf16, float32 sums, rhs by TMA) on a
+    CUDA tensor, :func:`mm_stream_plain` on a CPU tensor.  rhs (TH, 576,
+    WP) bf16, WP a multiple of 8 on a CUDA tensor (else ValueError), w (64,
+    576) float32, both 16-byte aligned (or the launch fails).  Each call
+    zeroes the tiles' counters the kernel's blocks count off on (one memset
+    before the launch)."""
     if _native.on_cpu(rhs):
         return mm_stream_plain(rhs, w, tiles)
-    got = _mm(rhs, w, tiles, 1)
+    got = _mm(rhs, w, tiles, "mm_stream")
     mm_stream.launches += 1
     return got
 
 
 def mm_stream3(rhs, w, tiles: int = TILES):
-    """:func:`mm_stream` in 3 accumulating passes of K = 192."""
+    """:func:`mm_stream` in 3 accumulating passes of K = 192.  The kernel
+    is mm_stream's: its one float32 accumulator takes the three passes in
+    turn (a second one for each pass's dot, added at the pass's end as the
+    TPU kernel adds, held the tolerance too but ran 1.1% to 1.4% slower on
+    the H100)."""
     if _native.on_cpu(rhs):
         return mm_stream3_plain(rhs, w, tiles)
-    got = _mm(rhs, w, tiles, 3)
+    got = _mm(rhs, w, tiles, "mm_stream3")
     mm_stream3.launches += 1
     return got
 
@@ -268,6 +299,51 @@ def work(probe: str, th: int = TH, c: int = C, wp: int = WP,
     raise ValueError(f"unknown probe {probe!r}")
 
 
+def mm_l2_bytes(th: int = TH, c: int = C, wp: int = WP, tiles: int = TILES,
+                blocks: int = 0):
+    """(rhs bytes, w bytes) the mm kernel reads through L2: every tile's
+    rhs, which each tile streams anew as K2's tiles each read their own
+    operand (17 x 9.4 MB at the real shape), and the float32 w once for
+    each of its ``blocks`` persistent blocks."""
+    return tiles * th * 9 * c * wp * 2, blocks * c * 9 * c * 4
+
+
+def _mm_blocks(dev, th: int = TH, wp: int = WP, tiles: int = TILES) -> int:
+    """The mm kernel's grid on ``dev``: one block an SM (its shared memory
+    allows no second), no more than the 64-lane halves of its items."""
+    halves = 2 * tiles * th * -(-wp // MM_LANES)
+    return min(halves, torch.cuda.get_device_properties(dev)
+               .multi_processor_count)
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM")
+
+
+def mm_sass(path=None):
+    """{kernel: {op: count}} for the mm kernel (``mm_stream_kernel``, which
+    both mm probes launch) in ``cuobjdump -sass`` of the probes' library
+    (``path``, or the one :func:`microbench_common.lib` builds): HGMMA is
+    wgmma, UTMALDG a TMA tensor load, HMMA mma.sync and LDSM ldmatrix.
+    None when the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path or common.lib()._name],
+                          capture_output=True, text=True, check=True).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = "mm_stream_kernel" if "mm_stream_kernel" in line \
+                else None
+            if kernel:
+                counts[kernel] = dict.fromkeys(SASS_OPS, 0)
+        elif kernel:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    counts[kernel][op] += 1
+    return counts
+
+
 def dma_window_library(src, th: int = TH):
     """dma_window's function in one PyTorch call, a channel sum over an
     unfolded view: (tiles, TH + 2, WP), transposed in place."""
@@ -336,7 +412,10 @@ def main(argv=None) -> dict:
         if mm:
             sums_l = [float(v) for v in sums.cpu()]
             out_bytes = tiles * c * th * wp
+            l2_rhs, l2_w = mm_l2_bytes(
+                **shape, blocks=_mm_blocks(dev, th, wp, tiles) if cuda else 0)
             rep.update(
+                l2_bytes=l2_rhs, l2_w_bytes=l2_w, l2_gbps=None,
                 f32_pipes_bound_ms=bound(nbytes, flops)[0],
                 checksums=sums_l, checksum_plain=float(ref_sums[0]),
                 checksums_equal=len(set(sums_l)) == 1,
@@ -377,13 +456,23 @@ def main(argv=None) -> dict:
                 rep["library_extra_bytes"] = (
                     torch.cuda.max_memory_allocated() - base
                     - out_bytes * 4)
-                rep["ms"] = common.warm_ms(kern)
+                # the kernel and the library call in turns (K L L K K L),
+                # the median of each: the two are within a few per cent,
+                # and one pair alone moves as much between probes
+                runs = {kern: [], mm_lib[0]: []}
+                for fn in (kern, mm_lib[0], mm_lib[0], kern, kern,
+                           mm_lib[0]):
+                    runs[fn].append(common.warm_ms(fn))
+                rep["ms_runs"], rep["library_ms_runs"] = runs.values()
+                rep["ms"] = statistics.median(runs[kern])
+                rep["library_ms"] = statistics.median(runs[mm_lib[0]])
                 rep["plain_ms"] = common.warm_ms(plain, 5)
-                rep["library_ms"] = common.warm_ms(mm_lib[0])
                 rep["yardstick_ms"] = common.warm_ms(mm_lib[1])
                 rep["tflops"] = flops / rep["ms"] * 1e-9
+                rep["l2_gbps"] = (l2_rhs + l2_w) / rep["ms"] * 1e-6
                 rep["timing"] = (f"warm, a spin then {common.WARM_ITERS}"
-                                 " launches an event pair")
+                                 " launches an event pair; kernel and "
+                                 "library in turns, the median of 3")
             else:
                 dst = torch.empty_like(src)
                 rep["ms"] = common.cold_ms(kern)

@@ -14,17 +14,68 @@
 //
 // mm_stream / mm_stream3.  Bound by operations: 2 * 17 * 16 * 576 * 64 *
 // 512 = 10.3 GFLOP at 989 TFLOP/s bf16 is 0.0104 ms, against 11.7 MB of
-// traffic (0.0035 ms).  Design: bf16 tensor cores through mma.sync
-// m16n8k16 with f32 sums (wgmma is for a later kernel).  Persistent blocks,
-// two an SM, each rounds w to bf16 once into shared memory (74 KB) and then
-// walks work items (tile, row, 128-lane chunk); the rhs rows of all its
-// items stream through one 2-stage cp.async ring of 64 x 128 bf16 stages,
-// read by ldmatrix.trans, so the next item's rows load while this item's
-// last are multiplied.  The fixed rhs (9.4 MB) stays in the 50 MB L2, as
-// the TPU kept it in VMEM.  Each item's outputs are summed into a partial in a
-// fixed order; the last block of a tile to finish sums that tile's partials
-// in a fixed order into its checksum, so every tile's checksum is the same
-// number, bit for bit.  Only the last tile writes `out`.
+// traffic (0.0035 ms at HBM's rate).  But the probe stands for K2, where
+// every tile's operand differs, so each tile streams its rhs again: 17 x
+// 9.4 MB = 160 MB through the 50 MB L2, which holds the fixed rhs as the
+// TPU held it in VMEM, and every block also reads w (147 KB).  What holds
+// it on the H100 is each SM's intake of those bytes, about 45 GB/s (an SM
+// takes its share in the same time whether 66 or 132 SMs run), so the
+// time follows the SM with the most bytes (PERF.md §6).
+//
+// Design: Hopper's warpgroup MMA fed by TMA, one persistent block an SM
+// (206 KB of shared memory), 320 threads: two consumer warpgroups, a
+// producer warp and a bookkeeper warp.  M = C = 64 is one wgmma m64 tile.
+// The consumers round w to bf16 once into A (74 KB, K-major, 128-byte
+// swizzled, csrc/hopper.cuh), 12 loads in flight a thread, then take the
+// block's units of work in turn (unit_of): a unit is rows r of tile t
+// times 128 lanes (wgmma m64n128k16), or in the last round 64 lanes
+// (m64n64k16), so that the busiest SM takes 8.5 items' bytes, not 9, at
+// the real shape (1088 items on 132 SMs).  Each consumer has its own ring
+// of 4 stages (64 k rows x 128 lanes, two TMA boxes of 64 x 64 through a
+// tensor map over rhs as a (TH * 576, WP) array, 128-byte swizzled, so B
+// is MN-major and read through the transpose bit: no ldmatrix) with a full
+// and an empty mbarrier each, filled by its own producer lane; so the next
+// unit's rows load while this one's last are multiplied, and while one
+// warpgroup drains and sums a unit the other's wgmma keep the tensor cores
+// busy.  A consumer keeps one wgmma group in flight (wait_group 1) and
+// frees a stage once the group that read it has retired; a unit's first
+// wgmma has scale-d 0, which clears the sums.  TMA fills lanes past WP
+// with zeros, so a ragged chunk needs no masking; WP must be a multiple of
+// 8 (TMA's 16-byte row stride; the wrapper raises on others).  Nothing is
+// shared across tiles: each unit's stages are loaded for it, and each
+// tile's product and checksum computed anew.
+//
+// mm_stream3 runs the same kernel: its one float32 accumulator takes the
+// three 192-wide passes in turn.  A second accumulator for each pass's
+// dot, added into the first at the pass's end as the TPU kernel adds, held
+// the tolerance too but ran 1.1% to 1.4% slower (PERF.md §6).
+//
+// The epilogue: each unit's outputs are summed into a partial for each
+// 64-lane half in a fixed order (a thread's 32 sums, a warp's shuffle
+// tree, the four warps), the same bits whether the half came alone or in
+// an item; the bookkeeper takes them through 2 hand-over slots, counts
+// halves off on the tile's counter (each call zeroes them), and for the
+// unit that completes a tile sums its partials in a fixed order into the
+// checksum, so every tile's checksum is the same number, bit for bit; off
+// the consumers, whose wgmma waits for all their threads.  Only the last tile writes `out`, from the wgmma
+// accumulator layout (hopper.cuh gives each register's row and column).
+//
+// What had to be solved: the tensor map comes from cuTensorMapEncodeTiled,
+// which lives in libcuda, fetched through the runtime's entry-point query
+// (no link against libcuda), encoded per call from the pointer and WP and
+// passed as a __grid_constant__ parameter; the descriptors' byte offsets
+// (A: SBO 1024, the k16 slices 32 bytes apart; B: SBO 1024 between atoms
+// of 8 k rows, LBO 8 KB between the two boxes; the odd-shape GPU tests cut
+// a chunk and a tile short to catch a wrong one); 1024-byte aligned atoms
+// in dynamic shared memory (aligned by hand); a proxy fence and a barrier
+// between A's ordinary stores and wgmma's reads, and wgmma.fence before
+// each stage's first wgmma; ptxas serialises wgmma under a branch on the
+// thread's index, so the roles branch on a warp-uniform value, the
+// mbarrier waits loop inside their asm and arrivals are predicated there;
+// the accumulators are touched only after a drain and fenced as operands,
+// so that no read moves before a wgmma wait; a ring shared by two
+// consumers would let one pass a parity wait before the slot's previous
+// load landed, so each has its own.
 //
 // im2col / dma_window.  Bound by bytes: the 35.9 MB float32 source read
 // once (0.0107 ms at 3.35 TB/s); the 16 + 2 rows of a tile's window overlap
@@ -41,6 +92,7 @@
 #include <cstdint>
 
 #include "../common.cuh"
+#include "../hopper.cuh"
 
 namespace {
 
@@ -48,9 +100,7 @@ using fcvsr::allow_smem;
 
 // ---------------------------------------------------------------- helpers
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+using fcvsr::sm90::smem_u32;
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
@@ -73,32 +123,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// four 8x8 b16 matrices; lanes 8i..8i+7 give matrix i's row addresses
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p))
-               : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// d += a (16x16 bf16, row) * b (16x8 bf16, col), f32 sums
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 cudaError_t sm_count(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -108,182 +132,281 @@ cudaError_t sm_count(int* sms) {
 
 // ------------------------------------------------------------- mm stream
 
-constexpr int kC = 64;              // output channels: the block's M
-constexpr int kK = 9 * kC;          // 576
-constexpr int kNC = 128;            // output lanes a work item
-constexpr int kKC = 64;             // rhs rows a pipeline stage
-constexpr int kStages = 2;          // faster than 32 rows in 2 to 4 stages
-constexpr int kChunks = kK / kKC;   // 9
-constexpr int kAStride = kK + 8;    // bf16; 1168 B rows, ldmatrix conflict-free
-constexpr int kBStride = kNC + 8;   // bf16; 272 B rows
-constexpr int kMmThreads = 256;     // 8 warps: 2 (M, 32 rows) x 4 (N, 32 lanes)
-constexpr size_t kMmSmem = (size_t)kC * kAStride * 2 +
-                           (size_t)kStages * kKC * kBStride * 2 + 8 * sizeof(float);
+namespace sm90 = fcvsr::sm90;
 
-static_assert(kK % (3 * kKC) == 0, "a pass of mm_stream3 is whole stages");
+constexpr int kC = 64;                      // output channels: the wgmma M
+constexpr int kK = 9 * kC;                  // 576
+constexpr int kNC = 128;                    // output lanes an item: the wgmma N
+constexpr int kKC = 64;                     // rhs rows a stage: one k block
+constexpr int kChunks = kK / kKC;           // 9 stages a unit of work
+constexpr int kBox = 64;                    // lanes a TMA box: one 128-byte row
+constexpr int kStages = 4;                  // a consumer's ring of stages
+constexpr int kConsumers = 2;               // warpgroups, on alternate units
+constexpr int kSlots = kConsumers * kStages;
+constexpr int kABlock = kC * 128;           // bytes of A a 64-wide k block: 8 KB
+constexpr int kABytes = kChunks * kABlock;  // 73,728
+constexpr int kBoxBytes = kKC * kBox * 2;   // 8 KB
+constexpr int kStageBytes = 2 * kBoxBytes;  // an item's two boxes, LBO apart
+constexpr int kHand = 2;                    // units' sums in the bookkeeper's hands
+constexpr int kProducer = 4 * kConsumers;   // warps: the consumers', then these
+constexpr int kBookkeeper = kProducer + 1;
+constexpr int kMmThreads = 32 * (kBookkeeper + 1);
+constexpr size_t kMmSmem = 1024 /* to align */ + kABytes +
+                           (size_t)kSlots * kStageBytes +
+                           (2 * kSlots + 2 * kHand) * sizeof(uint64_t) +
+                           kHand * 2 * 4 * sizeof(float);
 
-// One stage: rhs[r, k0 : k0 + 32, n0 : n0 + 128] into bs, lanes past WP zero.
-__device__ __forceinline__ void load_stage(__nv_bfloat16* bs,
-                                           const __nv_bfloat16* rhs, int r,
-                                           int k0, int n0, int WP, bool vec) {
-  for (int q = threadIdx.x; q < kKC * (kNC / 8); q += kMmThreads) {
-    const int row = q / (kNC / 8), seg = q % (kNC / 8);
-    const int n = n0 + seg * 8;
-    const __nv_bfloat16* g = rhs + ((size_t)r * kK + k0 + row) * WP + n;
-    __nv_bfloat16* s = bs + row * kBStride + seg * 8;
-    if (vec && n + 8 <= WP) {
-      cp_async16(s, g);
-    } else {
-      for (int e = 0; e < 8; ++e)
-        s[e] = n + e < WP ? g[e] : __float2bfloat16_rn(0.f);
-    }
+static_assert(kHand % kConsumers == 0, "a hand-over slot serves one consumer");
+static_assert(kNC == 2 * kBox, "an item is two halves of a box each");
+static_assert(kKC == 64, "a stage is one k block of A");
+static_assert(kC * kK / 4 % (128 * kConsumers) == 0, "a uniform trip count");
+
+// A unit of work: rows r of tile t, lanes 128 c + 64 h0 on, `halves` 64-lane
+// halves of them (2: a whole item, 1: a half).  Each block takes the items
+// of the whole rounds in turn (block b: items b, b + nblk, ...), then the
+// halves of the rest (halves b, b + nblk, ... of the last items), so that
+// no block has a whole item more than another.
+struct Unit {
+  int t, r, c, h0, halves;
+};
+
+__device__ __forceinline__ Unit unit_of(int u, int blk, int nblk, int per_tile,
+                                        int nch, int items) {
+  const int rounds = items / nblk;
+  int item, h0 = 0, halves = 2;
+  if (u < rounds) {
+    item = blk + u * nblk;
+  } else {
+    const int half = blk + (u - rounds) * nblk;
+    item = rounds * nblk + half / 2;
+    h0 = half % 2;
+    halves = 1;
   }
+  const int p = item % per_tile;
+  return {item / per_tile, p / nch, p % nch, h0, halves};
 }
 
-template <int kPasses>
-__global__ void __launch_bounds__(kMmThreads, 2)
-    mm_stream_kernel(const __nv_bfloat16* __restrict__ rhs,
+__global__ void __launch_bounds__(kMmThreads, 1)
+    mm_stream_kernel(const __grid_constant__ CUtensorMap rhs_map,
                      const float* __restrict__ w, float* __restrict__ out,
                      float* __restrict__ checksums, float* partials,
-                     unsigned* counters, int TH, int WP, int tiles, int vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* bs = as + kC * kAStride;
-  float* red = reinterpret_cast<float*>(bs + kStages * kKC * kBStride);
+                     unsigned* counters, int TH, int WP, int tiles) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  // the swizzled tiles need 1024-byte aligned atoms
+  unsigned char* as =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // A: bf16(w)
+  unsigned char* bs = as + kABytes;  // the consumers' rings of rhs stages
+  uint64_t* full = reinterpret_cast<uint64_t*>(bs + kSlots * kStageBytes);
+  uint64_t* empty = full + kSlots;
+  uint64_t* sums_full = empty + kSlots;  // a unit's warp sums, handed over
+  uint64_t* sums_empty = sums_full + kHand;
+  float* red = reinterpret_cast<float*>(sums_empty + kHand);  // kHand x 2 halves x 4
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 2, wn = warp & 3;
-  const int g = lane >> 2, tig = lane & 3;
-
-  // w rounded to bf16 once a block, four values a load
-  for (int i = tid; i < kC * kK / 4; i += kMmThreads) {
-    const float4 v = reinterpret_cast<const float4*>(w)[i];
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(
-        as + (i / (kK / 4)) * kAStride + (i % (kK / 4)) * 4);
-    dst[0] = __floats2bfloat162_rn(v.x, v.y);
-    dst[1] = __floats2bfloat162_rn(v.z, v.w);
-  }
-
-  // The block's items are blockIdx.x + i * gridDim.x; their chunks form one
-  // stream through the ring, so the next item's first chunks load while
-  // this one's last are multiplied.
+  // the warp's role from a value the compiler knows to be warp-uniform
+  // (read from lane 0): a role branch on threadIdx would be a divergent
+  // path, and ptxas serialises wgmma inside one
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int blk = (int)blockIdx.x, nblk = (int)gridDim.x;
   const int nch = (WP + kNC - 1) / kNC;
-  const int per_tile = TH * nch;
+  const int per_tile = TH * nch;  // items a tile, each with 2 partials
   const int items = tiles * per_tile;
-  const int mine = (items - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const int total = mine * kChunks;
-  auto load = [&](int q) {  // chunk q of the block's stream into its stage
-    const int p = (blockIdx.x + (q / kChunks) * gridDim.x) % per_tile;
-    load_stage(bs + (q % kStages) * kKC * kBStride, rhs, p / nch,
-               (q % kChunks) * kKC, (p % nch) * kNC, WP, vec);
-  };
-#pragma unroll
-  for (int q = 0; q < kStages - 1; ++q) {
-    if (q < total) load(q);
-    cp_async_commit();
+  const int tail = 2 * (items % nblk);  // the halves of the last items
+  const int mine = items / nblk + (tail - blk + nblk - 1) / nblk;  // units
+  // Consumer g takes the block's units g, g + kConsumers, ...; their stages
+  // form one stream through the consumer's own ring, so the next unit's
+  // stages load while this unit's last are multiplied and its epilogue
+  // runs.  A ring's slots are used in order, each use's wait on the phase
+  // after the one before it completed (a ring shared by two consumers
+  // would let one wait on a phase parity that reads as complete before the
+  // slot's previous load has landed); so are the hand-over slots.
+
+  if (tid == 0) {
+    for (int s = 0; s < kSlots; ++s) {
+      sm90::mbar_init(&full[s], 1);   // the producer's arrival and the bytes
+      sm90::mbar_init(&empty[s], 4);  // one arrival a warp of the consumer
+    }
+    for (int b = 0; b < kHand; ++b) {
+      sm90::mbar_init(&sums_full[b], 4);
+      sm90::mbar_init(&sums_empty[b], 1);
+    }
+    sm90::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == kProducer) {  // lane g starts every load of consumer g's ring
+    if (lane < kConsumers) {
+      const int g = lane, n = (mine - g + kConsumers - 1) / kConsumers;
+      for (int q = 0; q < n * kChunks; ++q) {
+        const int s = g * kStages + q % kStages, use = q / kStages;
+        if (use > 0) sm90::mbar_wait(&empty[s], (use - 1) & 1);
+        const Unit u = unit_of(g + (q / kChunks) * kConsumers, blk, nblk,
+                               per_tile, nch, items);
+        const int x = u.c * kNC + u.h0 * kBox;
+        const int y = u.r * kK + (q % kChunks) * kKC;
+        unsigned char* st = bs + s * kStageBytes;
+        sm90::mbar_expect_tx(&full[s], u.halves * kBoxBytes);
+        sm90::tma_load_2d(st, &rhs_map, x, y, &full[s]);
+        if (u.halves == 2)
+          sm90::tma_load_2d(st + kBoxBytes, &rhs_map, x + kBox, y, &full[s]);
+      }
+    }
+    return;
   }
 
-  float acc[2][4][4], d[2][4][4];
-  for (int q = 0; q < total; ++q) {
-    const int c = q % kChunks;
-    if (c == 0) {
+  if (warp == kBookkeeper) {
+    // each unit's partials (one a half) from its four warp sums, in a fixed
+    // order, and, for the unit that completes a tile, the tile's checksum
+    // from its 2 * per_tile partials in a fixed order (a lane every 32nd,
+    // then a shuffle tree), counting off halves on the tile's counter; off
+    // the consumers, whose wgmma waits for all their threads
+    for (int i = 0; i < mine; ++i) {
+      const int b = i % kHand;
+      const Unit u = unit_of(i, blk, nblk, per_tile, nch, items);
+      sm90::mbar_wait(&sums_full[b], (i / kHand) & 1);
+      unsigned last = 0;
+      if (lane == 0) {
+        float* part = partials + ((size_t)u.t * per_tile + u.r * nch + u.c) * 2;
+        for (int h = 0; h < u.halves; ++h) {
+          float v = 0.f;
+          for (int j = 0; j < 4; ++j) v += red[(b * 2 + h) * 4 + j];
+          part[u.h0 + h] = v;
+        }
+        __threadfence();
+        last = atomicAdd(&counters[u.t], (unsigned)u.halves) + u.halves ==
+               2u * per_tile;
+      }
+      sm90::mbar_arrive(&sums_empty[b], lane == 0);
+      if (!__shfl_sync(0xffffffffu, last, 0)) continue;
+      __threadfence();  // every lane reads what the other blocks released
+      // on the critical path for the last tile: unrolled, so that the
+      // loads go out together
+      float sum = 0.f;
+#pragma unroll 4
+      for (int j = lane; j < 2 * per_tile; j += 32)
+        sum += __ldcg(&partials[(size_t)u.t * 2 * per_tile + j]);
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][nt][e] = d[mi][nt][e] = 0.f;
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        checksums[u.t] = sum;
+        counters[u.t] = 0u;  // back to 0 for the next call
+      }
     }
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // chunk q is in; every warp is done with chunk q - 1
-    if (q + kStages - 1 < total) load(q + kStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* b = bs + (q % kStages) * kKC * kBStride;
+    return;
+  }
+
+  // the consumers.  w rounded to bf16 once, four values a load, into A's
+  // K-major swizzled layout: k block k / 64, row m, 16-byte chunk (k % 64)
+  // / 8 stored at chunk ((k % 64) / 8) ^ (m % 8); kWBatch loads in flight a
+  // thread (one at a time, each waiting on the store before it, took a
+  // round trip to L2 each while the rings sat full)
+  constexpr int kWLoads = kC * kK / 4 / (128 * kConsumers);  // 36 a thread
+  constexpr int kWBatch = 12;
+  static_assert(kWLoads % kWBatch == 0, "whole batches");
+  for (int j0 = 0; j0 < kWLoads; j0 += kWBatch) {
+    float4 v[kWBatch];
 #pragma unroll
-    for (int kk = 0; kk < kKC; kk += 16) {
-      uint32_t a[2][4], bf[2][4];
+    for (int j = 0; j < kWBatch; ++j)
+      v[j] = reinterpret_cast<const float4*>(w)[tid + 128 * kConsumers * (j0 + j)];
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-        ldsm_x4(a[mi], as + (32 * wm + 16 * mi + (lane & 15)) * kAStride +
-                           c * kKC + kk + (lane >> 4) * 8);
+    for (int j = 0; j < kWBatch; ++j) {
+      const int i = tid + 128 * kConsumers * (j0 + j);
+      const int m = i / (kK / 4), k = (i % (kK / 4)) * 4;
+      const __nv_bfloat162 lo = __floats2bfloat162_rn(v[j].x, v[j].y);
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(v[j].z, v[j].w);
+      uint2 u;
+      u.x = *reinterpret_cast<const uint32_t*>(&lo);
+      u.y = *reinterpret_cast<const uint32_t*>(&hi);
+      *reinterpret_cast<uint2*>(as + (k / 64) * kABlock + m * 128 +
+                                ((((k % 64) / 8) ^ (m & 7)) << 4) + (k % 8) * 2) = u;
+    }
+  }
+  sm90::fence_proxy_async();  // the stores before the wgmma reads of A
+  asm volatile("bar.sync 1, %0;\n" ::"n"(128 * kConsumers) : "memory");
+
+  // While one warpgroup drains and sums a unit, the other's wgmma keep the
+  // tensor cores busy.  The accumulators are touched outside wgmma only
+  // after a full drain (wait_group 0) and are fenced there as operands on
+  // both sides, so that the compiler moves no access into a span where a
+  // group is in flight.  One accumulator takes all 576 k, mm_stream3's
+  // three passes too (the note above says why).
+  const int wg = warp / 4, wl = warp % 4;
+  constexpr int kAcc = kNC / 2;  // accumulator registers a thread
+  float acc[kAcc];
 #pragma unroll
-      for (int nj = 0; nj < 2; ++nj)
-        ldsm_x4_trans(bf[nj],
-                      b + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * kBStride +
-                          32 * wn + 16 * nj + (lane >> 4) * 8);
+  for (int i = 0; i < kAcc; ++i) acc[i] = 0.f;
+  for (int i = wg; i < mine; i += kConsumers) {
+    const Unit u = unit_of(i, blk, nblk, per_tile, nch, items);
+    for (int c = 0; c < kChunks; ++c) {
+      const int q = (i / kConsumers) * kChunks + c;  // in the ring's stream
+      const int s = wg * kStages + q % kStages;
+      sm90::mbar_wait(&full[s], (q / kStages) & 1);
+      const unsigned char* st = bs + s * kStageBytes;
+      sm90::wgmma_fence();
 #pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
+      for (int kk = 0; kk < kKC / 16; ++kk) {
+        // A: the k16 slice 32 bytes on in its k block; B: 16 rhs rows, two
+        // swizzle atoms of 8 rows, 2048 bytes on; its boxes LBO apart.  The
+        // unit's first product clears the sums (scale-d 0)
+        const uint64_t da = sm90::desc_sw128(as + c * kABlock + kk * 32, 16, 1024);
+        const uint64_t db = sm90::desc_sw128(st + kk * 2048, kBoxBytes, 1024);
+        if (u.halves == 2)
+          sm90::wgmma_m64k16_bf16<kNC>(acc, da, db, c > 0 || kk > 0);
+        else
+          sm90::wgmma_m64k16_bf16<kBox>(acc, da, db, c > 0 || kk > 0);
+      }
+      sm90::wgmma_commit();
+      // the stage before this one: its group is done once one is in flight
+      const int prev = wg * kStages + (q + kStages - 1) % kStages;
+      if (c + 1 < kChunks) {
+        sm90::wgmma_wait<1>();
+        if (c > 0) sm90::mbar_arrive(&empty[prev], lane == 0);
+        continue;
+      }
+      sm90::wgmma_wait<0>();  // the sums are needed: drain
+      sm90::mbar_arrive(&empty[prev], lane == 0);
+      sm90::mbar_arrive(&empty[s], lane == 0);
+      sm90::fence_operand(acc);
+    }
+
+    // the unit is done: each half's outputs summed in a fixed order (a
+    // thread's 32, a warp's shuffle tree; lanes past WP multiplied TMA's
+    // zeros), the same whether the half came as a unit or in an item, and
+    // handed to the bookkeeper; the output block from the last tile
+    const int b = i % kHand;
+    float sums[2];
 #pragma unroll
-        for (int nt = 0; nt < 4; ++nt) {
-          const uint32_t b0 = bf[nt >> 1][(nt & 1) * 2];
-          const uint32_t b1 = bf[nt >> 1][(nt & 1) * 2 + 1];
-          if constexpr (kPasses == 1)
-            mma_bf16(acc[mi][nt], a[mi], b0, b1);
-          else
-            mma_bf16(d[mi][nt], a[mi], b0, b1);
+    for (int h = 0; h < 2; ++h) {
+      float v = 0.f;
+#pragma unroll
+      for (int j = 0; j < kAcc / 2; ++j) v += acc[h * kAcc / 2 + j];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      sums[h] = v;
+    }
+    if (i >= kHand) sm90::mbar_wait(&sums_empty[b], (i / kHand - 1) & 1);
+    if (lane == 0) {
+      red[(b * 2) * 4 + wl] = sums[0];
+      red[(b * 2 + 1) * 4 + wl] = sums[1];
+    }
+    sm90::mbar_arrive(&sums_full[b], lane == 0);
+    if (u.t == tiles - 1) {
+      // d[4 j + 2 h + e]: row 16 wl + lane / 4 + 8 h, column 8 j + 2 (lane
+      // % 4) + e; WP is a multiple of 8, so a pair is in or out whole
+      const int n0 = u.c * kNC + u.h0 * kBox;
+#pragma unroll
+      for (int j = 0; j < kNC / 8; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int m = 16 * wl + (lane >> 2) + 8 * h;
+          const int n = n0 + 8 * j + 2 * (lane & 3);
+          if (j < 8 * u.halves && n < WP)
+            *reinterpret_cast<float2*>(&out[((size_t)u.r * kC + m) * WP + n]) =
+                make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
         }
     }
-    if constexpr (kPasses > 1) {
-      if ((c + 1) % (kChunks / kPasses) == 0) {
-        // the end of a pass: acc = acc + dot_pass, as the TPU kernel adds
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-          for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-              acc[mi][nt][e] += d[mi][nt][e];
-              d[mi][nt][e] = 0.f;
-            }
-      }
-    }
-    if (c != kChunks - 1) continue;
-
-    // the item is done: its partial sum, in a fixed order (lanes past WP
-    // hold 0), and the output block from the last tile
-    const int item = blockIdx.x + (q / kChunks) * gridDim.x;
-    const int t = item / per_tile, p = item % per_tile;
-    const int r = p / nch, n0 = (p % nch) * kNC;
-    float s = 0.f;
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s += acc[mi][nt][e];
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    if (lane == 0) red[warp] = s;
-    if (t == tiles - 1) {
-#pragma unroll
-      for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int m = 32 * wm + 16 * mi + g + (e >> 1) * 8;
-            const int n = n0 + 32 * wn + 8 * nt + 2 * tig + (e & 1);
-            if (n < WP) out[((size_t)r * kC + m) * WP + n] = acc[mi][nt][e];
-          }
-    }
-    __syncthreads();  // red is complete
-    if (tid == 0) {
-      float part = 0.f;
-      for (int i = 0; i < kMmThreads / 32; ++i) part += red[i];
-      partials[(size_t)t * per_tile + p] = part;
-      __threadfence();
-      if (atomicAdd(&counters[t], 1u) == (unsigned)per_tile - 1) {
-        // the tile's last item: its checksum, then the counter back to 0
-        __threadfence();
-        float sum = 0.f;
-        for (int i = 0; i < per_tile; ++i)
-          sum += __ldcg(&partials[(size_t)t * per_tile + i]);
-        checksums[t] = sum;
-        counters[t] = 0u;
-      }
-    }
+    sm90::fence_operand(acc);
   }
-  cp_async_wait<0>();
 }
 
 // --------------------------------------------------------- window probes
@@ -393,34 +516,38 @@ cudaError_t launch_window(const float* src, float* out, int TH, int C, int WP,
 
 }  // namespace
 
-// rhs (TH, 576, WP) bf16, w (64, 576) f32 (16-byte aligned); out (TH, 64,
-// WP) f32 (the last tile's), checksums (tiles,); partials (tiles * TH *
-// ceil(WP / 128)) f32 scratch; counters (tiles,) u32, zero on entry and left
-// zero.
+// rhs (TH, 576, WP) bf16 (16-byte aligned, WP a multiple of 8: TMA's row
+// stride), w (64, 576) f32 (16-byte aligned); out (TH, 64, WP) f32 (the
+// last tile's), checksums (tiles,); partials (tiles * TH * ceil(WP / 128) *
+// 2) f32 scratch; counters (tiles,) u32, zero on entry and left zero.
 extern "C" int fcvsr_mb_mm_stream(const void* rhs, const float* w, float* out,
                                   float* checksums, float* partials,
                                   unsigned* counters, int TH, int WP, int tiles,
-                                  int passes, void* stream) {
-  if (TH < 1 || WP < 3 || tiles < 1 || (passes != 1 && passes != 3) ||
-      reinterpret_cast<uintptr_t>(w) % 16)
+                                  void* stream) {
+  if (TH < 1 || WP < 8 || WP % 8 || tiles < 1 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(rhs) % 16)
     return (int)cudaErrorInvalidValue;
-  auto kernel = passes == 1 ? mm_stream_kernel<1> : mm_stream_kernel<3>;
-  cudaError_t err = passes == 1 ? allow_smem<mm_stream_kernel<1>>(kMmSmem)
-                                : allow_smem<mm_stream_kernel<3>>(kMmSmem);
+  // rhs as a 2-D (TH * 576, WP) array, boxes of 64 rows x 64 lanes; a map
+  // holds the pointer, so each call encodes its own
+  CUtensorMap map;
+  cudaError_t err = sm90::encode_bf16_2d(&map, rhs, (uint64_t)TH * kK, WP, kKC, kBox);
   if (err != cudaSuccess) return (int)err;
+  err = allow_smem<mm_stream_kernel>(kMmSmem);
+  if (err != cudaSuccess) return (int)err;
+  // persistent blocks, one an SM (its shared memory allows no second), no
+  // more than the work items
   int sms = 0, per_sm = 0;
   if ((err = sm_count(&sms)) != cudaSuccess) return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmThreads,
-                                                      kMmSmem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, mm_stream_kernel,
+                                                      kMmThreads, kMmSmem);
   if (err != cudaSuccess) return (int)err;
   if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const long long items = (long long)tiles * TH * ((WP + kNC - 1) / kNC);
+  // (as many as there are halves of items, so that a block has some work)
+  const long long halves = 2LL * tiles * TH * ((WP + kNC - 1) / kNC);
   const long long slots = (long long)sms * per_sm;
-  const int grid = (int)(items < slots ? items : slots);
-  const int vec = WP % 8 == 0 && reinterpret_cast<uintptr_t>(rhs) % 16 == 0;
-  kernel<<<grid, kMmThreads, kMmSmem, (cudaStream_t)stream>>>(
-      static_cast<const __nv_bfloat16*>(rhs), w, out, checksums, partials,
-      counters, TH, WP, tiles, vec);
+  const int grid = (int)(halves < slots ? halves : slots);
+  mm_stream_kernel<<<grid, kMmThreads, kMmSmem, (cudaStream_t)stream>>>(
+      map, w, out, checksums, partials, counters, TH, WP, tiles);
   return (int)cudaGetLastError();
 }
 

@@ -42,29 +42,22 @@
 #include <cstdint>
 
 #include "../common.cuh"
+#include "../hopper.cuh"
 
 namespace {
 
 using fcvsr::allow_smem;
+using fcvsr::sm90::fence_mbar_init;
+using fcvsr::sm90::fence_proxy_async;
+using fcvsr::sm90::mbar_expect_tx;
+using fcvsr::sm90::mbar_init;
+using fcvsr::sm90::mbar_wait;
+using fcvsr::sm90::smem_u32;
 
 constexpr int kDmaThreads = 1024;  // 32 warps to fold; one thread copies
 constexpr int kHeader = 128;  // bytes before the buffers: the mbarriers
 constexpr long long kMaxTx = (1 << 20) - 1;
 constexpr int kFold = 1024;  // bytes a folded word
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void fence_mbar_init() {
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
 
 // one thread: arrive and expect `bytes` of transactions on the phase, then
 // issue the bulk copy that completes them.  The proxy fence orders the
@@ -72,32 +65,13 @@ __device__ __forceinline__ void fence_mbar_init() {
 // barrier) before the copy's writes (async proxy).
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes, uint64_t* bar) {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
+  fence_proxy_async();
+  mbar_expect_tx(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
       "l"(src), "r"(bytes), "r"(smem_u32(bar))
       : "memory");
-}
-
-// wait for the completion of the barrier's phase with this parity
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
 }
 
 // out[i] for the elements i < WP that fall in this block's bytes [lo, lo +

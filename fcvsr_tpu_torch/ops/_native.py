@@ -31,8 +31,9 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["lib", "check", "side_lib", "check_side", "ptr", "require",
-           "records", "on_cpu", "launch_guard", "storage", "BUILD_DIR"]
+__all__ = ["lib", "check", "side_lib", "check_side", "lib_path",
+           "csrc_headers", "ptr", "require", "records", "on_cpu",
+           "launch_guard", "storage", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -103,16 +104,22 @@ def _raise_if_failed(cmd, rc: int, out: str) -> None:
                            f"{' '.join(cmd)}\n{out}")
 
 
-def _build_lib(name: str, sources, build_dir: Path, headers=()):
-    """(path of the shared library ``lib<name>_<hash>.so`` in ``build_dir``,
-    the build's wall seconds or None when it was built already).  The hash
-    covers the flags, ``sources`` and ``headers``; nvcc compiles each source
-    in its own process, all started together, then links the objects."""
+def lib_path(name: str, sources, build_dir: Path, headers=()) -> Path:
+    """``build_dir / lib<name>_<hash>.so``: the hash covers the flags and
+    the names and bytes of ``sources`` and ``headers``, so an edit to any of
+    them names another library."""
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in [*sources, *headers]:
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
-    target = build_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return build_dir / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def _build_lib(name: str, sources, build_dir: Path, headers=()):
+    """(path of the shared library :func:`lib_path` names, the build's wall
+    seconds or None when it was built already).  nvcc compiles each source
+    in its own process, all started together, then links the objects."""
+    target = lib_path(name, sources, build_dir, headers)
     if target.is_file():
         return target, None
     nvcc = _nvcc()
@@ -140,12 +147,16 @@ def _build_lib(name: str, sources, build_dir: Path, headers=()):
 
 def _build() -> Path:
     global build_seconds
-    target, seconds = _build_lib(
-        "fcvsr_kernels", sorted(CSRC.glob("*.cu")), BUILD_DIR,
-        sorted(CSRC.glob("*.cuh")))
+    target, seconds = _build_lib("fcvsr_kernels", sorted(CSRC.glob("*.cu")),
+                                 BUILD_DIR, csrc_headers())
     if seconds is not None:
         build_seconds = seconds
     return target
+
+
+def csrc_headers() -> list:
+    """The headers every library's hash covers: ``csrc/*.cuh``."""
+    return sorted(CSRC.glob("*.cuh"))
 
 
 _side_libs = {}
@@ -153,9 +164,10 @@ _side_libs = {}
 
 def side_lib(name: str, sources, signatures: dict, error_string: str):
     """(a library of its own, its build seconds or None): ``sources`` (and
-    ``csrc/common.cuh``, which they may include) built by :func:`_build_lib`
-    into ``_build/<name>/``, apart from the model's library, so that a fault
-    in one cannot break the other.  ``signatures`` maps each entry point to
+    the headers of ``csrc/``, which they may include: ``common.cuh``,
+    ``hopper.cuh``, ...) built by :func:`_build_lib` into
+    ``_build/<name>/``, apart from the model's library, so that a fault in
+    one cannot break the other.  ``signatures`` maps each entry point to
     its argtypes (each returns a CUDA error code); ``error_string`` names
     the library's ``cudaGetErrorString``, kept as ``lib.error_string``.
     Built once a process; a failed build raises again on every call."""
@@ -163,8 +175,7 @@ def side_lib(name: str, sources, signatures: dict, error_string: str):
         if name not in _side_libs:
             try:
                 path, seconds = _build_lib(name, sorted(sources),
-                                           BUILD_DIR / name,
-                                           [CSRC / "common.cuh"])
+                                           BUILD_DIR / name, csrc_headers())
                 handle = ctypes.CDLL(str(path))
                 for fn, argtypes in signatures.items():
                     getattr(handle, fn).argtypes = argtypes

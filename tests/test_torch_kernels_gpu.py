@@ -782,15 +782,21 @@ def test_kernels_launch_on_the_current_stream(cuda):
 
 
 # K9 and K10, the probes' kernels (csrc/microbench/), against their plain
-# versions: at the probes' real shape and at 3 tiles of 200 lanes, where
-# the mm kernel's last 128-lane chunk and the window kernel's last 16-lane
-# strip are cut.  The mm and window probes sum up to 576 float32 values in
-# another order: 1e-4 of max|plain|; the copies are exact.
+# versions: at the probes' real shape, at 3 tiles of 200 lanes, where the
+# mm kernel's last 128-lane chunk and the window kernel's last 16-lane
+# strip are cut, and at 2 tiles of 3 rows and 136 lanes, where the mm
+# kernel's last chunk holds 8 lanes (its second TMA box lies wholly past
+# WP) and a tile is short of rows: a wrong wgmma descriptor offset or
+# accumulator layout shows there.  The mm and window probes sum up to 576
+# float32 values in another order: 1e-4 of max|plain|; the copies are
+# exact.
 MB_SHAPES = [dict(th=16, c=64, wp=512, tiles=17),
-             dict(th=16, c=64, wp=200, tiles=3)]
+             dict(th=16, c=64, wp=200, tiles=3),
+             dict(th=3, c=64, wp=136, tiles=2)]
+MB_IDS = ["real", "odd", "short"]
 
 
-@pytest.mark.parametrize("shape", MB_SHAPES, ids=["real", "odd"])
+@pytest.mark.parametrize("shape", MB_SHAPES, ids=MB_IDS)
 @pytest.mark.parametrize("probe", ["mm_stream", "mm_stream3"])
 def test_mm_probe_kernel_matches_plain(cuda, probe, shape):
     """Twice: each call's checksums come out the same, bit for bit."""
@@ -804,7 +810,7 @@ def test_mm_probe_kernel_matches_plain(cuda, probe, shape):
     assert fn.launches == n0 + 2
     ref, ref_sums = getattr(conv2, probe + "_plain")(rhs, w, shape["tiles"])
     torch.cuda.synchronize()
-    assert out.shape == ref.shape == (16, 64, shape["wp"])
+    assert out.shape == ref.shape == (shape["th"], 64, shape["wp"])
     assert float((out - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
     assert torch.isfinite(sums).all() and torch.equal(sums, sums[:1].expand(
         shape["tiles"]))
@@ -813,7 +819,7 @@ def test_mm_probe_kernel_matches_plain(cuda, probe, shape):
     assert float((sums.double() - ref_sums.double()).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("shape", MB_SHAPES, ids=["real", "odd"])
+@pytest.mark.parametrize("shape", MB_SHAPES, ids=MB_IDS)
 @pytest.mark.parametrize("probe", ["im2col", "dma_window"])
 def test_window_probe_kernel_matches_plain(cuda, probe, shape):
     from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
@@ -830,7 +836,7 @@ def test_window_probe_kernel_matches_plain(cuda, probe, shape):
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("shape", MB_SHAPES, ids=["real", "odd"])
+@pytest.mark.parametrize("shape", MB_SHAPES, ids=MB_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("probe", ["dma_one_shot", "dma_serial", "dma_dbuf"])
 def test_copy_probe_kernel_matches_plain(cuda, probe, dtype, shape):
@@ -850,9 +856,10 @@ def test_copy_probe_kernel_matches_plain(cuda, probe, dtype, shape):
 
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
-    """C other than 64 for the mm kernel (the wrapper), a window larger
-    than a block's shared memory and rows that are not a multiple of 16
-    bytes for the bulk copies (the launch refuses them)."""
+    """C other than 64 and WP not a multiple of 8 (TMA's 16-byte row
+    stride) for the mm kernel (the wrapper), a window larger than a block's
+    shared memory and rows that are not a multiple of 16 bytes for the bulk
+    copies (the launch refuses them)."""
     from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
     from fcvsr_tpu_torch.benchmarks import microbench_dma as dma
 
@@ -860,6 +867,12 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         0, th=4, c=8, wp=128, tiles=3))
     with pytest.raises(ValueError, match="C = 64"):
         conv2.mm_stream(rhs, w, 3)
+    rhs, w, _ = (t.to(cuda) for t in conv2.seeded_operands(
+        0, th=2, c=64, wp=130, tiles=1))
+    n0 = conv2.mm_stream3.launches
+    with pytest.raises(ValueError, match="multiple of 8"):
+        conv2.mm_stream3(rhs, w, 1)
+    assert conv2.mm_stream3.launches == n0
     with pytest.raises(RuntimeError, match="invalid argument"):
         conv2.im2col(torch.zeros(1, 130, 256, 16, device=cuda), 128)
     with pytest.raises(RuntimeError, match="invalid argument"):

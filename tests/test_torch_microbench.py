@@ -327,3 +327,96 @@ def test_side_lib_without_nvcc_raises_and_builds_nothing(monkeypatch):
                              "fcvsr_mb_error_string")
     assert not (_native.BUILD_DIR / name).exists()
     assert [p.name for p in common.SOURCES] == ["conv2.cu", "dma.cu"]
+
+
+def test_side_libs_hash_every_csrc_header(tmp_path, monkeypatch):
+    """The probes' library is named by a hash of its sources and of every
+    header in csrc/ (hopper.cuh, which the mm kernel includes, among them),
+    so an edit to a header builds another library; without nvcc the build
+    raises before it writes anything."""
+    assert _native.CSRC / "hopper.cuh" in _native.csrc_headers()
+    assert _native.CSRC / "common.cuh" in _native.csrc_headers()
+    seen = {}
+
+    def fake_build(name, sources, build_dir, headers=()):
+        seen.update(name=name, headers=list(headers))
+        raise RuntimeError("recorded")
+
+    monkeypatch.setattr(_native, "_build_lib", fake_build)
+    monkeypatch.setattr(_native, "_side_libs", {})
+    with pytest.raises(RuntimeError, match="recorded"):
+        _native.side_lib("microbench_hash", common.SOURCES,
+                         common.SIGNATURES, "fcvsr_mb_error_string")
+    assert seen == dict(name="microbench_hash",
+                        headers=_native.csrc_headers())
+    src, hdr = tmp_path / "k.cu", tmp_path / "h.cuh"
+    src.write_text("kernel")
+    hdr.write_text("one")
+    first = _native.lib_path("k", [src], tmp_path, [hdr])
+    assert first.parent == tmp_path and first.name.startswith("libk_")
+    assert _native.lib_path("k", [src], tmp_path, [hdr]) == first
+    assert _native.lib_path("k", [src], tmp_path) != first
+    hdr.write_text("two")
+    assert _native.lib_path("k", [src], tmp_path, [hdr]) != first
+
+
+def test_mm_l2_bytes_at_the_real_shape():
+    """Every tile streams its 9.4 MB rhs anew (17 tiles: 160 MB), and each
+    persistent block reads the float32 w (147 KB) once."""
+    assert conv2.mm_l2_bytes() == (17 * 9_437_184, 0)
+    assert conv2.mm_l2_bytes(blocks=132)[1] == 132 * 147_456
+
+
+def test_mm_sass_counts_the_mm_kernels_instructions(tmp_path, monkeypatch):
+    """cuobjdump's SASS split by function: only the mm kernel is kept,
+    with its wgmma (HGMMA), TMA (UTMALDG), mma.sync (HMMA) and ldmatrix
+    (LDSM) instructions counted."""
+    sass = "\n".join([
+        "\tcode for sm_90a",
+        "\t\tFunction : _ZN12_GLOBAL__N_116mm_stream_kernelE14CUtensorMap_st",
+        "  /*0450*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;",
+        "  /*0460*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;",
+        "  /*0470*/  UTMALDG.2D [UR8], [UR4] ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_113window_kernelILb1EEEvPKfPfiiii",
+        "  /*0450*/  HMMA.16816.F32.BF16 R24, R4, R8, R24 ;",
+        "  /*0460*/  LDSM.16.M88.4 R4, [R2] ;"])
+    tool = tmp_path / "cuobjdump"
+    tool.write_text("")
+    monkeypatch.setattr(conv2.shutil, "which", lambda name: str(tool))
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        return type("Done", (), {"stdout": sass})()
+
+    monkeypatch.setattr(conv2.subprocess, "run", fake_run)
+    assert conv2.mm_sass("lib.so") == {"mm_stream_kernel": dict(
+        HGMMA=2, UTMALDG=1, HMMA=0, LDSM=0)}
+    assert calls == [[str(tool), "-sass", "lib.so"]]
+
+
+def test_mm_ab_edits_the_kernel_sources_or_refuses():
+    """The A/B's variants are the tree's conv2.cu and hopper.cuh with text
+    replaced; an edit that matches nothing raises rather than timing the
+    unedited kernel under another name."""
+    from fcvsr_tpu_torch.benchmarks import microbench_mm_ab as ab
+
+    src, hopper = ab.edited_sources([])
+    assert "constexpr int kStages = 4;" in src and "mbar_wait" in hopper
+    src2, hopper2 = ab.edited_sources([
+        ["constexpr int kStages = 4;", "constexpr int kStages = 2;"],
+        ["hopper.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
+         "CU_TENSOR_MAP_L2_PROMOTION_NONE"]])
+    assert "constexpr int kStages = 2;" in src2 and "kStages = 4;" not in src2
+    assert "L2_PROMOTION_NONE" in hopper2 and "L2_256B" not in hopper2
+    with pytest.raises(ValueError, match="has no"):
+        ab.edited_sources([["no such text", "x"]])
+
+
+def test_mm_ab_refuses_without_cuda():
+    from fcvsr_tpu_torch.benchmarks import microbench_mm_ab as ab
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="cuda"):
+        ab.main(['{"base": []}'])
