@@ -10,14 +10,19 @@ Phases, one line or more each:
      and checked), its JSON printed;
   1. device and build: the card's name and power limit (nvidia-smi), torch
      and CUDA versions, the nvcc build of ``fcvsr_tpu_torch/csrc`` (one nvcc
-     a source, in parallel);
+     a source, in parallel); the SASS of the conv pair's kernel (K2,
+     ``cuobjdump -sass`` of the library) must hold wgmma (HGMMA) and no
+     FFMA main loop;
   2. every kernel of the serving and training paths against its plain
      PyTorch version on the card, at the shapes FCVSR and the zoo give it,
      with the max abs error against the stated tolerance, both CUDA-event
      times (median of 7 after 2 warm-ups, the versions timed in turns) and
      the least time the card could take: the IAC iteration (K1) and the
      conv kernels (K2, K3) at the serving shape, in float32 and bf16
-     storage; the resident IAC chain (K4) at 272x480x64, 6 iterations, B 1
+     storage, K2 at SCNet's three levels (both pair shapes, each timed,
+     its bound, the function's flops at the bf16 tensor-core rate,
+     beside the float32 pipes', its route's passes' and, for float32
+     maps, 3xTF32's); the resident IAC chain (K4) at 272x480x64, 6 iterations, B 1
      and 2, float32 and bf16, also against 6 K1 launches; the BlockRCB quad
      (K6) at SCNet's three levels, float32 and bf16, also against 2 K2
      launches; the IAC adjoint (K5) at the training shape and at small odd
@@ -27,7 +32,9 @@ Phases, one line or more each:
      training shapes (each gradient's error over its max), the BlockRCB
      level (K11) at 272x480x64 with C1 64 and 128, at SCNet's levels 2 and 3
      and at B 2, beside the unfused path (2 K2 launches and the
-     ContextBlock), the probe kernel (K12), and the conv autograd
+     ContextBlock), the probe kernel (K12; also warm, 200 launches an
+     event pair beside ``torch.mul``, in turns,
+     ``benchmarks/launch_path.py``), and the conv autograd
      Functions' gradients at the three SCNet levels;
   3. model parity, seeded weights, the GPU (kernels) against the same model
      on the CPU (plain versions): FCVSR full, Y, the output at
@@ -229,6 +236,10 @@ AB_RTOL = 2e-2
 # K9 against its plain versions: float32 sums of up to 576 bf16 values
 # (exact products in the mm probes) taken in another order
 MB_RTOL = 1e-4
+# K2's kernel issues wgmma (HGMMA in SASS); its float32 work outside them
+# is the epilogue's bias, activation and splits (FADD, FMUL).  The FMA
+# kernel it replaced ran its main loop as FFMA on register tiles
+PAIR_SASS_FFMA_MAX = 32
 # K11's mean abs error against its plain version, relative to max|plain|, as
 # tests/test_torch_blockrcb.py holds the plain version to JAX: the bf16 bar
 # above allows a flipped rounding here and there, not a shifted map
@@ -265,7 +276,8 @@ def mixed_flows(rng, b, h, w, c=2):
 def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
-    from fcvsr_tpu_torch.profiling import BF16_FLOP_S, bound, cuda_ms
+    from fcvsr_tpu_torch.profiling import (BF16_FLOP_S, TF32_FLOP_S, bound,
+                                           cuda_ms)
     from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac
     from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
 
@@ -277,12 +289,13 @@ def phase_kernels(torch, dev):
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def check(name, label, kern, plain, rtol, work=None, library=None,
-              yardstick=None, mean_rtol=None, beside=None):
+              yardstick=None, mean_rtol=None, beside=None, notes=None):
         """Kernel against plain version; a tuple of outputs is checked one
         by one (in float32, whatever the storage).  ``work`` = (bytes,
         flops[, flop/s]) marks a timed case, with its bound at that rate
         (default the float32 pipes'); the first such case of a kernel goes
-        into the result line.  ``yardstick`` = (label, fn[, rtol]): the
+        into the result line.  ``notes``: more items for the case's line.
+        ``yardstick`` = (label, fn[, rtol]): the
         same function by other kernels, checked at its own rtol (default
         ``rtol``) and timed beside.  ``mean_rtol`` also holds the kernel's
         mean abs error to that share of max|plain|.  ``library`` is one
@@ -331,6 +344,7 @@ def phase_kernels(torch, dev):
                 line["beside"] = beside[0]
             if len(work) > 2:
                 line["f32_pipes_bound_ms"] = bound(*work[:2])[0]
+            line.update(notes or {})
             if "ms" not in results[name]:
                 results[name].update((k, line[k]) for k in (
                     "ms", "plain_ms", "bound_ms", "bound_by", "library_ms"))
@@ -385,6 +399,21 @@ def phase_kernels(torch, dev):
         y = fused_conv.conv3x3_pair(xs, *quad[:4], 0.1)
         return y, fused_conv.conv3x3_pair(y, *quad[4:], 0.2)
 
+    def pair_work(px, *chans, storage=4):
+        """K2's work: the function's flops at the bf16 tensor cores' rate
+        (its products' rate) with the float32 pipes' bound beside; notes:
+        the route's passes (3 bf16 products a multiply-add for float32
+        maps, 2 for bf16) at that rate, and for float32 maps 3xTF32's."""
+        nbytes, flops = conv_work(px, *chans, storage=storage)
+        passes = 3 if storage == 4 else 2
+        notes = {"route": "bf16x3" if storage == 4 else "bf16 x (w_hi + w_lo)",
+                 "route_passes": passes,
+                 "route_passes_bound_ms": bound(nbytes, passes * flops,
+                                                BF16_FLOP_S)[0]}
+        if storage == 4:
+            notes["tf32x3_bound_ms"] = bound(nbytes, 3 * flops, TF32_FLOP_S)[0]
+        return (nbytes, flops, BF16_FLOP_S), notes
+
     for (h, w) in ((272, 480), (136, 240), (68, 120)):
         px = h * w
         x = t(rng.standard_normal((1, h, w, 64)))
@@ -392,17 +421,19 @@ def phase_kernels(torch, dev):
         b1 = t(rng.standard_normal(128) * 0.1)
         w2 = t(rng.standard_normal((3, 3, 128, 64)) * 0.03)
         b2 = t(rng.standard_normal(64) * 0.1)
+        work, notes = pair_work(px, 64, 128, 64)
         check("conv3x3_pair", f"64->128->64 bias ns0.1 {h}x{w}",
               lambda: fused_conv.conv3x3_pair(x, w1, b1, w2, b2, 0.1),
               lambda: fused_conv.conv3x3_pair_plain(x, w1, b1, w2, b2, 0.1),
-              CONV_RTOL, work=conv_work(px, 64, 128, 64) if h == 272 else None)
+              CONV_RTOL, work=work, notes=notes)
         r1 = t(rng.standard_normal((3, 3, 64, 64)) * 0.04)
         r2 = t(rng.standard_normal((3, 3, 64, 64)) * 0.04)
+        work, notes = pair_work(px, 64, 64, 64)
         check("conv3x3_pair", f"64->64->64 nobias ns0.2 {h}x{w}",
               lambda: fused_conv.conv3x3_pair(x, r1, None, r2, None, 0.2),
               lambda: fused_conv.conv3x3_pair_plain(x, r1, None, r2, None,
                                                     0.2),
-              CONV_RTOL, work=conv_work(px, 64, 64, 64) if h == 272 else None)
+              CONV_RTOL, work=work, notes=notes)
         res = t(rng.standard_normal((1, h, w, 64)))
         rw = conv_work(px, 64, 64)
         # no single call adds the residual: one cuDNN conv with bias is
@@ -418,11 +449,17 @@ def phase_kernels(torch, dev):
                                        padding=1)))
         # bf16 storage (float32 weights): 2-byte maps
         xb, resb = x.bfloat16(), res.bfloat16()
-        cw = conv_work(px, 64, 128, 64, storage=2)
+        work, notes = pair_work(px, 64, 128, 64, storage=2)
         check("conv3x3_pair", f"bf16 64->128->64 bias ns0.1 {h}x{w}",
               lambda: fused_conv.conv3x3_pair(xb, w1, b1, w2, b2, 0.1),
               lambda: fused_conv.conv3x3_pair_plain(xb, w1, b1, w2, b2, 0.1),
-              BF16_RTOL, work=cw if h == 272 else None)
+              BF16_RTOL, work=work, notes=notes)
+        work, notes = pair_work(px, 64, 64, 64, storage=2)
+        check("conv3x3_pair", f"bf16 64->64->64 nobias ns0.2 {h}x{w}",
+              lambda: fused_conv.conv3x3_pair(xb, r1, None, r2, None, 0.2),
+              lambda: fused_conv.conv3x3_pair_plain(xb, r1, None, r2, None,
+                                                    0.2),
+              BF16_RTOL, work=work, notes=notes)
         rw = conv_work(px, 64, 64, storage=2)
         check("conv3x3", f"bf16 64->64 +res {h}x{w}",
               lambda: fused_conv.conv3x3(xb, r1, b2, res=resb),
@@ -524,6 +561,11 @@ def phase_kernels(torch, dev):
           lambda: gpu_probe.scale2_plain(x), 0.0,
           work=(2 * 4 * x.numel(), x.numel()),
           library=lambda: torch.mul(x, 2.0))
+    # and warm: 200 launches between one event pair, beside torch.mul, in
+    # turns, with the cold figures (benchmarks/launch_path.py)
+    from fcvsr_tpu_torch.benchmarks import launch_path
+
+    say("k12_launch_path", **launch_path.measure())
 
     x = t(rng.uniform(-1, 1, (1, 1088, 1920, 64)))
     wl = t(rng.standard_normal((3, 3, 64, 1)) * 0.04)
@@ -1427,6 +1469,15 @@ def main() -> None:
         count=torch.cuda.device_count(), torch=torch.__version__,
         cuda=torch.version.cuda, python=sys.version.split()[0],
         build_s=_native.build_seconds, load_s=time.perf_counter() - t0)
+
+    sass = _native.sass_ops(_native.lib()._name, "conv3x3_pair_kernel",
+                            ("HGMMA", "FFMA", "HMMA"))
+    say("pair_sass", kernels=sass,
+        note=None if sass is not None else "no cuobjdump in the toolkit")
+    if not sass or any(not ops["HGMMA"] or ops["FFMA"] > PAIR_SASS_FFMA_MAX
+                       for ops in sass.values()):
+        fail(f"conv3x3_pair_kernel's SASS: {sass}, expected HGMMA and at "
+             f"most {PAIR_SASS_FFMA_MAX} FFMA in each")
 
     results = phase_kernels(torch, dev)
     torch.cuda.empty_cache()

@@ -73,11 +73,7 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
-import re
-import shutil
 import statistics
-import subprocess
 
 import numpy as np
 import torch
@@ -325,23 +321,10 @@ def mm_sass(path=None):
     (``path``, or the one :func:`microbench_common.lib` builds): HGMMA is
     wgmma, UTMALDG a TMA tensor load, HMMA mma.sync and LDSM ldmatrix.
     None when the toolkit has no cuobjdump."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.isfile(tool):
-        return None
-    sass = subprocess.run([tool, "-sass", path or common.lib()._name],
-                          capture_output=True, text=True, check=True).stdout
-    counts, kernel = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            kernel = "mm_stream_kernel" if "mm_stream_kernel" in line \
-                else None
-            if kernel:
-                counts[kernel] = dict.fromkeys(SASS_OPS, 0)
-        elif kernel:
-            for op in SASS_OPS:
-                if re.search(rf"\b{op}\b", line):
-                    counts[kernel][op] += 1
-    return counts
+    counts = _native.sass_ops(path or common.lib()._name, "mm_stream_kernel",
+                              SASS_OPS)
+    return None if counts is None else {
+        "mm_stream_kernel": ops for ops in counts.values()}
 
 
 def dma_window_library(src, th: int = TH):

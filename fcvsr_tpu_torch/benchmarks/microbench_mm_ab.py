@@ -8,7 +8,8 @@ against edited copies of itself, on the card.
 A variant is the tree's ``conv2.cu`` with each ``old`` text replaced by
 ``new``; an edit ``["hopper.cuh", old, new]`` edits ``csrc/hopper.cuh``
 instead.  An edit whose ``old`` text is missing raises.  nvcc builds every
-variant at once into a library of its own under ``_build/mm_ab/<name>/``.
+variant at once into a library of its own under ``_build/mm_ab/<name>/``
+(``_native.build_variants``).
 Each is held to the plain version at the probes' real shape (the max
 deviation over max|plain|, and whether every tile's checksum is the same),
 then timed warm (``microbench_common.warm_ms``) in 4 rounds, the variants
@@ -23,11 +24,8 @@ follows the bytes.  A CUDA device is needed.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import json
-import shutil
 import statistics
-import subprocess
 
 import torch
 
@@ -36,54 +34,19 @@ from ..profiling import card, need_device
 from . import microbench_common as common
 from . import microbench_conv2 as conv2
 
-__all__ = ["edited_sources", "main"]
+__all__ = ["SOURCE", "main"]
 
 ROUNDS = 4
-
-
-def edited_sources(edits) -> tuple:
-    """(conv2.cu, hopper.cuh) as texts with ``edits`` applied; an edit whose
-    old text is missing raises ValueError."""
-    texts = {name: (_native.CSRC / path).read_text() for name, path in (
-        ("conv2.cu", "microbench/conv2.cu"), ("hopper.cuh", "hopper.cuh"))}
-    for edit in edits:
-        name, old, new = edit if len(edit) == 3 else ("conv2.cu", *edit)
-        if old not in texts[name]:
-            raise ValueError(f"{name} has no {old!r}")
-        texts[name] = texts[name].replace(old, new)
-    return texts["conv2.cu"], texts["hopper.cuh"]
+SOURCE = "microbench/conv2.cu"
 
 
 def _build(variants: dict) -> dict:
-    """{name: library}: each variant's tree under _build/mm_ab/<name>/ (the
-    headers of csrc/, the edited hopper.cuh, microbench/conv2.cu), built by
-    nvcc, all at once; a failed build raises with nvcc's output."""
-    jobs = {}
-    for name, edits in variants.items():
-        src, hopper = edited_sources(edits)
-        root = _native.BUILD_DIR / "mm_ab" / name
-        (root / "microbench").mkdir(parents=True, exist_ok=True)
-        for header in _native.csrc_headers():
-            shutil.copy(header, root / header.name)
-        (root / "hopper.cuh").write_text(hopper)
-        (root / "microbench" / "conv2.cu").write_text(src)
-        lib = root / "lib.so"
-        cmd = [_native._nvcc(), *_native.NVCC_FLAGS, "-shared",
-               str(root / "microbench" / "conv2.cu"), "-o", str(lib)]
-        jobs[name] = (lib, cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (lib, cmd, proc) in jobs.items():
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n"
-                               f"{' '.join(cmd)}\n{out}")
-        handle = ctypes.CDLL(str(lib))
-        fn = handle.fcvsr_mb_mm_stream
-        fn.argtypes = common.SIGNATURES["fcvsr_mb_mm_stream"]
-        fn.restype = ctypes.c_int
-        libs[name] = fn
-    return libs
+    """{name: the variant's fcvsr_mb_mm_stream}, built under
+    _build/mm_ab/<name>/ by ``_native.build_variants``."""
+    built = _native.build_variants(
+        "mm_ab", SOURCE, variants, "fcvsr_mb_mm_stream",
+        common.SIGNATURES["fcvsr_mb_mm_stream"])
+    return {name: fn for name, (fn, _) in built.items()}
 
 
 def _runner(fn, rhs, w, tiles: int):

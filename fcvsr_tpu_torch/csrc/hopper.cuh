@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks, written as PTX: mbarriers, TMA tensor
-// loads on a tensor map, the wgmma shared-memory descriptor and the bf16
+// loads on a tensor map, the wgmma shared-memory descriptors and the bf16
 // warpgroup MMA with float32 sums.  Used by the rows-conv probes' GEMM
-// stream (K9, csrc/microbench/conv2.cu), the main loop that K2's
-// implicit-GEMM conv is to reuse.
+// stream (K9, csrc/microbench/conv2.cu) and by the SCNet conv pair (K2,
+// csrc/conv3x3.cu), whose operands are in the no-swizzle layout below.
 //
 // Layouts.  Every operand tile in shared memory is in the 128-byte swizzle
 // that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and a wgmma descriptor of
@@ -16,6 +16,15 @@
 //   MN-major (B: rows k, n contiguous, read through the transpose bit): a
 //     row holds 64 bf16 n values; the atoms of 8 k rows lie SBO bytes
 //     apart and the 64-wide n blocks LBO bytes apart.
+//
+// The no-swizzle (interleaved) layout, descriptor layout type 0, is built
+// of core matrices of 8 rows x 16 bytes (8 bf16 k values), each 128
+// contiguous bytes, row r at 16 r.  K-major, which both operands of K2 use
+// (trans-a = trans-b = 0): LBO is the byte distance between the two core
+// matrices of a k16 slice (k 0-7 and 8-15), SBO the distance between core
+// matrices 8 rows apart in M (or N).  Any 16-byte aligned start address
+// works, so an operand can begin at any row of a stored tile: K2's shifted
+// windows are the same tile read 16 bytes (one pixel) further on.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only, no libcuda link
@@ -125,6 +134,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo,
          ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
 }
 
+// A descriptor of the no-swizzle layout at shared-memory address `addr`
+// (16-byte aligned), LBO and SBO in bytes: layout type 0, base offset 0.
+__device__ __forceinline__ uint64_t desc_interleave(uint32_t addr, uint32_t lbo,
+                                                    uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) |
+         ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -148,17 +166,35 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
 }
 
 // d (64 x N, float32) = A (64 x 16 bf16, K-major, descriptor a) x B (16 x
-// N bf16, MN-major, descriptor b, read through the transpose bit) + (scale_d
-// ? d : 0), N 64 or 128, in d[0 : N / 2] of a thread's registers.  The fragment of thread t =
-// 32 w + l of the warpgroup: d[4 j + e] holds row 16 w + l / 4 + 8 (e / 2),
-// column 8 j + 2 (l % 4) + e % 2, so an N 64 product fills what the first
-// 64 columns of an N 128 one would.
-template <int N, int R>
+// N bf16, descriptor b) + (scale_d ? d : 0), N 32, 64 or 128, in d[0 : N /
+// 2] of a thread's registers.  B is MN-major, read through the transpose
+// bit (TB 1, the mm probes'), or K-major (TB 0: each of the N rows holds its
+// 16 k values, K2's).  The fragment of thread t = 32 w + l of the
+// warpgroup: d[4 j + e] holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2
+// (l % 4) + e % 2, so an N 64 product fills what the first 64 columns of
+// an N 128 one would.
+template <int N, int TB = 1, int R>
 __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
                                                   uint64_t b, int scale_d) {
-  static_assert(N == 64 || N == 128, "wgmma m64nNk16: N 64 or 128 here");
+  static_assert(N == 32 || N == 64 || N == 128, "wgmma m64nNk16: N 32, 64 or 128 here");
+  static_assert(TB == 0 || TB == 1, "B K-major (0) or MN-major (1)");
   static_assert(R >= N / 2, "the fragment is d[0 : N / 2]");
-  if constexpr (N == 64) {
+  if constexpr (N == 32) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "setp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{ %0, %1, %2, %3, %4, %5, %6, %7,"
+        " %8, %9, %10, %11, %12, %13, %14, %15},"
+        " %16, %17, p, 1, 1, 0, %19;\n"
+        "}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+          "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+          "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+  } else if constexpr (N == 64) {
     asm volatile(
         "{\n"
         ".reg .pred p;\n"
@@ -168,7 +204,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
         " %8, %9, %10, %11, %12, %13, %14, %15,"
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, p, 1, 1, 0, 1;\n"
+        " %32, %33, p, 1, 1, 0, %35;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -178,7 +214,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   } else {
     asm volatile(
         "{\n"
@@ -193,7 +229,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
         " %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55,"
         " %56, %57, %58, %59, %60, %61, %62, %63},"
-        " %64, %65, p, 1, 1, 0, 1;\n"
+        " %64, %65, p, 1, 1, 0, %67;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -211,7 +247,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
   }
 }
 

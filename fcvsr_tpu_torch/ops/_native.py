@@ -18,10 +18,10 @@ There is no fallback: without ``nvcc`` or a CUDA device, :func:`lib` raises.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -32,8 +32,9 @@ from pathlib import Path
 import torch
 
 __all__ = ["lib", "check", "side_lib", "check_side", "lib_path",
-           "csrc_headers", "ptr", "require", "records", "on_cpu",
-           "launch_guard", "storage", "BUILD_DIR"]
+           "csrc_headers", "ptr", "require", "records", "on_cpu", "sass_ops",
+           "edited_sources", "build_variants", "launch_guard", "storage",
+           "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -170,7 +171,17 @@ def side_lib(name: str, sources, signatures: dict, error_string: str):
     one cannot break the other.  ``signatures`` maps each entry point to
     its argtypes (each returns a CUDA error code); ``error_string`` names
     the library's ``cudaGetErrorString``, kept as ``lib.error_string``.
-    Built once a process; a failed build raises again on every call."""
+    Built once a process; a failed build raises again on every call.  A
+    built library is served without the lock."""
+    got = _side_libs.get(name)
+    if got is None:
+        got = _load_side(name, sources, signatures, error_string)
+    if isinstance(got, Exception):
+        raise got
+    return got
+
+
+def _load_side(name, sources, signatures, error_string):
     with _lock:
         if name not in _side_libs:
             try:
@@ -186,10 +197,57 @@ def side_lib(name: str, sources, signatures: dict, error_string: str):
                 _side_libs[name] = (handle, seconds)
             except (RuntimeError, OSError) as err:
                 _side_libs[name] = err
-        got = _side_libs[name]
-        if isinstance(got, Exception):
-            raise got
-        return got
+        return _side_libs[name]
+
+
+def edited_sources(source: str, edits) -> dict:
+    """{path under csrc/: text} of ``source`` (a path under ``csrc/``) and
+    every ``csrc/*.cuh`` with ``edits`` applied: ``[old, new]`` replaces
+    text of ``source``, ``[file, old, new]`` of that file; an edit whose old
+    text is missing raises ValueError.  ``edits`` given as a directory's
+    path takes the files it has (another version of the kernel) in place
+    of the tree's."""
+    names = [source, *(h.name for h in csrc_headers())]
+    if isinstance(edits, str):
+        root = Path(edits)
+        return {n: ((root / n) if (root / n).is_file() else CSRC / n)
+                .read_text() for n in names}
+    texts = {n: (CSRC / n).read_text() for n in names}
+    for edit in edits:
+        name, old, new = edit if len(edit) == 3 else (source, *edit)
+        if old not in texts[name]:
+            raise ValueError(f"{name} has no {old!r}")
+        texts[name] = texts[name].replace(old, new)
+    return texts
+
+
+def build_variants(tool: str, source: str, variants: dict, entry: str,
+                   argtypes, flags=()) -> dict:
+    """{name: (``entry`` of the variant's library, nvcc's output)}: each
+    variant (``name: edits``, see :func:`edited_sources`) written to
+    ``_build/<tool>/<name>/`` and built alone by nvcc (``flags`` added),
+    all at once, for the A/B scripts of ``benchmarks/``.  A failed build
+    raises with nvcc's output."""
+    jobs = {}
+    for name, edits in variants.items():
+        root = BUILD_DIR / tool / name
+        shutil.rmtree(root, ignore_errors=True)
+        for fname, text in edited_sources(source, edits).items():
+            (root / fname).parent.mkdir(parents=True, exist_ok=True)
+            (root / fname).write_text(text)
+        lib = root / "lib.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, *flags, "-shared", str(root / source),
+               "-o", str(lib)]
+        jobs[name] = (lib, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for name, (lib, cmd, proc) in jobs.items():
+        out = proc.communicate()[0]
+        _raise_if_failed(cmd, proc.returncode, out)
+        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        built[name] = (fn, out)
+    return built
 
 
 def check_side(lib, rc: int, what: str) -> None:
@@ -201,7 +259,15 @@ def check_side(lib, rc: int, what: str) -> None:
 
 
 def lib() -> ctypes.CDLL:
-    """The kernel library, built on first call."""
+    """The kernel library, built on first call; once loaded, served without
+    the lock (every launch asks for it)."""
+    handle = _lib
+    if handle is not None:
+        return handle
+    return _load()
+
+
+def _load() -> ctypes.CDLL:
     global _lib, _build_error
     with _lock:
         if _lib is None:
@@ -227,6 +293,33 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
+def sass_ops(path, kernel: str, ops) -> dict | None:
+    """{function: {op: count}} for every function whose (mangled) name
+    holds ``kernel`` in ``cuobjdump -sass`` of the library at ``path``: the
+    lines that hold each SASS op of ``ops`` (HGMMA is wgmma, UTMALDG a TMA
+    tensor load, HMMA mma.sync, LDSM ldmatrix, FFMA a float32 FMA).  None
+    when the toolkit has no cuobjdump."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    tool = shutil.which("cuobjdump") or str(Path(home) / "bin" / "cuobjdump")
+    if not os.path.isfile(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            name = name if kernel in name else None
+            if name:
+                counts[name] = dict.fromkeys(ops, 0)
+        elif name:
+            for op in ops:
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if rc != 0:
@@ -235,14 +328,30 @@ def check(rc: int, what: str) -> None:
                            f"CUDA error {rc} ({msg})")
 
 
-@contextlib.contextmanager
-def launch_guard(t):
-    """Make ``t``'s device the current one for a launch and give its current
-    stream (a handle for the C side).  The C side launches on the current
-    device and asks it for its attributes (shared memory, occupancy), so a
-    launch outside this guard would run on another card than its tensors."""
-    with torch.cuda.device(t.device):
-        yield torch.cuda.current_stream(t.device).cuda_stream
+class launch_guard:
+    """``with launch_guard(t) as stream``: ``t``'s device is the current one
+    for the launch, and ``stream`` its current stream (a handle for the C
+    side).  The C side launches on the current device and asks it for its
+    attributes (shared memory, occupancy), so a launch outside this guard
+    would run on another card than its tensors.  The device is switched,
+    and switched back, only when another one is current: each wrapper
+    enters the guard on every launch."""
+
+    __slots__ = ("_index", "_prev")
+
+    def __init__(self, t):
+        self._index = t.device.index
+
+    def __enter__(self) -> int:
+        prev = torch.cuda.current_device()
+        self._prev = None if prev == self._index else prev
+        if self._prev is not None:
+            torch.cuda.set_device(self._index)
+        return torch.cuda.current_stream(self._index).cuda_stream
+
+    def __exit__(self, *exc) -> None:
+        if self._prev is not None:
+            torch.cuda.set_device(self._prev)
 
 
 def ptr(t) -> int | None:

@@ -13,9 +13,12 @@ it runs the plain version, under ordinary autograd.  ``conv3x3.launches``,
 launches.
 
 Storage: the maps (x, res, the outputs, and the pair's intermediate) are
-float32 or bfloat16, weights and biases float32.  The kernels compute in
-float32 and round where they store; the plain versions compute in float32
-and round at the same handoffs: the pair's intermediate and each output.
+float32 or bfloat16, weights and biases float32.  The conv and quad kernels
+compute in float32; the pair's kernel multiplies on the tensor cores, in
+bf16 parts with float32 sums, within 3 x 2^-16 of each product
+(:func:`conv3x3_pair_emulated`).  All round where they store; the plain
+versions compute in float32 and round at the same handoffs: the pair's
+intermediate and each output.
 bf16 and :func:`conv3x3_quad` are serving options: under autograd the
 wrappers take float32 only and the quad raises.
 
@@ -37,6 +40,7 @@ from . import _native
 
 __all__ = ["conv3x3", "conv3x3_pair", "conv3x3_quad", "conv3x3_plain",
            "conv3x3_pair_plain", "conv3x3_quad_plain", "prep_weight",
+           "conv3x3_pair_emulated", "PAIR_ROUTES", "PAIR_MAX_CHANNELS",
            "Conv3x3Fn", "Conv3x3PairFn"]
 
 
@@ -65,6 +69,55 @@ def conv3x3_pair_plain(x, w1, b1, w2, b2, ns1: float = 0.2):
     both convs; the intermediate and the output in x's storage type."""
     mid = F.leaky_relu(_conv_plain(x.float(), w1, b1), ns1).to(x.dtype)
     return _conv_plain(mid.float(), w2, b2).to(x.dtype)
+
+
+def _round_bits(t, drop: int):
+    """float32 ``t`` rounded to nearest even with its low ``drop`` mantissa
+    bits cleared, on the bits: 16 gives bf16's 8 significant bits, 13
+    TF32's 11."""
+    bits = t.float().contiguous().view(torch.int32)
+    bits = bits + ((1 << (drop - 1)) - 1) + ((bits >> drop) & 1)
+    return (bits & ~((1 << drop) - 1)).view(torch.float32)
+
+
+def _split(t, drop: int):
+    """(hi, lo): ``t``'s rounding and the rounding of what is left."""
+    hi = _round_bits(t, drop)
+    return hi, _round_bits(t - hi, drop)
+
+
+# route -> (low mantissa bits dropped, products: (map part, weight part),
+# 0 the high part, 1 the low)
+PAIR_ROUTES = {
+    "tf32": (13, ((0, 0),)),
+    "3xtf32": (13, ((0, 0), (0, 1), (1, 0))),
+    "bf16": (16, ((0, 0),)),
+    "bf16x3": (16, ((0, 0), (0, 1), (1, 0))),
+    "bf16_w2": (16, ((0, 0), (0, 1))),
+}
+
+
+def conv3x3_pair_emulated(x, w1, b1, w2, b2, ns1: float = 0.2,
+                          route: str = "bf16x3"):
+    """:func:`conv3x3_pair_plain` with each conv's products as a tensor-core
+    route makes them: the map and the weights rounded to TF32 or bf16 (on
+    their bits, to nearest even), each split into its rounding (hi) and the
+    rounding of the rest (lo), the route's products of the parts summed in
+    float32 (:data:`PAIR_ROUTES`; a product of two such parts is exact in
+    float32).  K2's kernel takes "bf16x3" for float32 maps and "bf16_w2"
+    for bf16 maps (whose parts are exact: their lo is 0).  The
+    intermediate and the output are in x's storage type.  The CPU test of
+    the choice (tests/test_torch_conv_tc.py); no model calls it."""
+    drop, products = PAIR_ROUTES[route]
+
+    def conv(a, w, bias):
+        parts_a, parts_w = _split(a, drop), _split(w, drop)
+        y = sum(_conv_plain(parts_a[i], parts_w[j], None)
+                for i, j in products)
+        return y if bias is None else y + bias
+
+    mid = F.leaky_relu(conv(x.float(), w1, b1), ns1).to(x.dtype)
+    return conv(mid.float(), w2, b2).to(x.dtype)
 
 
 def conv3x3_quad_plain(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
@@ -185,11 +238,18 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
 conv3x3.launches = 0
 
 
+# the channels K2's kernel takes (its shared memory holds three window rows
+# of Cin and three intermediate rows of C1; csrc/conv3x3.cu)
+PAIR_MAX_CHANNELS = (64, 128, 64)
+
+
 def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     """conv2(leaky_relu_ns1(conv1(x) + b1)) + b2 in one kernel, the
     intermediate on chip.  x: (B, H, W, Cin); w1: (3, 3, Cin, C1); w2:
-    (3, 3, C1, Cout); b1/b2: (C1,)/(Cout,) or None.  On a CUDA tensor that
-    autograd records it runs :class:`Conv3x3PairFn`."""
+    (3, 3, C1, Cout); b1/b2: (C1,)/(Cout,) or None.  On the card Cin, C1
+    and Cout are at most :data:`PAIR_MAX_CHANNELS` (larger raise).  On a
+    CUDA tensor that autograd records it runs :class:`Conv3x3PairFn`.
+    The kernel's products: :func:`conv3x3_pair_emulated`."""
     if _native.on_cpu(x):
         return conv3x3_pair_plain(x, w1, b1, w2, b2, ns1)
     if _native.records(x, w1, b1, w2, b2):
@@ -200,6 +260,10 @@ def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     _native.require(x, "x", dev, dtype=x.dtype)
     c1 = _check_weight(w1, b1, cin, "w1", dev)
     cout = _check_weight(w2, b2, c1, "w2", dev)
+    if any(c > m for c, m in zip((cin, c1, cout), PAIR_MAX_CHANNELS)):
+        raise ValueError(
+            f"conv3x3_pair's kernel takes (Cin, C1, Cout) up to "
+            f"{PAIR_MAX_CHANNELS}, got {(cin, c1, cout)}")
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()
     with _native.launch_guard(x) as stream:

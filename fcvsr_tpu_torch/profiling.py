@@ -59,10 +59,11 @@ STAGES = {"feat_extract": "feat_extract", "MGAA": "MGAA",
 
 
 # NVIDIA's published H100 SXM peaks (data sheet, dense, at 700 W): HBM
-# bytes/s, float32 flop/s outside the tensor cores, and bf16 flop/s on the
-# tensor cores (bf16 operands, float32 sums)
+# bytes/s, float32 flop/s outside the tensor cores, and on the tensor cores
+# TF32 and bf16 flop/s (float32 sums)
 HBM_BYTES_S = 3.35e12
 F32_FLOP_S = 67e12
+TF32_FLOP_S = 494e12
 BF16_FLOP_S = 989e12
 
 

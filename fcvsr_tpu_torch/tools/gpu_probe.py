@@ -49,15 +49,16 @@ DEFAULT_OUT = _native.BUILD_DIR / "gpu_probe.json"
 TIMEOUTS = {"dot": 300, "bf16_conv": 300, "kernel": 600}
 
 
+_SIGNATURES = {"fcvsr_probe_scale2": [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_int, ctypes.c_void_p]}
+
+
 def probe_lib():
     """(the probe's library, its build seconds or None when it was built
     already): ``scale2.cu`` built alone by ``_native.side_lib`` into
     ``_build/probe/``."""
-    return _native.side_lib(
-        "probe", [SOURCE],
-        {"fcvsr_probe_scale2": [ctypes.c_void_p, ctypes.c_void_p,
-                                ctypes.c_int, ctypes.c_void_p]},
-        "fcvsr_probe_error_string")
+    return _native.side_lib("probe", [SOURCE], _SIGNATURES,
+                            "fcvsr_probe_error_string")
 
 
 def scale2_plain(x):

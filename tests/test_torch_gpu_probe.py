@@ -59,3 +59,38 @@ def test_scale2_on_cpu_is_its_plain_version():
     before = gpu_probe.scale2.launches
     assert torch.equal(gpu_probe.scale2(x), 2 * x)
     assert gpu_probe.scale2.launches == before
+
+
+def test_launch_path_refuses_without_a_card():
+    """The launch-path timing (K12 against torch.mul) needs a card: without
+    one it exits with the reason and writes nothing."""
+    from fcvsr_tpu_torch.benchmarks import launch_path
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit, match="is_available"):
+        launch_path.main([])
+
+
+def test_side_lib_serves_a_loaded_library_without_the_lock(monkeypatch):
+    """A library already loaded is served without taking the build lock,
+    and a failed build raises again on every call, without rebuilding."""
+    from fcvsr_tpu_torch.ops import _native
+
+    class Held:
+        def __enter__(self):
+            raise AssertionError("took the lock")
+
+        def __exit__(self, *exc):
+            return False
+
+    lib = object()
+    monkeypatch.setitem(_native._side_libs, "served", (lib, None))
+    monkeypatch.setitem(_native._side_libs, "broken", RuntimeError("nvcc"))
+    monkeypatch.setattr(_native, "_lock", Held())
+    assert _native.side_lib("served", [], {}, "e") == (lib, None)
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            _native.side_lib("broken", [], {}, "e")
+    monkeypatch.setattr(_native, "_lib", lib)
+    assert _native.lib() is lib

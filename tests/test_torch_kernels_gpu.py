@@ -7,7 +7,10 @@ these without the repository's conftest (which configures JAX):
 
 Shapes are small and odd: H and W not multiples of the tiles (IAC and its
 adjoint 8x16, conv 8x16 / 16x16), channel counts not multiples of the
-16-channel chunks, C_out 1 and 3; the DCN at frames smaller than its
+16-channel chunks, C_out 1 and 3; the conv pair (K2, on the tensor cores)
+also with W past its 62-pixel segments, H past its row blocks, B 2, a
+pixel stride that is not a multiple of 16 bytes, and in its one-pass
+route, with its SASS holding wgmma; the DCN at frames smaller than its
 128-pixel tile, Cin not a multiple of its 32-channel chunk, one deform group
 wider than a chunk and C_out above its 64-channel block, and its adjoint
 (two launches a call) at those shapes and with groups split across
@@ -122,6 +125,59 @@ def test_pair_kernel_matches_plain(cuda, h, w, cin, c1, cout, bias):
     got = fused_conv.conv3x3_pair(x, w1, b1, w2, b2, 0.2)
     ref = fused_conv.conv3x3_pair_plain(x, w1, b1, w2, b2, 0.2)
     _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,c1,cout", [
+    (1, 100, 130, 64, 128, 64),  # W past 2 segments of 62; rows a block 3, the last 1
+    (2, 5, 7, 64, 64, 64),       # H and W below one segment, B 2
+    (2, 9, 65, 6, 24, 5),        # pixel stride 24 (12) bytes: element loads
+    (1, 301, 40, 32, 128, 64),   # one segment, 101 blocks of 3 rows, the last 1
+])
+def test_pair_tc_kernel_edges(cuda, dtype, b, h, w, cin, c1, cout):
+    """K2 on the tensor cores at the edges of its row segments and row
+    blocks (a block takes as many rows as fill the card once: on 132 SMs
+    the row counts above), float32 (bf16x3) and bf16 maps, against the
+    plain version."""
+    x = _rand(cuda, 100, b, h, w, cin).to(dtype)
+    w1 = _rand(cuda, 101, 3, 3, cin, c1, scale=0.1)
+    w2 = _rand(cuda, 102, 3, 3, c1, cout, scale=0.1)
+    b1 = _rand(cuda, 103, c1)
+    b2 = _rand(cuda, 104, cout)
+    n0 = fused_conv.conv3x3_pair.launches
+    got = fused_conv.conv3x3_pair(x, w1, b1, w2, b2, 0.1)
+    assert fused_conv.conv3x3_pair.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, cout)
+    _assert_close_as(got, fused_conv.conv3x3_pair_plain(x, w1, b1, w2, b2, 0.1),
+                     1e-4)
+
+
+def test_pair_kernel_refuses_wide_channels(cuda):
+    x = _rand(cuda, 110, 1, 4, 5, 72)
+    wide = _rand(cuda, 111, 3, 3, 72, 8)
+    narrow = _rand(cuda, 112, 3, 3, 8, 8)
+    with pytest.raises(ValueError, match="up to"):
+        fused_conv.conv3x3_pair(x, wide, None, narrow, None)
+
+
+# K2's kernel issues wgmma (HGMMA in SASS); its float32 work outside them
+# is the epilogue's bias, activation and splits (FADD, FMUL).  The FMA
+# kernel it replaced ran its main loop as FFMA on register tiles
+SASS_FFMA_MAX = 32
+
+
+def test_pair_kernel_runs_on_the_tensor_cores(cuda):
+    """The SASS of every conv3x3_pair_kernel in the main library holds
+    HGMMA and no FFMA main loop (chip_smoke.py checks the same)."""
+    from fcvsr_tpu_torch.ops import _native
+
+    counts = _native.sass_ops(_native.lib()._name, "conv3x3_pair_kernel",
+                              ("HGMMA", "FFMA", "HMMA"))
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert counts, "no conv3x3_pair_kernel in the library"
+    for name, ops in counts.items():
+        assert ops["HGMMA"] > 0 and ops["FFMA"] <= SASS_FFMA_MAX, (name, ops)
 
 
 @pytest.mark.parametrize("h,w,cin,cout,res,act", [

@@ -382,14 +382,15 @@ def test_mm_sass_counts_the_mm_kernels_instructions(tmp_path, monkeypatch):
         "  /*0460*/  LDSM.16.M88.4 R4, [R2] ;"])
     tool = tmp_path / "cuobjdump"
     tool.write_text("")
-    monkeypatch.setattr(conv2.shutil, "which", lambda name: str(tool))
+    # the parsing lives in _native.sass_ops, which the K2 check shares
+    monkeypatch.setattr(_native.shutil, "which", lambda name: str(tool))
     calls = []
 
     def fake_run(cmd, **kw):
         calls.append(cmd)
         return type("Done", (), {"stdout": sass})()
 
-    monkeypatch.setattr(conv2.subprocess, "run", fake_run)
+    monkeypatch.setattr(_native.subprocess, "run", fake_run)
     assert conv2.mm_sass("lib.so") == {"mm_stream_kernel": dict(
         HGMMA=2, UTMALDG=1, HMMA=0, LDSM=0)}
     assert calls == [[str(tool), "-sass", "lib.so"]]
@@ -397,20 +398,24 @@ def test_mm_sass_counts_the_mm_kernels_instructions(tmp_path, monkeypatch):
 
 def test_mm_ab_edits_the_kernel_sources_or_refuses():
     """The A/B's variants are the tree's conv2.cu and hopper.cuh with text
-    replaced; an edit that matches nothing raises rather than timing the
-    unedited kernel under another name."""
+    replaced (``_native.edited_sources``, shared with the pair's A/B); an
+    edit that matches nothing raises rather than timing the unedited
+    kernel under another name."""
     from fcvsr_tpu_torch.benchmarks import microbench_mm_ab as ab
+    from fcvsr_tpu_torch.ops import _native
 
-    src, hopper = ab.edited_sources([])
+    texts = _native.edited_sources(ab.SOURCE, [])
+    src, hopper = texts[ab.SOURCE], texts["hopper.cuh"]
     assert "constexpr int kStages = 4;" in src and "mbar_wait" in hopper
-    src2, hopper2 = ab.edited_sources([
+    texts = _native.edited_sources(ab.SOURCE, [
         ["constexpr int kStages = 4;", "constexpr int kStages = 2;"],
         ["hopper.cuh", "CU_TENSOR_MAP_L2_PROMOTION_L2_256B",
          "CU_TENSOR_MAP_L2_PROMOTION_NONE"]])
+    src2, hopper2 = texts[ab.SOURCE], texts["hopper.cuh"]
     assert "constexpr int kStages = 2;" in src2 and "kStages = 4;" not in src2
     assert "L2_PROMOTION_NONE" in hopper2 and "L2_256B" not in hopper2
     with pytest.raises(ValueError, match="has no"):
-        ab.edited_sources([["no such text", "x"]])
+        _native.edited_sources(ab.SOURCE, [["no such text", "x"]])
 
 
 def test_mm_ab_refuses_without_cuda():
