@@ -10,16 +10,22 @@ Phases, one line or more each:
      and checked), its JSON printed;
   1. device and build: the card's name and power limit (nvidia-smi), torch
      and CUDA versions, the nvcc build of ``fcvsr_tpu_torch/csrc`` (one nvcc
-     a source, in parallel); the SASS of the conv pair's kernel (K2,
-     ``cuobjdump -sass`` of the library) must hold wgmma (HGMMA) and no
-     FFMA main loop;
+     a source, in parallel); the SASS of the conv pair's and the single
+     conv's kernels (K2, K3, ``cuobjdump -sass`` of the library) must hold
+     wgmma (HGMMA) and no FFMA main loop, and that of the IAC kernel's
+     fused-prediction instantiations (K1 kf) mma.sync (HMMA), their FFMA
+     counts printed;
   2. every kernel of the serving and training paths against its plain
      PyTorch version on the card, at the shapes FCVSR and the zoo give it,
      with the max abs error against the stated tolerance, both CUDA-event
      times (median of 7 after 2 warm-ups, the versions timed in turns) and
-     the least time the card could take: the IAC iteration (K1) and the
+     the least time the card could take: the IAC iteration (K1, both
+     modes, B 1 and 2, also warm: 20 launches an event pair) and the
      conv kernels (K2, K3) at the serving shape, in float32 and bf16
-     storage, K2 at SCNet's three levels (both pair shapes, each timed,
+     storage, K3 (64->64 with its residual, also warm) at SCNet's three
+     levels and at conv_last0's 1088x1920, its bound its bytes and the
+     function's flops at the bf16 tensor-core rate, the float32 pipes'
+     beside, K2 at SCNet's three levels (both pair shapes, each timed,
      its bound, the function's flops at the bf16 tensor-core rate,
      beside the float32 pipes', its route's passes' and, for float32
      maps, 3xTF32's); the resident IAC chain (K4) at 272x480x64, 6 iterations, B 1
@@ -127,9 +133,10 @@ FUSED_PER_FRAME = dict(PER_FRAME, iac=0, iac_chain=4, conv3x3_pair=0,
 FAST_RUNS = {"fast": ["--fast"],
              "fast_resident_quad": ["--fast", "--iac-chain", "resident",
                                     "--scnet-fuse", "quad"]}
-# each serving flag alone over the exact path, the two fast sets, and the
-# two flags that won alone on the H100 (PERF.md), timed in turns on one
-# model
+# each serving flag alone over the exact path, the two fast sets, the two
+# flags that won alone on the H100 (PERF.md), and the JAX --fast set
+# without its folded tail (the one flag of it that loses on the H100),
+# timed in turns on one model
 FLAG_VARIANTS = {
     "exact": {}, "batch_mgaa": dict(batch_mgaa=True),
     "folded": dict(tail_impl="folded"), "k_fused": dict(k_fused=True),
@@ -140,7 +147,9 @@ FLAG_VARIANTS = {
     "fast_resident_quad": dict(batch_mgaa=True, tail_impl="folded",
                                iac_chain="resident", scnet_fuse="quad",
                                iac_dtype="bf16", scnet_dtype="bf16"),
-    "batch_mgaa_scnet_bf16": dict(batch_mgaa=True, scnet_dtype="bf16")}
+    "batch_mgaa_scnet_bf16": dict(batch_mgaa=True, scnet_dtype="bf16"),
+    "fast_unfolded": dict(batch_mgaa=True, k_fused=True, iac_dtype="bf16",
+                          scnet_dtype="bf16")}
 # per training step: the forward's launches; the IAC adjoint is two
 # launches an iteration; each pair's backward rebuilds its intermediate
 # with one conv3x3 launch
@@ -277,7 +286,7 @@ def phase_kernels(torch, dev):
     import torch.nn.functional as F
 
     from fcvsr_tpu_torch.profiling import (BF16_FLOP_S, TF32_FLOP_S, bound,
-                                           cuda_ms)
+                                           cuda_ms, warm_ms)
     from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac
     from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d
 
@@ -289,7 +298,8 @@ def phase_kernels(torch, dev):
     results = {name: {"max_abs_err": 0.0} for name in KERNELS}
 
     def check(name, label, kern, plain, rtol, work=None, library=None,
-              yardstick=None, mean_rtol=None, beside=None, notes=None):
+              yardstick=None, mean_rtol=None, beside=None, notes=None,
+              warm=False):
         """Kernel against plain version; a tuple of outputs is checked one
         by one (in float32, whatever the storage).  ``work`` = (bytes,
         flops[, flop/s]) marks a timed case, with its bound at that rate
@@ -301,8 +311,10 @@ def phase_kernels(torch, dev):
         mean abs error to that share of max|plain|.  ``library`` is one
         PyTorch call computing the same function; ``beside`` = (label, fn)
         one that does not (a plain conv beside a deformable one), timed
-        beside it and not checked.  The result line's max_abs_err is the
-        kernel's against its plain version."""
+        beside it and not checked.  ``warm`` also times the kernel and the
+        plain version warm (``warm_ms``: 20 calls an event pair, in turns).
+        The result line's max_abs_err is the kernel's against its plain
+        version."""
         outs, refs = kern(), plain()
         if isinstance(outs, torch.Tensor):
             outs, refs = (outs,), (refs,)
@@ -340,6 +352,8 @@ def phase_kernels(torch, dev):
             line.update(ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=None)
             line.update(zip(extra, times[2:]))
+            if warm:
+                line["warm_ms"], line["warm_plain_ms"] = warm_ms([kern, plain])
             if beside:
                 line["beside"] = beside[0]
             if len(work) > 2:
@@ -370,20 +384,29 @@ def phase_kernels(torch, dev):
     # the 3C kernels and feat_in read, out written; ~22 flops a value (the
     # 4-corner warp, two 3-tap passes, residual, activation)
     px = b * h * w
-    iac_work = (4 * px * (6 * c + 2), 22 * px * c)
+
+    def iac_work(px, c, kf, sb=4):
+        """K1's bytes (feat, the kernels or f0, feat_in read, out written;
+        flows float32) and flops: ~22 a value, plus the kf prediction's
+        2 C0 3C a pixel, on the tensor cores (their rate the bound's)."""
+        if kf:
+            return (px * (sb * 4 * c + 8), (22 + 6 * c) * px * c, BF16_FLOP_S)
+        return (px * (sb * 6 * c + 8), 22 * px * c)
+
     for it, act in ((0, True), (5, False)):
         check("iac", f"materialised it={it} act={act} 272x480x64",
               lambda: fused_iac.warp_sac_fused(feat, flow, k, fin, act, it),
               lambda: fused_iac.warp_sac_plain(feat, flow, k, fin, act, it),
-              IAC_RTOL, work=iac_work if it == 0 else None)
+              IAC_RTOL, work=iac_work(px, c, False) if it == 0 else None,
+              warm=True)
         check("iac", f"kf it={it} act={act} 272x480x64",
               lambda: fused_iac.warp_sac_fused_kf(feat, flow, f0, wsel, bsel,
                                                   fin, act, it),
               lambda: fused_iac.warp_sac_plain(
                   feat, flow, fused_iac.predict_kernels(f0, wsel, bsel, it, c),
                   fin, act),
-              IAC_RTOL, work=(4 * px * (4 * c + 2), (22 + 6 * c) * px * c)
-              if it == 0 else None)
+              IAC_RTOL, work=iac_work(px, c, True) if it == 0 else None,
+              warm=True)
     del feat, fin, flow, k, f0
 
     # SCNet convs at its three levels.  Work: x read, out (and res) written
@@ -436,13 +459,15 @@ def phase_kernels(torch, dev):
               CONV_RTOL, work=work, notes=notes)
         res = t(rng.standard_normal((1, h, w, 64)))
         rw = conv_work(px, 64, 64)
-        # no single call adds the residual: one cuDNN conv with bias is
-        # timed beside it
+        # K3's bound: its bytes (the residual too) and the function's own
+        # flops at the tensor cores' rate, the float32 pipes' beside; no
+        # single call adds the residual: one cuDNN conv with bias is timed
+        # beside it
         check("conv3x3", f"64->64 +res {h}x{w}",
               lambda: fused_conv.conv3x3(x, r1, b2, res=res),
               lambda: fused_conv.conv3x3_plain(x, r1, b2, res=res),
-              CONV_RTOL,
-              work=(rw[0] + 4 * px * 64, rw[1]) if h == 272 else None,
+              CONV_RTOL, work=(rw[0] + 4 * px * 64, rw[1], BF16_FLOP_S),
+              notes={"route": "bf16x3"}, warm=True,
               beside=("cuDNN conv, no residual",
                       lambda: F.conv2d(x.permute(0, 3, 1, 2),
                                        r1.permute(3, 2, 0, 1), b2,
@@ -464,8 +489,8 @@ def phase_kernels(torch, dev):
         check("conv3x3", f"bf16 64->64 +res {h}x{w}",
               lambda: fused_conv.conv3x3(xb, r1, b2, res=resb),
               lambda: fused_conv.conv3x3_plain(xb, r1, b2, res=resb),
-              BF16_RTOL,
-              work=(rw[0] + 2 * px * 64, rw[1]) if h == 272 else None)
+              BF16_RTOL, work=(rw[0] + 2 * px * 64, rw[1], BF16_FLOP_S),
+              notes={"route": "bf16 x (w_hi + w_lo)"}, warm=True)
         # the BlockRCB quad (K6): the block pair (64->128->64, biases) and
         # the RCB pair (64->64->64, none), y and out; against two pairs
         quad = (w1, b1, w2, b2, r1, None, r2, None)
@@ -503,23 +528,28 @@ def phase_kernels(torch, dev):
                   yardstick=("6 K1 launches", lambda: fused_iac.iac_fused(
                       fin, k, offs, n_it, c)))
             del fin, k
-        # K1 in bf16, both variants, at the same shape
-        featb, finb = fin32.bfloat16(), fin32.flip(-1).bfloat16()
-        kb = k32.bfloat16()
-        f0b = t(rng.standard_normal((b, h, w, c))).bfloat16()
-        check("iac", f"bf16 materialised B{b} it=0 272x480x64",
-              lambda: fused_iac.warp_sac_fused(featb, offs[0], kb, finb),
-              lambda: fused_iac.warp_sac_plain(featb, offs[0], kb, finb),
-              BF16_RTOL, work=(px * (2 * 6 * c + 4 * 2), 22 * px * c))
-        check("iac", f"bf16 kf B{b} it=0 272x480x64",
-              lambda: fused_iac.warp_sac_fused_kf(featb, offs[0], f0b, wsel,
-                                                  bsel, finb),
-              lambda: fused_iac.warp_sac_plain(
-                  featb, offs[0], fused_iac.predict_kernels(f0b, wsel, bsel, 0,
-                                                            c), finb),
-              BF16_RTOL, work=(px * (2 * 4 * c + 4 * 2),
-                               (22 + 6 * c) * px * c))
-        del fin32, k32, offs, featb, finb, kb, f0b
+        # K1, both variants, float32 (B 2; B 1 above) and bf16, at the
+        # same shape
+        f032 = t(rng.standard_normal((b, h, w, c)))
+        for st in ("f32", "bf16") if b == 2 else ("bf16",):
+            cast = (lambda a: a) if st == "f32" else (lambda a: a.bfloat16())
+            sb = 4 if st == "f32" else 2
+            featb, finb = cast(fin32), cast(fin32.flip(-1).contiguous())
+            kb, f0b = cast(k32), cast(f032)
+            tol = IAC_RTOL if st == "f32" else BF16_RTOL
+            check("iac", f"{st} materialised B{b} it=0 272x480x64",
+                  lambda: fused_iac.warp_sac_fused(featb, offs[0], kb, finb),
+                  lambda: fused_iac.warp_sac_plain(featb, offs[0], kb, finb),
+                  tol, work=iac_work(px, c, False, sb), warm=True)
+            check("iac", f"{st} kf B{b} it=0 272x480x64",
+                  lambda: fused_iac.warp_sac_fused_kf(featb, offs[0], f0b,
+                                                      wsel, bsel, finb),
+                  lambda: fused_iac.warp_sac_plain(
+                      featb, offs[0], fused_iac.predict_kernels(
+                          f0b, wsel, bsel, 0, c), finb),
+                  tol, work=iac_work(px, c, True, sb), warm=True)
+            del featb, finb, kb, f0b
+        del fin32, k32, offs, f032
 
     # the BlockRCB level (K11) at SCNet's level 1 with C1 = C (the JAX A/B's
     # configuration) and FCVSR's C1 = 128, at levels 2 and 3, and at B 2:
@@ -573,7 +603,8 @@ def phase_kernels(torch, dev):
     check("conv3x3", "64->1 conv_last0 1088x1920",
           lambda: fused_conv.conv3x3(x, wl, bl),
           lambda: fused_conv.conv3x3_plain(x, wl, bl), CONV_RTOL,
-          work=conv_work(1088 * 1920, 64, 1))
+          work=(*conv_work(1088 * 1920, 64, 1), BF16_FLOP_S),
+          notes={"route": "bf16x3, N padded to 8"}, warm=True)
     del x
 
     # the IAC adjoint (K5) at the training shape: B=6, 128x128, C=64, its
@@ -1478,6 +1509,21 @@ def main() -> None:
                        for ops in sass.values()):
         fail(f"conv3x3_pair_kernel's SASS: {sass}, expected HGMMA and at "
              f"most {PAIR_SASS_FFMA_MAX} FFMA in each")
+    # K1's kf kernels (KF = true: "Lb1E" in the mangled name) predict the
+    # kernels on mma.sync (HMMA); K3's kernels run K2's wgmma loop
+    iac_sass = _native.sass_ops(_native.lib()._name, "iac_kernel",
+                                ("HMMA", "FFMA"))
+    one_sass = _native.sass_ops(_native.lib()._name, "conv3x3_one",
+                                ("HGMMA", "FFMA"))
+    kf_sass = {n: ops for n, ops in (iac_sass or {}).items() if "Lb1E" in n}
+    say("iac_conv_sass", iac_kernels=iac_sass, conv3x3_kernels=one_sass)
+    if len(kf_sass) != 2 or any(not ops["HMMA"] for ops in kf_sass.values()):
+        fail(f"iac_kernel's kf SASS: {iac_sass}, expected HMMA in both")
+    if not one_sass or len(one_sass) != 4 or any(
+            not ops["HGMMA"] or ops["FFMA"] > PAIR_SASS_FFMA_MAX
+            for ops in one_sass.values()):
+        fail(f"conv3x3_one_kernel's SASS: {one_sass}, expected HGMMA and "
+             f"at most {PAIR_SASS_FFMA_MAX} FFMA in each of 4")
 
     results = phase_kernels(torch, dev)
     torch.cuda.empty_cache()

@@ -1,4 +1,4 @@
-// 3x3 SAME convolutions on NHWC tensors, float accumulation.
+// 3x3 SAME convolutions on NHWC tensors, on the tensor cores.
 //
 // fcvsr_conv3x3 (K3) replaces fcvsr_tpu/ops/pallas_conv.py::_kernel
 // (reached there through conv3x3_rows and conv3x3_rows_nhwc):
@@ -10,19 +10,14 @@
 // intermediate kept in shared memory and zero outside the frame, so conv2
 // sees SAME zero padding of it, as on the TPU.
 //
-// K3's bound on the H100: arithmetic, on the f32 FMA pipes (67 TFLOP/s):
-// a block owns an output tile of pixels and up to 64 output channels;
-// input and a 16-channel slice of the weights sit in shared memory, with
-// the register tiles of conv3x3.cuh.
-//
-// K2 runs on the tensor cores, an implicit GEMM on warpgroup MMA (wgmma,
-// csrc/hopper.cuh): M = 64 pixels of one row segment, N = output channels,
-// K = 9 taps x input channels.  Each tap is one shifted window: the same
-// stored rows read (dy rows, dx pixels) further on.  The operands are in the
-// no-swizzle K-major layout, [8-channel chunk][pixel][8 channels], so a tap's
-// dx is a 16-byte step of the descriptor's start address and nothing is
-// copied per tap (an im2col tile built in shared memory cost 3.7x the
-// window's copy, PERF.md §6).
+// Both are an implicit GEMM on warpgroup MMA (wgmma, csrc/hopper.cuh):
+// M = 64 pixels of one row segment, N = output channels, K = 9 taps x input
+// channels.  Each tap is one shifted window: the same stored rows read (dy
+// rows, dx pixels) further on.  The operands are in the no-swizzle K-major
+// layout, [8-channel chunk][pixel][8 channels], so a tap's dx is a 16-byte
+// step of the descriptor's start address and nothing is copied per tap (an
+// im2col tile built in shared memory cost 3.7x the window's copy, PERF.md
+// §6).
 //
 // Precision.  The products run in bf16 with float32 sums.  A float32 map
 // and every weight are split into a bf16 high part and the bf16 rounding
@@ -33,12 +28,13 @@
 // one TF32 pass misses the float32 bar (1e-4 of max|out|) by 5x; bf16x3
 // and 3xTF32 hold it by 14x and 85x; bf16x3 runs at twice TF32's rate, and
 // its two planes take the 4 bytes of the float32 they replace, where
-// 3xTF32's would take 8.
+// 3xTF32's would take 8.  K3 takes the same route (conv3x3_emulated, held
+// to float64 at Cout 64, 3 and 1 in tests/test_torch_conv_tc.py).
 //
-// The rows roll.  A block owns a segment of 62 output pixels (64 computed:
-// the last two would need the pixels past the 66 stored) and `rows` output
-// rows of one image.  Three slots of window rows and three of intermediate
-// rows turn over: each step loads one window row, computes one
+// K2: the rows roll.  A block owns a segment of 62 output pixels (64
+// computed: the last two would need the pixels past the 66 stored) and
+// `rows` output rows of one image.  Three slots of window rows and three of
+// intermediate rows turn over: each step loads one window row, computes one
 // intermediate row (conv1, 9 taps) and one output row from the last three
 // (conv2, 9 taps), so a block recomputes 2 intermediate rows, not a halo
 // of each tile: at 272x480 a block takes 17 rows (19 conv1 rows).  Shared
@@ -48,7 +44,7 @@
 // bytes; bf16 maps 141,568.  An 8-row tile's intermediate alone (10 x 66 x
 // 128 x 4 bytes = 338 KB) would not fit.
 //
-// The weights stream through two stages of one tap each (a conv1 tap is
+// K2's weights stream through two stages of one tap each (a conv1 tap is
 // Cin x C1, a conv2 tap C1 x Cout, 8192 values at most), one stream of 18
 // taps a step (stage_at).  While the two warpgroups' wgmma multiply one
 // stage, all 256 threads split and transpose the next tap, loaded from the
@@ -65,113 +61,55 @@
 // weights, so that the main loop's counts are compile-time; padded
 // outputs are not stored.
 //
-// Bound: 2 x 19.25 G multiply-adds at 272x480 (64->128->64), 38.5 GFLOP at
-// the tensor cores' 989 TFLOP/s, 0.039 ms; the route's three bf16 passes
-// take three times that (0.117 ms).  What holds it is the weights' stream:
-// every block splits all of them (147,456 float32 values) for every
-// output row.  One tap's products (mma_tap) are the main loop's body; K3, a
-// single conv with its residual, is its one-conv case.
+// K2's bound: 2 x 19.25 G multiply-adds at 272x480 (64->128->64), 38.5
+// GFLOP at the tensor cores' 989 TFLOP/s, 0.039 ms; the route's three bf16
+// passes take three times that (0.117 ms).  What holds it is the weights'
+// stream: every block splits all of them (147,456 float32 values) for
+// every output row.
+//
+// K3, one conv: the same main loop (mma_tap) with the weights resident.  A
+// block owns a segment of 64 output pixels (the stored row holds 66: one
+// conv needs no spare pixels) and a Cout tile of 64 channels, the two
+// warpgroups splitting N (32 each).  Every tap's weights are split into
+// the bf16 planes once a block, before the rows (float32 maps: 9 taps x 64
+// x 64 x 2 planes x 2 bytes = 147,456 bytes), so no weight passes through
+// the main loop: K2's weight stream, which holds K2, is gone.  Four window
+// slots turn over: while a row's 9 taps run (one commit group), the row
+// loaded during the step before is stored into the fourth slot, the row
+// after it is loaded, and this row's residual is read; then the drain, the
+// epilogue (bias, residual, leaky relu, the store) and one barrier a row.
+// Shared memory, float32 maps: 4 slots x 2 planes x 66 x 64 x 2 bytes
+// (67,584) + 147,456 = 215,040 bytes (bf16 maps 181,248): one block an SM.
+//
+// K3's narrow case, Cout <= 8 (conv_last0, 64 -> 1 or 3 at the output's
+// 1088x1920): a segment of 128 pixels, a warpgroup a 64-pixel half, and N
+// the three dy taps' output channels (8 columns each, 8 zero: N 32), so an
+// input row is read from shared memory once for its 3 dx taps, not once
+// for each of an output row's 9 taps; input row r adds its dy columns to
+// the sums of output rows r + 1 - dy, which roll through registers.  With
+// N 8 and 9 taps an output row (128-pixel segments, 4 slots), the same
+// case took 0.52 ms (PERF.md §6).  Shared memory 91,136 bytes (float32
+// maps): two blocks an SM.
+//
+// K3's bound at 272x480, 64->64 with its residual, float32 maps: bytes,
+// x and res read and out written once, 100.3 MB at 3.35 TB/s, 0.030 ms;
+// its 4.81 G multiply-adds take 0.010 ms at 989 TFLOP/s.  conv_last0
+// (64->1 at 1088x1920): bytes, 543 MB, 0.162 ms.
 //
 // Storage: the maps (x, res, out, and the pair's intermediate) are float or
 // bf16 (T); weights and biases are float.  bf16 maps round where the
 // kernels store, as the plain versions do.
 #include <type_traits>
 
-#include "conv3x3.cuh"
+#include "common.cuh"
 #include "hopper.cuh"
 
 namespace fcvsr {
 namespace {
 
-using conv::accumulate;
-using conv::CIB;
-using conv::stage_input;
-using conv::stage_weights;
+// ------------------------------------------- K2 and K3: the tensor cores
 
-template <int TH, int TW, int NCG, int CPT>
-struct ConvCfg {
-  static constexpr int COB = NCG * CPT, NPG = kThreads / NCG;
-  static constexpr int PPT = (TH * TW + NPG - 1) / NPG;
-  static constexpr int IH = TH + 2, IW = TW + 2, LD = CIB + 1;
-  static constexpr size_t smem = sizeof(float) * (IH * IW * LD + 9 * CIB * COB);
-};
-
-template <typename T, int TH, int TW, int NCG, int CPT>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_kernel(const T* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ bias, const T* __restrict__ res,
-               T* __restrict__ out, int H, int W, int Cin, int Cout, int act,
-               float ns) {
-  using Cfg = ConvCfg<TH, TW, NCG, CPT>;
-  constexpr int COB = Cfg::COB, NPG = Cfg::NPG, PPT = Cfg::PPT;
-  extern __shared__ float smem[];
-  float* in_s = smem;
-  float* w_s = smem + Cfg::IH * Cfg::IW * Cfg::LD;
-
-  const int nco = (Cout + COB - 1) / COB;
-  const int b = blockIdx.z / nco, co0 = (blockIdx.z % nco) * COB;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const T* xb = x + (size_t)b * H * W * Cin;
-
-  float acc[PPT][CPT] = {};
-  for (int ci0 = 0; ci0 < Cin; ci0 += CIB) {
-    const int cn = min(CIB, Cin - ci0);
-    stage_input(in_s, Cfg::LD, xb, H, W, Cin, ci0, cn, y0 - 1, x0 - 1, Cfg::IH, Cfg::IW);
-    stage_weights<COB>(w_s, w, Cin, Cout, ci0, cn, co0);
-    __syncthreads();
-    accumulate<NCG, CPT, PPT>(acc, in_s, Cfg::LD, Cfg::IW, w_s, cn, TH * TW, TW);
-    __syncthreads();
-  }
-
-  const int cg = threadIdx.x % NCG, pg = threadIdx.x / NCG;
-#pragma unroll
-  for (int i = 0; i < PPT; ++i) {
-    const int p = pg + i * NPG;
-    const int y = y0 + p / TW, xx = x0 + p % TW;
-    if (p >= TH * TW || y >= H || xx >= W) continue;
-    const size_t o = (((size_t)b * H + y) * W + xx) * Cout;
-#pragma unroll
-    for (int j = 0; j < CPT; ++j) {
-      const int co = co0 + cg + NCG * j;
-      if (co >= Cout) continue;
-      float v = acc[i][j];
-      if (bias) v += bias[co];
-      if (res) v += to_f32(res[o + co]);
-      out[o + co] = from_f32<T>(act ? leaky(v, ns) : v);
-    }
-  }
-}
-
-template <typename T, int TH, int TW, int NCG, int CPT>
-int launch_conv(const void* x, const float* w, const float* bias, const void* res,
-                void* out, int B, int H, int W, int Cin, int Cout, int act, float ns,
-                cudaStream_t stream) {
-  using Cfg = ConvCfg<TH, TW, NCG, CPT>;
-  constexpr auto kernel = &conv3x3_kernel<T, TH, TW, NCG, CPT>;
-  cudaError_t err = allow_smem<kernel>(Cfg::smem);
-  if (err != cudaSuccess) return (int)err;
-  const int nco = (Cout + Cfg::COB - 1) / Cfg::COB;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B * nco);
-  kernel<<<grid, kThreads, Cfg::smem, stream>>>(
-      static_cast<const T*>(x), w, bias, static_cast<const T*>(res),
-      static_cast<T*>(out), H, W, Cin, Cout, act, ns);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int conv_dispatch(const void* x, const float* w, const float* bias, const void* res,
-                  void* out, int B, int H, int W, int Cin, int Cout, int act, float ns,
-                  cudaStream_t s) {
-  if (Cout <= 4)  // conv_last0: one pixel and 4 channels per thread
-    return launch_conv<T, 16, 16, 1, 4>(x, w, bias, res, out, B, H, W, Cin, Cout, act,
-                                        ns, s);
-  return launch_conv<T, 8, 16, 8, 8>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns,
-                                     s);
-}
-
-// ------------------------------------------------------------------- K2
-
-namespace pair {
+namespace tc {
 
 namespace sm90 = fcvsr::sm90;
 
@@ -282,44 +220,45 @@ __device__ __forceinline__ void load8(uint4& v, const __nv_bfloat16* p, int left
   v = make_uint4(h[0], h[1], h[2], h[3]);
 }
 
-// A window row's values as the thread's items: 8 channels of a pixel each
-// (float, or the bf16 map's 16 bytes)
-template <typename T>
+// A window row of RP pixels as the thread's items: 8 channels of a pixel
+// each (float, or the bf16 map's 16 bytes)
+template <typename T, int RP = kRowPx>
 struct RowItems {
-  static constexpr int kItems = (kRowPx * kCinMax / 8 + kThreadsTc - 1) / kThreadsTc;
+  static constexpr int kPx = RP;
+  static constexpr int kItems = (RP * kCinMax / 8 + kThreadsTc - 1) / kThreadsTc;
   using Raw = typename std::conditional<sizeof(T) == 4, float[8], uint4>::type;
   Raw raw[kItems];
 };
 
-// Window row y of image xb (pixels x0 - 2 ..., kRowPx of them): loads only,
-// zeros outside the frame and past Cin; item it = (pixel it / nch, chunk
-// it % nch)
-template <typename T>
-__device__ __forceinline__ void load_row(RowItems<T>& r, const T* xb, int H, int W,
-                                         int Cin, int nch, int y, int x0, int vec) {
-  const int items = kRowPx * nch;
+// Window row y of image xb (pixels xs, xs + 1, ..., RP of them): loads
+// only, zeros outside the frame and past Cin; item it = (pixel it / nch,
+// chunk it % nch)
+template <typename T, int RP>
+__device__ __forceinline__ void load_row(RowItems<T, RP>& r, const T* xb, int H, int W,
+                                         int Cin, int nch, int y, int xs, int vec) {
+  const int items = RP * nch;
   const bool row_in = y >= 0 && y < H;
 #pragma unroll
-  for (int i = 0; i < RowItems<T>::kItems; ++i) {
+  for (int i = 0; i < RowItems<T, RP>::kItems; ++i) {
     const int it = threadIdx.x + i * kThreadsTc;
-    const int c = it % nch, xx = x0 - 2 + it / nch;
+    const int c = it % nch, xx = xs + it / nch;
     const bool in = it < items && row_in && xx >= 0 && xx < W;
     load8(r.raw[i], xb + ((size_t)(in ? y : 0) * W + (in ? xx : 0)) * Cin + c * 8,
           Cin - c * 8, in, vec);
   }
 }
 
-// ... into its slot: chunk c of pixel px at c * kLbo + px * 16, float maps
-// split into the hi plane and the lo plane plane_b bytes on
-template <typename T>
+// ... into its slot: chunk c of pixel px at c * RP * 16 + px * 16, float
+// maps split into the hi plane and the lo plane plane_b bytes on
+template <typename T, int RP>
 __device__ __forceinline__ void store_row(unsigned char* slot, int plane_b,
-                                          const RowItems<T>& r, int nch) {
-  const int items = kRowPx * nch;
+                                          const RowItems<T, RP>& r, int nch) {
+  const int items = RP * nch;
 #pragma unroll
-  for (int i = 0; i < RowItems<T>::kItems; ++i) {
+  for (int i = 0; i < RowItems<T, RP>::kItems; ++i) {
     const int it = threadIdx.x + i * kThreadsTc;
     if (it < items) {
-      unsigned char* p = slot + (it % nch) * kLbo + (it / nch) * kChunk;
+      unsigned char* p = slot + (it % nch) * (RP * kChunk) + (it / nch) * kChunk;
       if constexpr (sizeof(T) == 4) {
         uint4 hi, lo;
         split8(r.raw[i], hi, lo);
@@ -333,13 +272,14 @@ __device__ __forceinline__ void store_row(unsigned char* slot, int plane_b,
 }
 
 // One tap's products, the main loop's body: the stored rows at `at` (A:
-// its hi plane, the lo plane a_plane bytes on) times this warpgroup's N
+// its hi plane, the lo plane a_plane bytes on, 8-channel chunks LBO bytes
+// apart) times this warpgroup's N
 // rows of the stage at `bt` (B: 16 bytes a row, chunks ldb bytes apart,
 // the lo plane plane_b bytes on), in KSTEPS k16 steps of PASSES products
 // each: hi*hi, hi*lo_w, lo*hi_w; tap 0's first product clears the sums.
 // Both counts are compile-time: with run-time counts the kernel took 1.2x
 // as long (PERF.md §6).
-template <int N, int KSTEPS, int PASSES, int R>
+template <int N, int KSTEPS, int PASSES, int LBO = kLbo, int R>
 __device__ __forceinline__ void mma_tap(float (&acc)[R], uint32_t at, int a_plane,
                                         uint32_t bt, int plane_b, int ldb, int tap) {
 #pragma unroll
@@ -347,7 +287,7 @@ __device__ __forceinline__ void mma_tap(float (&acc)[R], uint32_t at, int a_plan
 #pragma unroll
     for (int p = 0; p < PASSES; ++p) {
       const uint64_t da =
-          sm90::desc_interleave(at + (p == 2 ? a_plane : 0) + 2 * s * kLbo, kLbo, kSbo);
+          sm90::desc_interleave(at + (p == 2 ? a_plane : 0) + 2 * s * LBO, LBO, kSbo);
       const uint64_t db =
           sm90::desc_interleave(bt + (p == 1 ? plane_b : 0) + 2 * s * ldb, ldb, kSbo);
       sm90::wgmma_m64k16_bf16<N, 0>(acc, da, db, tap | s | p);
@@ -367,7 +307,8 @@ __device__ __forceinline__ Stage stage_at(int q) {
   return {r / 18 + 1, r % 18 < 9 ? 1 : 2, r % 9};
 }
 
-__host__ __device__ constexpr int slot_of(int row) { return ((row % 3) + 3) % 3; }
+// the slot of `row` among n slots that turn over
+__host__ __device__ constexpr int slot_n(int row, int n) { return ((row % n) + n) % n; }
 
 // shared memory of a launch: 3 window rows, 3 intermediate rows, 2 stages
 constexpr int pair_smem(int a_planes, int c1p, int w_planes) {
@@ -426,8 +367,8 @@ conv3x3_pair_kernel(const T* __restrict__ x, const float* __restrict__ w1,
         make_uint4(0, 0, 0, 0);
   RowItems<T> row;
   for (int r = y0 - 2; r <= y0; ++r) {
-    load_row(row, xb, H, W, Cin, nch, r, x0, vec);
-    store_row(win + slot_of(r) * win_slot, win_plane, row, nch);
+    load_row(row, xb, H, W, Cin, nch, r, x0 - 2, vec);
+    store_row(win + slot_n(r, 3) * win_slot, win_plane, row, nch);
   }
   load_q(0);
   store_q(0, 0);
@@ -445,11 +386,11 @@ conv3x3_pair_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     sm90::wgmma_fence();
     if (st.conv == 1)  // window rows m - 1 .. m + 1
       mma_tap<N1, cin_p / 16, PASSES>(
-          acc, win_s + slot_of(m - 1 + st.tap / 3) * win_slot + st.tap % 3 * kChunk,
+          acc, win_s + slot_n(m - 1 + st.tap / 3, 3) * win_slot + st.tap % 3 * kChunk,
           win_plane, bt + g * N1 * kChunk, plane_b, C1P * kChunk, st.tap);
     else  // intermediate rows m - 2 .. m
       mma_tap<kN2, C1P / 16, PASSES>(
-          acc, mid_s + slot_of(m - 2 + st.tap / 3) * mid_slot + st.tap % 3 * kChunk,
+          acc, mid_s + slot_n(m - 2 + st.tap / 3, 3) * mid_slot + st.tap % 3 * kChunk,
           mid_plane, bt + g * kN2 * kChunk, plane_b, kCoutMax * kChunk, st.tap);
     sm90::wgmma_commit();
     // while the wgmma run: the next stage's weights into the other buffer
@@ -459,14 +400,14 @@ conv3x3_pair_kernel(const T* __restrict__ x, const float* __restrict__ w1,
     if (q + 1 < nst) store_q(q + 1, (q + 1) & 1);
     if (q + 2 < nst) load_q(q + 2);
     if (st.conv == 1 && st.j < last) {
-      if (st.tap == 2) load_row(row, xb, H, W, Cin, nch, m + 2, x0, vec);
-      if (st.tap == 3) store_row(win + slot_of(m + 2) * win_slot, win_plane, row, nch);
+      if (st.tap == 2) load_row(row, xb, H, W, Cin, nch, m + 2, x0 - 2, vec);
+      if (st.tap == 3) store_row(win + slot_n(m + 2, 3) * win_slot, win_plane, row, nch);
     }
     sm90::wgmma_wait<0>();
     sm90::fence_operand(acc);
     if (st.tap == 8 && st.conv == 1) {
       // bias, leaky relu, zero outside the frame, into the slot of row m
-      unsigned char* dst = mid + slot_of(m) * mid_slot;
+      unsigned char* dst = mid + slot_n(m, 3) * mid_slot;
       const bool row_in = m >= 0 && m < H;
 #pragma unroll
       for (int jn = 0; jn < N1 / 8; ++jn)
@@ -550,22 +491,304 @@ int pair_dispatch(const void* x, const float* w1, const float* b1, const float* 
   return launch_pair<T, 64>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1, s);
 }
 
-}  // namespace pair
+
+// ------------------------------------------------------------------- K3
+
+// K3's shapes.  Wide (Cout > 8): a 64-pixel segment, a Cout tile of 64, the
+// warpgroups splitting N (32 each).  Narrow (Cout <= 8, conv_last0): a
+// 128-pixel segment, the warpgroups splitting M; N holds the three dy taps
+// of the Cout <= 8 channels, 8 columns each (and 8 zero columns: N 32).
+constexpr int kWideNB = 64, kWideNW = 32, kWideRP = kM + 2;
+constexpr int kNarrowRP = 2 * kM + 2, kNarrowN = 32;
+
+template <typename T>
+constexpr int one_smem(bool narrow) {
+  return (narrow ? 2 : 4) * (sizeof(T) == 4 ? 2 : 1) * (kCinMax / 8) *
+             (narrow ? kNarrowRP : kWideRP) * kChunk +
+         (kPasses<T> > 1 ? 2 : 1) * (narrow ? 3 : 9) * (kCinMax / 8) *
+             (narrow ? kNarrowN : kWideNB) * kChunk;
+}
+
+// Every tap's weights, split into the K-major bf16 planes once a block:
+// plane rows n of NB (wide: output channel co0 + n; narrow: dy = n / 8,
+// output channel n % 8), chunks kc of 8 input channels, one plane a tap
+// (wide: 9 taps; narrow: 3, dx), the lo plane lo_b bytes on.  Three
+// items' loads in flight before their stores.
+template <bool NARROW, int NB, int TAPS>
+__device__ __forceinline__ void fill_weights(unsigned char* wts, int lo_b, bool lo,
+                                             const float* __restrict__ w, int Cin,
+                                             int Cout, int co0) {
+  constexpr int nch = kCinMax / 8, tap_b = nch * NB * kChunk;
+  constexpr int kItems = TAPS * nch * NB, kBatch = 3;
+  for (int i0 = threadIdx.x; i0 < kItems; i0 += kBatch * kThreadsTc) {
+    float v[kBatch][8];
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int it = i0 + j * kThreadsTc;
+      const int n = it % NB, kc = (it / NB) % nch, t = it / (NB * nch);
+      const int tap = NARROW ? (n / 8) * 3 + t : t;   // HWIO tap dy * 3 + dx
+      const int co = NARROW ? n % 8 : co0 + n;
+      const bool in = it < kItems && co < Cout && (!NARROW || n < 24);
+      const float* p = w + ((size_t)tap * Cin + kc * 8) * Cout + co;
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        v[j][e] = in && kc * 8 + e < Cin ? __ldg(p + (size_t)e * Cout) : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j) {
+      const int it = i0 + j * kThreadsTc;
+      if (it < kItems) {
+        const int n = it % NB, kc = (it / NB) % nch, t = it / (NB * nch);
+        uint4 hi, lw;
+        split8(v[j], hi, lw);
+        unsigned char* d = wts + t * tap_b + kc * NB * kChunk + n * kChunk;
+        *reinterpret_cast<uint4*>(d) = hi;
+        if (lo) *reinterpret_cast<uint4*>(d + lo_b) = lw;
+      }
+    }
+  }
+}
+
+// act(v + bias + res) of the fragment of d into output row `orow` (its
+// first pixel's index): pixel xp + 16 wl + lane / 4 + 8 h, channel n + 8
+// jn + 2 (lane % 4) + e, for jn < NJ; rv the residual at the same places
+template <typename T, int NJ, int R>
+__device__ __forceinline__ void store_fragment(T* __restrict__ out, size_t orow,
+                                               const float (&d)[R], const float (&rv)[R],
+                                               const float* __restrict__ bias, int xp,
+                                               int n, int W, int Cout, int act, float ns) {
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int xx = xp + 16 * wl + (lane >> 2) + 8 * h;
+      const int c = n + 8 * jn + 2 * (lane & 3);
+      if (xx >= W) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        if (c + e < Cout) {
+          float v = d[4 * jn + 2 * h + e] + rv[4 * jn + 2 * h + e];
+          if (bias != nullptr) v += __ldg(bias + c + e);
+          out[(orow + xx) * Cout + c + e] = from_f32<T>(act ? leaky(v, ns) : v);
+        }
+    }
+}
+
+// ... and the residual's values at those places (zeros where there is none)
+template <typename T, int NJ, int R>
+__device__ __forceinline__ void load_fragment(float (&rv)[R], const T* __restrict__ res,
+                                              size_t orow, int xp, int n, int W, int Cout) {
+  const int lane = threadIdx.x & 31, wl = (threadIdx.x >> 5) & 3;
+#pragma unroll
+  for (int jn = 0; jn < NJ; ++jn)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int xx = xp + 16 * wl + (lane >> 2) + 8 * h;
+      const int c = n + 8 * jn + 2 * (lane & 3);
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        rv[4 * jn + 2 * h + e] = res != nullptr && xx < W && c + e < Cout
+                                     ? to_f32(res[(orow + xx) * Cout + c + e]) : 0.f;
+    }
+}
+
+// Wide: out = act(conv(x) + bias + res), Cin padded to 64 and the block's
+// Cout tile of 64 with zero weights; output rows y0 .. y0 + rows - 1 of one
+// image, pixels x0 .. x0 + 63, channels co0 .. co0 + 63.  Four window slots
+// turn over: output row m reads rows m - 1 .. m + 1, and row m + 2 goes into
+// the fourth while they run.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsTc, 1)
+conv3x3_one_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, const T* __restrict__ res,
+                   T* __restrict__ out, int H, int W, int Cin, int Cout, int act,
+                   float ns, int rows, int vec) {
+  constexpr int PA = sizeof(T) == 4 ? 2 : 1;  // A planes: hi and lo, or the bf16 map
+  constexpr int PASSES = kPasses<T>;
+  constexpr int NB = kWideNB, NW = kWideNW, RP = kWideRP, nch = kCinMax / 8;
+  constexpr int LBO = RP * kChunk, win_plane = nch * LBO, win_slot = PA * win_plane;
+  constexpr int tap_b = nch * NB * kChunk, w_plane = 9 * tap_b;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* win = smem;               // 4 slots of window rows
+  unsigned char* wts = win + 4 * win_slot;  // 9 taps, 1 or 2 planes
+
+  // warp-uniform roles (see K2)
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int g = warp >> 2;
+  const int nco = (Cout + NB - 1) / NB;
+  const int b = blockIdx.z / nco, co0 = (blockIdx.z % nco) * NB;
+  const int x0 = blockIdx.x * kM, y0 = blockIdx.y * rows;
+  const int last = min(rows, H - y0);  // output rows y0 .. y0 + last - 1
+  const T* xb = x + (size_t)b * H * W * Cin;
+
+  // window rows y0 - 1 .. y0 + 1 (pixels x0 - 1 ...), loaded with the weights
+  RowItems<T, RP> row[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) load_row(row[i], xb, H, W, Cin, nch, y0 - 1 + i, x0 - 1, vec);
+  fill_weights<false, NB, 9>(wts, w_plane, PASSES > 1, w, Cin, Cout, co0);
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    store_row(win + slot_n(y0 - 1 + i, 4) * win_slot, win_plane, row[i], nch);
+  // row y0 + 2 into registers: stored during the first step
+  if (last > 1) load_row(row[0], xb, H, W, Cin, nch, y0 + 2, x0 - 1, vec);
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const uint32_t win_s = sm90::smem_u32(win), w_s = sm90::smem_u32(wts);
+  const int n0 = co0 + g * NW;  // this warpgroup's N columns
+  float acc[NW / 2], rv[NW / 2];
+  for (int j = 0; j < last; ++j) {
+    const int m = y0 + j;
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+      mma_tap<NW, kCinMax / 16, PASSES, LBO>(
+          acc, win_s + slot_n(m - 1 + tap / 3, 4) * win_slot + tap % 3 * kChunk,
+          win_plane, w_s + tap * tap_b + g * NW * kChunk, w_plane, NB * kChunk, tap);
+    sm90::wgmma_commit();
+    // while they run: row m + 2 (loaded during the step before) into the
+    // slot of row m - 2, which the step before read last; row m + 3's
+    // loads; this row's residual
+    if (j + 1 < last) store_row(win + slot_n(m + 2, 4) * win_slot, win_plane, row[0], nch);
+    if (j + 2 < last) load_row(row[0], xb, H, W, Cin, nch, m + 3, x0 - 1, vec);
+    const size_t orow = ((size_t)b * H + m) * W;
+    load_fragment<T, NW / 8>(rv, res, orow, x0, n0, W, Cout);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    store_fragment<T, NW / 8>(out, orow, acc, rv, bias, x0, n0, W, Cout, act, ns);
+    sm90::fence_proxy_async();
+    __syncthreads();
+  }
+}
+
+// Narrow (Cout <= 8): each input row is multiplied once, by the three dy
+// taps at once (N 32: columns 8 dy + co), its three dx taps shifting the
+// row; input row r adds its dy columns to output rows r + 1 - dy, whose
+// sums roll through registers; output row r - 1 is complete after input
+// row r.  Two window slots turn over.  Against one output row's 9 taps of
+// N 8, a third of the products' shared-memory reads.
+template <typename T>
+__global__ void __launch_bounds__(kThreadsTc, 2)
+conv3x3_one_narrow_kernel(const T* __restrict__ x, const float* __restrict__ w,
+                          const float* __restrict__ bias, const T* __restrict__ res,
+                          T* __restrict__ out, int H, int W, int Cin, int Cout,
+                          int act, float ns, int rows, int vec) {
+  constexpr int PA = sizeof(T) == 4 ? 2 : 1;
+  constexpr int PASSES = kPasses<T>;
+  constexpr int NB = kNarrowN, RP = kNarrowRP, nch = kCinMax / 8;
+  constexpr int LBO = RP * kChunk, win_plane = nch * LBO, win_slot = PA * win_plane;
+  constexpr int tap_b = nch * NB * kChunk, w_plane = 3 * tap_b;
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned char* win = smem;               // 2 slots of input rows
+  unsigned char* wts = win + 2 * win_slot;  // 3 dx taps, 1 or 2 planes
+
+  const int warp = __shfl_sync(0xffffffffu, threadIdx.x >> 5, 0);
+  const int g = warp >> 2;  // this warpgroup's 64-pixel tile
+  const int b = blockIdx.z, x0 = blockIdx.x * 2 * kM, y0 = blockIdx.y * rows;
+  const int last = min(rows, H - y0);  // output rows y0 .. y0 + last - 1
+  const int steps = last + 2;          // input rows y0 - 1 .. y0 + last
+  const T* xb = x + (size_t)b * H * W * Cin;
+
+  RowItems<T, RP> row;
+  load_row(row, xb, H, W, Cin, nch, y0 - 1, x0 - 1, vec);
+  fill_weights<true, NB, 3>(wts, w_plane, PASSES > 1, w, Cin, Cout, 0);
+  store_row(win + slot_n(y0 - 1, 2) * win_slot, win_plane, row, nch);
+  load_row(row, xb, H, W, Cin, nch, y0, x0 - 1, vec);  // stored during step 0
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const uint32_t win_s = sm90::smem_u32(win), w_s = sm90::smem_u32(wts);
+  const int xp = x0 + g * kM;
+  float acc[NB / 2], rv[4];
+  float next[4] = {}, cur[4] = {}, prev[4] = {};  // sums of rows r + 1, r, r - 1
+  for (int j = 0; j < steps; ++j) {
+    const int r = y0 - 1 + j;  // input row
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int dx = 0; dx < 3; ++dx)
+      mma_tap<NB, kCinMax / 16, PASSES, LBO>(
+          acc, win_s + slot_n(r, 2) * win_slot + g * kM * kChunk + dx * kChunk, win_plane,
+          w_s + dx * tap_b, w_plane, NB * kChunk, dx);
+    sm90::wgmma_commit();
+    // while they run: row r + 1 into the other slot (read last by the
+    // step before), row r + 2's loads, the residual of output row r - 1
+    if (j + 1 < steps) store_row(win + slot_n(r + 1, 2) * win_slot, win_plane, row, nch);
+    if (j + 2 < steps) load_row(row, xb, H, W, Cin, nch, r + 2, x0 - 1, vec);
+    const bool done = j >= 2;  // output row r - 1 is complete after this row
+    const size_t orow = ((size_t)b * H + r - 1) * W;
+    if (done) load_fragment<T, 1>(rv, res, orow, xp, 0, W, Cout);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    // d[4 dy + i]: dy's columns; output rows r + 1, r, r - 1
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      next[i] += acc[i];
+      cur[i] += acc[4 + i];
+      prev[i] += acc[8 + i];
+    }
+    if (done) store_fragment<T, 1>(out, orow, prev, rv, bias, xp, 0, W, Cout, act, ns);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      prev[i] = cur[i];
+      cur[i] = next[i];
+      next[i] = 0.f;
+    }
+    sm90::fence_proxy_async();
+    __syncthreads();
+  }
+}
+
+// A block takes as many output rows as fill the card once.
+template <typename T>
+int launch_one(const void* x, const float* w, const float* bias, const void* res,
+               void* out, int B, int H, int W, int Cin, int Cout, int act, float ns,
+               cudaStream_t stream) {
+  const bool narrow = Cout <= 8;
+  constexpr auto wide_k = &conv3x3_one_kernel<T>;
+  constexpr auto narrow_k = &conv3x3_one_narrow_kernel<T>;
+  const int smem = one_smem<T>(narrow);
+  cudaError_t err = narrow ? allow_smem<narrow_k>(smem) : allow_smem<wide_k>(smem);
+  if (err != cudaSuccess) return (int)err;
+  const int seg = narrow ? 2 * kM : kM;
+  const int strips = (W + seg - 1) / seg;
+  const int nco = narrow ? 1 : (Cout + kWideNB - 1) / kWideNB;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return (int)err;
+  const int fill = narrow ? 2 * sms : sms;  // the narrow kernel's blocks fit 2 an SM
+  const int per_col = fill / (strips * B * nco) > 1 ? fill / (strips * B * nco) : 1;
+  const int rows = (H + per_col - 1) / per_col;
+  const int vec = (Cin * (int)sizeof(T)) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  dim3 grid(strips, (H + rows - 1) / rows, B * nco);
+  (narrow ? narrow_k : wide_k)<<<grid, kThreadsTc, smem, stream>>>(
+      static_cast<const T*>(x), w, bias, static_cast<const T*>(res),
+      static_cast<T*>(out), H, W, Cin, Cout, act, ns, rows, vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 
 }  // namespace
 }  // namespace fcvsr
 
 // w: (3,3,Cin,Cout) contiguous; bias (Cout) and res (B,H,W,Cout) may be
 // null.  x, res and out are bf16 when bf16 is set, float otherwise.
+// Cin <= 64 (SCNet's convs, conv_last0 and the pairs' rebuilt
+// intermediates are 64 -> 64, 1, 3 and 128); any Cout.
 extern "C" int fcvsr_conv3x3(const void* x, const float* w, const float* bias,
                              const void* res, void* out, int B, int H, int W, int Cin,
                              int Cout, int act, float ns, int bf16, void* stream) {
   using namespace fcvsr;
+  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || Cin > tc::kCinMax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return conv_dispatch<__nv_bfloat16>(x, w, bias, res, out, B, H, W, Cin, Cout, act,
-                                        ns, s);
-  return conv_dispatch<float>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, s);
+    return tc::launch_one<__nv_bfloat16>(x, w, bias, res, out, B, H, W, Cin, Cout, act,
+                                         ns, s);
+  return tc::launch_one<float>(x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, s);
 }
 
 // w1: (3,3,Cin,C1), w2: (3,3,C1,Cout) contiguous; b1, b2 may be null.  x and
@@ -577,12 +800,12 @@ extern "C" int fcvsr_conv3x3_pair(const void* x, const float* w1, const float* b
                                   int bf16, void* stream) {
   using namespace fcvsr;
   if (B < 1 || H < 1 || W < 1 || Cin < 1 || C1 < 1 || Cout < 1 ||
-      Cin > pair::kCinMax || C1 > pair::kC1Max || Cout > pair::kCoutMax)
+      Cin > tc::kCinMax || C1 > tc::kC1Max || Cout > tc::kCoutMax)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return pair::pair_dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1,
+    return tc::pair_dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1,
                                               Cout, ns1, s);
-  return pair::pair_dispatch<float>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1,
+  return tc::pair_dispatch<float>(x, w1, b1, w2, b2, out, B, H, W, Cin, C1, Cout, ns1,
                                     s);
 }

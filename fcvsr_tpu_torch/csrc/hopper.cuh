@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks, written as PTX: mbarriers, TMA tensor
 // loads on a tensor map, the wgmma shared-memory descriptors and the bf16
 // warpgroup MMA with float32 sums.  Used by the rows-conv probes' GEMM
-// stream (K9, csrc/microbench/conv2.cu) and by the SCNet conv pair (K2,
-// csrc/conv3x3.cu), whose operands are in the no-swizzle layout below.
+// stream (K9, csrc/microbench/conv2.cu) and by the SCNet conv pair and
+// single conv (K2, K3: csrc/conv3x3.cu), whose operands are in the
+// no-swizzle layout below.
 //
 // Layouts.  Every operand tile in shared memory is in the 128-byte swizzle
 // that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and a wgmma descriptor of

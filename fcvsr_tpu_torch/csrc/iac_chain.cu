@@ -22,8 +22,8 @@
 // at flow-displaced positions anywhere in the frame, so the barrier between
 // iterations is grid-wide.  The launch is cooperative and persistent: the
 // grid is as large as the card holds co-resident (the occupancy query times
-// the SM count, never the tile count), each block loops over K1's tiles
-// (iac_tile.cuh: 8x16 pixels x 16 channels), and
+// the SM count, never the tile count), each block loops over the tiles of
+// iac_tile.cuh (8x16 pixels x 16 channels: K1's earlier body), and
 // cooperative_groups::this_grid().sync() separates the iterations.
 // Iteration 0 reads feat_in, only the last writes out, and the maps the
 // launch itself wrote are read through L2 (ld.global.cg), since L1 is not
@@ -63,10 +63,9 @@ iac_chain_kernel(const T* __restrict__ feat_in, const float* __restrict__ flows,
       r /= tiles_x;
       const int ty = r % tiles_y;
       r /= tiles_y;
-      iac::tile<T, false, true>(smem, r / nchunk, ty * iac::TH, tx * iac::TW,
-                                (r % nchunk) * iac::CC, src, flows + i * flow_stride,
-                                k, nullptr, k_ld, i * 3 * C, nullptr, nullptr, 0,
-                                feat_in, dst, H, W, C, act);
+      iac::tile<T, true>(smem, r / nchunk, ty * iac::TH, tx * iac::TW,
+                         (r % nchunk) * iac::CC, src, flows + i * flow_stride, k,
+                         k_ld, i * 3 * C, feat_in, dst, H, W, C, act);
       __syncthreads();  // the next tile overwrites the kernels this one read
     }
     if (i + 1 < ac) grid.sync();
@@ -78,7 +77,7 @@ int launch(const void* feat_in, const float* flows, const void* k, void* buf0,
            void* buf1, void* out, int B, int H, int W, int C, int ac, int act_last,
            cudaStream_t stream) {
   constexpr auto kernel = &iac_chain_kernel<T>;
-  const size_t smem = iac::smem_bytes(false, 0);
+  const size_t smem = iac::smem_bytes();
   cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return (int)err;
   int dev = 0, coop = 0, sms = 0, per_sm = 0;

@@ -1,5 +1,6 @@
-// The tile body of one exact IAC iteration, shared by the per-iteration
-// kernel (iac.cu, K1) and the resident chain (iac_chain.cu, K4):
+// The tile body of one exact IAC iteration run by the resident chain
+// (iac_chain.cu, K4), and by the per-iteration kernel (K1) before its
+// redesign (iac.cu's note):
 //
 //   out = act(SAC_k1,k1(warp_bilinear_zeros(feat, flow)) + feat_in)
 //
@@ -22,33 +23,25 @@ constexpr int CC = 16;   // channels per block
 constexpr int HR = TH + 2, HC = TW + 2;  // warped tile with its SAC halo
 
 // Dynamic shared memory of one block: the warped tile, the kernels, the
-// vertical pass; with fused kernel prediction also Wsel's c0 rows and the
-// bias.
-inline size_t smem_bytes(bool kf, int c0) {
-  size_t n = HR * HC * CC + TH * HC * 3 * CC + TH * HC * CC;
-  if (kf) n += (size_t)(c0 + 1) * 3 * CC;
-  return n * sizeof(float);
+// vertical pass.
+inline size_t smem_bytes() {
+  return (HR * HC * CC + TH * HC * 3 * CC + TH * HC * CC) * sizeof(float);
 }
 
 // One tile of image b, rows from y0, columns from x0, channels from ch0.
 // k: the materialised kernels (B,H,W,k_ld), this iteration's tap-major
-// block at columns [k_off, k_off + 3C); with KF the kernels are
-// f0 . wsel + bsel instead (f0 (B,H,W,c0), wsel (c0, k_ld), bsel (k_ld),
-// the same columns).  kL2Src reads feat through L2 only: the resident
-// chain's source was written by other blocks of the same launch.
-template <typename T, bool KF, bool kL2Src>
+// block at columns [k_off, k_off + 3C).  kL2Src reads feat through L2
+// only: the resident chain's source was written by other blocks of the
+// same launch.
+template <typename T, bool kL2Src>
 __device__ __forceinline__ void tile(
     float* smem, int b, int y0, int x0, int ch0, const T* __restrict__ feat,
-    const float* __restrict__ flow, const T* __restrict__ k,
-    const float* __restrict__ wsel, int k_ld, int k_off,
-    const T* __restrict__ f0, const float* __restrict__ bsel, int c0,
+    const float* __restrict__ flow, const T* __restrict__ k, int k_ld, int k_off,
     const T* __restrict__ feat_in, T* __restrict__ out, int H, int W, int C,
     bool act) {
   float* warp_s = smem;                   // [HR][HC][CC]
   float* k_s = warp_s + HR * HC * CC;     // [TH][HC][3][CC]
   float* v_s = k_s + TH * HC * 3 * CC;    // [TH][HC][CC]
-  float* w_s = v_s + TH * HC * CC;        // KF: [c0][3][CC], then b [3][CC]
-  float* b_s = w_s + c0 * 3 * CC;
 
   const int tid = threadIdx.x;
   const size_t pix0 = (size_t)b * H * W;  // first pixel of this image
@@ -82,31 +75,13 @@ __device__ __forceinline__ void tile(
   }
 
   // 2. the kernels of the TH x HC pixels the two passes read
-  if constexpr (KF) {
-    for (int e = tid; e < (c0 + 1) * 3 * CC; e += kThreads) {
-      const int ch = e % CC, t = (e / CC) % 3, ci = e / (3 * CC);
-      const int col = k_off + t * C + ch0 + ch;
-      float val = 0.f;
-      if (ch0 + ch < C) val = ci < c0 ? wsel[(size_t)ci * k_ld + col] : bsel[col];
-      w_s[e] = val;  // the row ci == c0 lands in b_s
-    }
-    __syncthreads();
-  }
   for (int e = tid; e < TH * HC * 3 * CC; e += kThreads) {
     const int ch = e % CC, t = (e / CC) % 3, p = e / (3 * CC);
     const int yy = min(y0 + p / HC, H - 1);
     const int xx = clampi(x0 - 1 + p % HC, 0, W - 1);
     const size_t pix = pix0 + (size_t)yy * W + xx;
     float val = 0.f;
-    if (ch0 + ch < C) {
-      if constexpr (KF) {
-        const T* fp = f0 + pix * c0;
-        for (int ci = 0; ci < c0; ++ci) val += to_f32(fp[ci]) * w_s[(ci * 3 + t) * CC + ch];
-        val += b_s[t * CC + ch];
-      } else {
-        val = to_f32(k[pix * k_ld + k_off + t * C + ch0 + ch]);
-      }
-    }
+    if (ch0 + ch < C) val = to_f32(k[pix * k_ld + k_off + t * C + ch0 + ch]);
     k_s[e] = val;
   }
   __syncthreads();

@@ -206,13 +206,16 @@ def edited_sources(source: str, edits) -> dict:
     text of ``source``, ``[file, old, new]`` of that file; an edit whose old
     text is missing raises ValueError.  ``edits`` given as a directory's
     path takes the files it has (another version of the kernel) in place
-    of the tree's."""
+    of the tree's; ``{"dir": path, "edits": [...]}`` edits those."""
     names = [source, *(h.name for h in csrc_headers())]
+    root = CSRC
     if isinstance(edits, str):
-        root = Path(edits)
-        return {n: ((root / n) if (root / n).is_file() else CSRC / n)
-                .read_text() for n in names}
-    texts = {n: (CSRC / n).read_text() for n in names}
+        edits = {"dir": edits, "edits": []}
+    if isinstance(edits, dict):
+        root, edits = Path(edits["dir"]), edits["edits"]
+        names += [p.name for p in root.glob("*.cuh") if p.name not in names]
+    texts = {n: ((root / n) if (root / n).is_file() else CSRC / n).read_text()
+             for n in names}
     for edit in edits:
         name, old, new = edit if len(edit) == 3 else (source, *edit)
         if old not in texts[name]:

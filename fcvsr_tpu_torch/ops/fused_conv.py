@@ -13,12 +13,12 @@ it runs the plain version, under ordinary autograd.  ``conv3x3.launches``,
 launches.
 
 Storage: the maps (x, res, the outputs, and the pair's intermediate) are
-float32 or bfloat16, weights and biases float32.  The conv and quad kernels
-compute in float32; the pair's kernel multiplies on the tensor cores, in
-bf16 parts with float32 sums, within 3 x 2^-16 of each product
-(:func:`conv3x3_pair_emulated`).  All round where they store; the plain
-versions compute in float32 and round at the same handoffs: the pair's
-intermediate and each output.
+float32 or bfloat16, weights and biases float32.  The quad kernel computes
+in float32; the conv's and the pair's kernels multiply on the tensor cores,
+in bf16 parts with float32 sums, within 3 x 2^-16 of each product
+(:func:`conv3x3_emulated`, :func:`conv3x3_pair_emulated`).  All round where
+they store; the plain versions compute in float32 and round at the same
+handoffs: the pair's intermediate and each output.
 bf16 and :func:`conv3x3_quad` are serving options: under autograd the
 wrappers take float32 only and the quad raises.
 
@@ -40,8 +40,8 @@ from . import _native
 
 __all__ = ["conv3x3", "conv3x3_pair", "conv3x3_quad", "conv3x3_plain",
            "conv3x3_pair_plain", "conv3x3_quad_plain", "prep_weight",
-           "conv3x3_pair_emulated", "PAIR_ROUTES", "PAIR_MAX_CHANNELS",
-           "Conv3x3Fn", "Conv3x3PairFn"]
+           "conv3x3_emulated", "conv3x3_pair_emulated", "PAIR_ROUTES",
+           "CONV_MAX_CIN", "PAIR_MAX_CHANNELS", "Conv3x3Fn", "Conv3x3PairFn"]
 
 
 def prep_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
@@ -97,27 +97,41 @@ PAIR_ROUTES = {
 }
 
 
+def _conv_route(a, w, bias, route: str):
+    """conv3x3_same(a, w) + bias with the products a tensor-core route
+    makes: the map and the weights rounded to TF32 or bf16 (on their bits,
+    to nearest even), each split into its rounding (hi) and the rounding of
+    the rest (lo), the route's products of the parts summed in float32
+    (:data:`PAIR_ROUTES`; a product of two such parts is exact in
+    float32)."""
+    drop, products = PAIR_ROUTES[route]
+    parts_a, parts_w = _split(a.float(), drop), _split(w, drop)
+    y = sum(_conv_plain(parts_a[i], parts_w[j], None) for i, j in products)
+    return y if bias is None else y + bias
+
+
+def conv3x3_emulated(x, w_hwio, bias=None, res=None, act: bool = False,
+                     neg_slope: float = 0.2, route: str = "bf16x3"):
+    """:func:`conv3x3_plain` with its products as ``route`` makes them
+    (:func:`_conv_route`).  K3's kernel takes "bf16x3" for float32 maps and
+    "bf16_w2" for bf16 maps.  The CPU test of the route
+    (tests/test_torch_conv_tc.py); no model calls it."""
+    y = _conv_route(x, w_hwio, bias, route)
+    if res is not None:
+        y = y + res.float()
+    return (F.leaky_relu(y, neg_slope) if act else y).to(x.dtype)
+
+
 def conv3x3_pair_emulated(x, w1, b1, w2, b2, ns1: float = 0.2,
                           route: str = "bf16x3"):
     """:func:`conv3x3_pair_plain` with each conv's products as a tensor-core
-    route makes them: the map and the weights rounded to TF32 or bf16 (on
-    their bits, to nearest even), each split into its rounding (hi) and the
-    rounding of the rest (lo), the route's products of the parts summed in
-    float32 (:data:`PAIR_ROUTES`; a product of two such parts is exact in
-    float32).  K2's kernel takes "bf16x3" for float32 maps and "bf16_w2"
-    for bf16 maps (whose parts are exact: their lo is 0).  The
-    intermediate and the output are in x's storage type.  The CPU test of
-    the choice (tests/test_torch_conv_tc.py); no model calls it."""
-    drop, products = PAIR_ROUTES[route]
-
-    def conv(a, w, bias):
-        parts_a, parts_w = _split(a, drop), _split(w, drop)
-        y = sum(_conv_plain(parts_a[i], parts_w[j], None)
-                for i, j in products)
-        return y if bias is None else y + bias
-
-    mid = F.leaky_relu(conv(x.float(), w1, b1), ns1).to(x.dtype)
-    return conv(mid.float(), w2, b2).to(x.dtype)
+    route makes them (:func:`_conv_route`).  K2's kernel takes "bf16x3" for
+    float32 maps and "bf16_w2" for bf16 maps (whose parts are exact: their
+    lo is 0).  The intermediate and the output are in x's storage type.
+    The CPU test of the choice (tests/test_torch_conv_tc.py); no model
+    calls it."""
+    mid = F.leaky_relu(_conv_route(x, w1, b1, route), ns1).to(x.dtype)
+    return _conv_route(mid, w2, b2, route).to(x.dtype)
 
 
 def conv3x3_quad_plain(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
@@ -206,12 +220,19 @@ def _check_weight(w, b, cin, name, dev):
     return w.shape[3]
 
 
+# the input channels K3's kernel takes (its shared memory holds four window
+# rows of Cin and every tap's weights; csrc/conv3x3.cu)
+CONV_MAX_CIN = 64
+
+
 def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
             neg_slope: float = 0.2):
     """act(conv3x3_same(x) + bias + res).  x: (B, H, W, Cin); w_hwio:
     (3, 3, Cin, Cout); bias: (Cout,) or None; res: (B, H, W, Cout) or None,
-    added before the optional leaky relu.  On a CUDA tensor that autograd
-    records it runs :class:`Conv3x3Fn`."""
+    added before the optional leaky relu.  On the card Cin is at most
+    :data:`CONV_MAX_CIN` (larger raise).  On a CUDA tensor that autograd
+    records it runs :class:`Conv3x3Fn`.  The kernel's products:
+    :func:`conv3x3_emulated`."""
     if _native.on_cpu(x):
         return conv3x3_plain(x, w_hwio, bias, res, act, neg_slope)
     if _native.records(x, w_hwio, bias, res):
@@ -221,6 +242,9 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
     dev = x.device
     _native.require(x, "x", dev, dtype=x.dtype)
     cout = _check_weight(w_hwio, bias, cin, "w", dev)
+    if cin > CONV_MAX_CIN:
+        raise ValueError(f"conv3x3's kernel takes Cin up to {CONV_MAX_CIN}, "
+                         f"got {cin}")
     if res is not None:
         _native.require(res, "res", dev, (b, h, w, cout), dtype=x.dtype)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)

@@ -9,7 +9,7 @@ Counterpart of ``fcvsr_tpu.ops.pallas_iac``'s ``warp_sac_fused``,
     out = leaky_relu_0.1(sac_k1,k1(flow_warp(feat, flow)) + feat_in)
 
 with the activation skipped when ``act`` is False.  Unlike the TPU kernel
-the warp is unbounded (no radius clamp) and nothing constrains H, W or C.
+the warp is unbounded (no radius clamp) and nothing constrains H or W.
 :func:`iac_fused_resident` runs the whole chain in one launch of
 ``iac_chain.cu``.  :func:`warp_sac_bwd` is the iteration's exact adjoint
 without the residual and the activation, two launches (the SAC adjoint,
@@ -19,8 +19,14 @@ Storage: the serving wrappers take float32 or bfloat16 maps (feat, k, f0,
 feat_in; the output has their type) and float32 flows, ``wsel`` and
 ``bsel``.  The kernels compute in float32 and round where they store; the
 plain versions compute in float32 and round each iteration's output to
-the maps' type, as the kernels store it.  bf16 is a serving option: the
-training path (:class:`IACChainFn`, the adjoint) is float32.
+the maps' type, as the kernels store it.  With fused kernel prediction
+the kernel multiplies f0 by Wsel on the tensor cores, in TF32 parts for
+float32 maps and bf16 parts for bf16 maps, with float32 sums
+(:func:`predict_kernels_emulated`; Wsel's parts are made once a weight
+version by :func:`wsel_planes`).  On the card C is at most
+:data:`IAC_MAX_CHANNELS` and C0 at most :data:`IAC_MAX_C0`.  bf16 is a
+serving option: the training path (:class:`IACChainFn`, the adjoint) is
+float32.
 
 Training: on a CUDA tensor that autograd records, :func:`iac_fused` runs
 :class:`IACChainFn`, whose forward launches the iterations and keeps each
@@ -36,17 +42,26 @@ their launches in ``.launches``.
 
 from __future__ import annotations
 
+import weakref
+
 import torch
 import torch.nn.functional as F
 
 from . import _native
+from .fused_conv import PAIR_ROUTES, _split
 from .sac import sac
 from .warp import flow_warp
 
 __all__ = ["warp_sac_fused", "warp_sac_fused_kf", "warp_sac_bwd", "iac_fused",
            "iac_fused_kf", "iac_fused_resident", "IACChainFn",
            "warp_sac_plain", "iac_chain_plain", "warp_sac_vjp_plain",
-           "predict_kernels"]
+           "predict_kernels", "predict_kernels_emulated", "wsel_planes",
+           "IAC_MAX_CHANNELS", "IAC_MAX_C0"]
+
+# what K1's kernel takes (csrc/iac.cu): its shared memory holds the warped
+# tile of every channel; the prediction's B fragments stay in registers
+IAC_MAX_CHANNELS = 128
+IAC_MAX_C0 = 64
 
 
 def predict_kernels(f0, wsel, bsel, it: int, channels: int):
@@ -55,6 +70,48 @@ def predict_kernels(f0, wsel, bsel, it: int, channels: int):
     cols = slice(it * 3 * channels, (it + 1) * 3 * channels)
     return torch.einsum("bhwc,ck->bhwk", f0.float(), wsel[:, cols]) \
         + bsel[cols]
+
+
+def predict_kernels_emulated(f0, wsel, bsel, it: int, channels: int,
+                             route: str = "3xtf32"):
+    """:func:`predict_kernels` with its products as a tensor-core ``route``
+    makes them (``fused_conv.PAIR_ROUTES``): f0 and wsel rounded on their
+    bits, split into hi and lo parts, the route's products summed in
+    float32.  K1's kf kernel takes "3xtf32" for float32 f0 and "bf16_w2"
+    for bf16 f0 (exact in bf16); "bf16x3" misses its bar (the CPU test of
+    the route, tests/test_torch_iac_tc.py).  No model calls it."""
+    drop, products = PAIR_ROUTES[route]
+    cols = slice(it * 3 * channels, (it + 1) * 3 * channels)
+    parts_f, parts_w = _split(f0.float(), drop), _split(wsel[:, cols], drop)
+    k = sum(torch.einsum("bhwc,ck->bhwk", parts_f[i], parts_w[j])
+            for i, j in products)
+    return k + bsel[cols]
+
+
+# (id(wsel), tf32) -> (weakref to wsel, its version, its planes)
+_planes = {}
+
+
+def wsel_planes(wsel, tf32: bool = False):
+    """Wsel (C0, K) float32 as the kf kernel's B operand: (2, K, C0P),
+    Wsel's transpose rounded (hi) and the rounding of what is left (lo), C0
+    padded to C0P, a multiple of 16, with zeros; bfloat16, or with ``tf32``
+    TF32 values in float32 (the float32 maps' route).  Made once a weight
+    version: kept while ``wsel`` lives and is not written to."""
+    key = (id(wsel), tf32)
+    hit = _planes.get(key)
+    if hit is not None and hit[0]() is wsel and hit[1] == wsel._version:
+        return hit[2]
+    for dead in [k for k, v in _planes.items() if v[0]() is None]:
+        del _planes[dead]
+    c0, n = wsel.shape
+    wt = wsel.new_zeros((n, -(-c0 // 16) * 16))
+    wt[:, :c0] = wsel.detach().t()
+    planes = torch.stack(_split(wt, 13 if tf32 else 16))
+    if not tf32:  # bf16 values already: the cast is exact
+        planes = planes.bfloat16()
+    _planes[key] = (weakref.ref(wsel), wsel._version, planes)
+    return planes
 
 
 def warp_sac_plain(feat, flow, k, feat_in, act: bool = True, it: int = 0):
@@ -82,6 +139,9 @@ def _check_common(feat, flow, feat_in):
     b, h, w, c = feat.shape
     dev, dt = feat.device, feat.dtype
     _native.require(feat, "feat", dev, dtype=dt)
+    if c > IAC_MAX_CHANNELS:
+        raise ValueError(f"the IAC kernel takes C up to {IAC_MAX_CHANNELS}, "
+                         f"got {c}")
     _native.require(flow, "flow", dev, (b, h, w, 2))
     _native.require(feat_in, "feat_in", dev, (b, h, w, c), dtype=dt)
     return b, h, w, c
@@ -126,9 +186,10 @@ warp_sac_fused.launches = 0
 def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
                       it: int = 0):
     """One IAC iteration with fused kernel prediction: the kernels are
-    f0 . wsel + bsel, computed in the kernel.  f0: (B, H, W, C0), a map
-    (feat's type); wsel: (C0, n*3C) and bsel: (n*3C,) float32, iteration
-    ``it``'s 3C columns used."""
+    f0 . wsel + bsel, computed in the kernel (on the tensor cores:
+    :func:`predict_kernels_emulated`).  f0: (B, H, W, C0), a map (feat's
+    type); wsel: (C0, n*3C) and bsel: (n*3C,) float32, iteration ``it``'s
+    3C columns used."""
     c = feat.shape[-1]
     if _native.on_cpu(feat):
         k = predict_kernels(f0, wsel, bsel, it, c)
@@ -144,11 +205,15 @@ def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
             k_ld % (3 * c) or not 0 <= it < k_ld // (3 * c):
         raise ValueError(f"f0 {tuple(f0.shape)} / wsel {tuple(wsel.shape)} "
                          f"do not fit feat {tuple(feat.shape)}, it={it}")
+    if c0 > IAC_MAX_C0:
+        raise ValueError(f"the IAC kernel's prediction takes C0 up to "
+                         f"{IAC_MAX_C0}, got {c0}")
+    planes = wsel_planes(wsel, tf32=feat.dtype == torch.float32)
     out = torch.empty_like(feat)
     lib = _native.lib()
     with _native.launch_guard(feat) as stream:
         rc = lib.fcvsr_iac_step(
-            feat.data_ptr(), flow.data_ptr(), wsel.data_ptr(), k_ld,
+            feat.data_ptr(), flow.data_ptr(), planes.data_ptr(), k_ld,
             it * 3 * c, f0.data_ptr(), bsel.data_ptr(), c0,
             feat_in.data_ptr(), out.data_ptr(), b, h, w, c, int(act),
             _native.storage(feat), stream)

@@ -45,9 +45,9 @@ from .train.lr_schedule import build_schedule
 from .train.trainer import TrainState
 from .utils.config import preset
 
-__all__ = ["cuda_ms", "bound", "card", "need_device", "stage_times",
-           "device_profile", "serving_compare", "train_step_times",
-           "train_profile", "main"]
+__all__ = ["cuda_ms", "warm_ms", "bound", "card", "need_device",
+           "stage_times", "device_profile", "serving_compare",
+           "train_step_times", "train_profile", "main"]
 
 # FCVSRNet children timed as stages; the tail convs are summed as one
 STAGES = {"feat_extract": "feat_extract", "MGAA": "MGAA",
@@ -83,6 +83,26 @@ def cuda_ms(fns, reps: int = 7, warmup: int = 2) -> list:
             end.record()
             torch.cuda.synchronize()
             ts.append(start.elapsed_time(end))
+    return [float(np.median(ts)) for ts in times]
+
+
+def warm_ms(fns, n: int = 20, reps: int = 5) -> list:
+    """Median CUDA-event ms a call of each callable, ``n`` calls back to
+    back between one event pair (the host's launch path runs ahead of the
+    device), the callables timed in turns after one warm-up round."""
+    times = [[] for _ in fns]
+    for rep in range(reps + 1):
+        for f, ts in zip(fns, times):
+            torch.cuda.synchronize()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n):
+                f()
+            end.record()
+            torch.cuda.synchronize()
+            if rep:
+                ts.append(start.elapsed_time(end) / n)
     return [float(np.median(ts)) for ts in times]
 
 

@@ -17,6 +17,14 @@ px, seeded with numpy) each route is held to the float64 pair:
 
 The emulation is also held to the plain version (float32) and to the JAX
 package's conv3x3_pair_rows in interpret mode.
+
+The single conv (K3, the same kernel file's one-conv case of K2's main
+loop) takes the same routes: ``fused_conv.conv3x3_emulated`` at 64 -> 64
+with its residual and leaky relu, and at conv_last0's 64 -> 3 and 64 -> 1,
+is held to the float64 conv at CONV_RTOL (float32 maps, bf16x3) and
+BF16_RTOL (bf16 maps, two passes).  The IAC kernel's A/B script
+(benchmarks/iac_ab.py) is held to its source: its edits apply and each
+variant's tree is written and built by a fake nvcc.
 """
 
 import jax.numpy as jnp
@@ -169,7 +177,62 @@ def test_pair_ab_one_pass_edit_applies():
     assert one == base.replace(*pair_ab.ONE_PASS)
 
 
-@pytest.mark.parametrize("source", ["conv3x3.cu", "microbench/conv2.cu"])
+@pytest.mark.parametrize("cout", [64, 3, 1])
+@pytest.mark.parametrize("dtype,route,bar", [
+    (torch.float32, "bf16x3", CONV_RTOL), (torch.bfloat16, "bf16_w2", BF16_RTOL)])
+def test_conv_route_against_float64(cout, dtype, route, bar):
+    """K3's route for each storage type against the float64 conv with its
+    bias, residual and leaky relu (the maps rounded to the storage type as
+    the kernel reads them); bf16 output against the bar of max|out|."""
+    rng = np.random.default_rng(4)
+    x = _t(rng.standard_normal((1, 12, 20, 64))).to(dtype)
+    w = rng.standard_normal((3, 3, 64, cout)) * 0.04
+    b = rng.standard_normal(cout) * 0.1
+    res = _t(rng.standard_normal((1, 12, 20, cout))).to(dtype)
+    ref = torch.nn.functional.leaky_relu(fused_conv._conv_plain(
+        x.double(), _t(w, torch.float64), _t(b, torch.float64))
+        + res.double(), 0.2)
+    torch.set_num_threads(1)
+    got = fused_conv.conv3x3_emulated(x, _t(w), _t(b), res, True, 0.2, route)
+    assert got.dtype == dtype and got.shape == (1, 12, 20, cout)
+    scale = max(1.0, float(ref.abs().max())) if dtype == torch.float32 \
+        else float(ref.abs().max())
+    err = float((got.double() - ref).abs().max())
+    assert err <= bar * scale, (err, bar * scale)
+    if dtype == torch.float32:  # and one bf16 pass does not hold it
+        one = fused_conv.conv3x3_emulated(x, _t(w), _t(b), res, True, 0.2,
+                                          "bf16")
+        assert float((one.double() - ref).abs().max()) > bar * scale
+
+
+def test_iac_ab_edits_apply(tmp_path, monkeypatch):
+    """The IAC A/B's takeouts match the kernel's source, and a fake nvcc
+    is handed each variant's tree, the edit applied."""
+    from fcvsr_tpu_torch.benchmarks import iac_ab
+    from fcvsr_tpu_torch.ops import _native
+
+    runs = iac_ab.variants(True, None, {})
+    assert list(runs) == ["base", *iac_ab.TAKEOUTS]
+    base = _native.edited_sources(iac_ab.SOURCE, [])[iac_ab.SOURCE]
+    for name, edits in iac_ab.TAKEOUTS.items():
+        text = _native.edited_sources(iac_ab.SOURCE, edits)[iac_ab.SOURCE]
+        for old, new in edits:
+            assert old in base and new in text and old not in text, name
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text("#!/bin/sh\necho 'error: no card here'\nexit 2\n")
+    nvcc.chmod(0o755)
+    monkeypatch.setattr(_native, "_nvcc", lambda: str(nvcc))
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="no card here"):
+        _native.build_variants("iac_ab", iac_ab.SOURCE, runs,
+                               "fcvsr_iac_step", [])
+    for name, edits in iac_ab.TAKEOUTS.items():
+        written = (tmp_path / "build" / "iac_ab" / name / "iac.cu").read_text()
+        assert all(new in written for _, new in edits), name
+
+
+@pytest.mark.parametrize("source", ["conv3x3.cu", "microbench/conv2.cu",
+                                    "iac.cu"])
 def test_build_variants_writes_each_tree_and_raises_on_nvcc(
         tmp_path, monkeypatch, source):
     """Each A/B variant's tree (the source at its path under csrc/, every

@@ -5,9 +5,9 @@ these without the repository's conftest (which configures JAX):
 
     python -m pytest tests/test_torch_kernels_gpu.py -q --noconftest
 
-Shapes are small and odd: H and W not multiples of the tiles (IAC and its
-adjoint 8x16, conv 8x16 / 16x16), channel counts not multiples of the
-16-channel chunks, C_out 1 and 3; the conv pair (K2, on the tensor cores)
+Shapes are small and odd: H and W not multiples of the tiles (IAC 8x14,
+its adjoint 8x16, the conv's row segments of 64 and 128 pixels), channel
+counts not multiples of the 8- and 16-channel chunks, C_out 1 and 3; the conv pair (K2, on the tensor cores)
 also with W past its 62-pixel segments, H past its row blocks, B 2, a
 pixel stride that is not a multiple of 16 bytes, and in its one-pass
 route, with its SASS holding wgmma; the DCN at frames smaller than its
@@ -27,6 +27,11 @@ to their plain versions the same way, and the model's: the whole gradient
 and the median tensor to 1e-3 of their norm, the per-tensor bar of the CPU test against JAX
 (tests/test_torch_train.py), each tensor to 5e-2 (an activation within f32
 noise of 0 flips on one device; chip_smoke.py says more).
+
+K1 (8x14 tiles, 8-channel blocks, the kf prediction on mma.sync) and K3
+(the one-conv case of K2's wgmma loop, 64- and 128-pixel segments, Cout
+tiles of 64) also at the edges of their tiles, float32 and bf16 maps,
+with their SASS holding tensor-core instructions.
 
 The serving kernels of the --fast path: the resident IAC chain (K4, one
 cooperative launch) and the BlockRCB quad (K6), in float32 and bf16
@@ -191,6 +196,99 @@ def test_conv_kernel_matches_plain(cuda, h, w, cin, cout, res, act):
     got = fused_conv.conv3x3(x, wt, b, r, act, 0.2)
     ref = fused_conv.conv3x3_plain(x, wt, b, r, act, 0.2)
     _assert_close(got, ref, 1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kf", [False, True])
+@pytest.mark.parametrize("b,h,w,c,c0,flow_scale", [
+    (2, 8, 29, 20, 5, 400.0),    # H one tile, W past 2 tiles of 14, C % 8 4
+    (2, 9, 15, 12, 24, 2.0),     # H < tile + 2, W one column past a tile
+    (1, 17, 28, 64, 64, 25.0),   # FCVSR's C and C0, H past 2 tiles
+    (1, 3, 5, 7, 16, 1.5),       # a frame smaller than a tile, C odd
+])
+def test_iac_tile_edges(cuda, dtype, kf, b, h, w, c, c0, flow_scale):
+    """K1 at the edges of its 8x14 tiles and its 8-channel blocks, both
+    modes (the kf prediction on the tensor cores), float32 and bf16 maps,
+    flows up to 400 px (out of the frame), against the plain version."""
+    feat = _rand(cuda, 120, b, h, w, c).to(dtype)
+    fin = _rand(cuda, 121, b, h, w, c).to(dtype)
+    flow = _rand(cuda, 122, b, h, w, 2, scale=flow_scale)
+    k = _rand(cuda, 123, b, h, w, 2 * 3 * c, scale=0.3).to(dtype)
+    f0 = _rand(cuda, 124, b, h, w, c0).to(dtype)
+    wsel = _rand(cuda, 125, c0, 2 * 3 * c, scale=0.2)
+    bsel = _rand(cuda, 126, 2 * 3 * c, scale=0.1)
+    for it, act in ((0, True), (1, False)):
+        if kf:
+            got = fused_iac.warp_sac_fused_kf(feat, flow, f0, wsel, bsel, fin,
+                                              act, it)
+            ref = fused_iac.warp_sac_plain(
+                feat, flow, fused_iac.predict_kernels(f0, wsel, bsel, it, c),
+                fin, act)
+        else:
+            got = fused_iac.warp_sac_fused(feat, flow, k, fin, act, it)
+            ref = fused_iac.warp_sac_plain(feat, flow, k, fin, act, it)
+        assert got.dtype == dtype and got.shape == fin.shape
+        _assert_close_as(got, ref, 2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,w,cin,cout,res,act", [
+    (1, 5, 130, 64, 64, True, False),   # W past 2 segments of 64
+    (2, 3, 7, 64, 1, False, False),     # H below a block's rows, Cout 1
+    (1, 40, 200, 64, 3, True, True),    # segments of 128 cut at W, Cout 3
+    (1, 301, 70, 24, 70, True, True),   # 2 Cout tiles; pixel stride 96 (48) B
+    (2, 9, 65, 6, 5, False, True),      # stride 24 (12) bytes: element loads
+])
+def test_conv_tc_kernel_edges(cuda, dtype, b, h, w, cin, cout, res, act):
+    """K3 on the tensor cores at the edges of its row segments (64 pixels,
+    128 for Cout <= 8), its row blocks and its Cout tiles of 64, with and
+    without residual and activation, float32 (bf16x3) and bf16 maps."""
+    x = _rand(cuda, 130, b, h, w, cin).to(dtype)
+    wt = _rand(cuda, 131, 3, 3, cin, cout, scale=0.1)
+    bias = _rand(cuda, 132, cout)
+    r = _rand(cuda, 133, b, h, w, cout).to(dtype) if res else None
+    n0 = fused_conv.conv3x3.launches
+    got = fused_conv.conv3x3(x, wt, bias, r, act, 0.2)
+    assert fused_conv.conv3x3.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == (b, h, w, cout)
+    _assert_close_as(got, fused_conv.conv3x3_plain(x, wt, bias, r, act, 0.2),
+                     1e-4)
+
+
+def test_tc_kernels_refuse_what_they_do_not_take(cuda):
+    """K3 takes Cin up to 64; K1 C up to 128 and C0 up to 64."""
+    x = _rand(cuda, 140, 1, 4, 5, 72)
+    with pytest.raises(ValueError, match="up to"):
+        fused_conv.conv3x3(x, _rand(cuda, 141, 3, 3, 72, 8))
+    feat = _rand(cuda, 142, 1, 4, 5, 8)
+    flow = _rand(cuda, 143, 1, 4, 5, 2)
+    f0 = _rand(cuda, 144, 1, 4, 5, 80)
+    with pytest.raises(ValueError, match="up to"):
+        fused_iac.warp_sac_fused_kf(feat, flow, f0, _rand(cuda, 145, 80, 24),
+                                    _rand(cuda, 146, 24), feat)
+    wide = _rand(cuda, 147, 1, 4, 5, 136)
+    with pytest.raises(ValueError, match="up to"):
+        fused_iac.warp_sac_fused(wide, flow, _rand(cuda, 148, 1, 4, 5, 408),
+                                 wide)
+
+
+def test_iac_and_conv_kernels_run_on_the_tensor_cores(cuda):
+    """The SASS of K1's kf kernels holds mma.sync (HMMA), and of K3's
+    kernels wgmma (HGMMA) with at most SASS_FFMA_MAX FFMA (chip_smoke.py
+    checks the same)."""
+    from fcvsr_tpu_torch.ops import _native
+
+    path = _native.lib()._name
+    iac = _native.sass_ops(path, "iac_kernel", ("HMMA", "FFMA"))
+    one = _native.sass_ops(path, "conv3x3_one", ("HGMMA", "FFMA"))
+    if iac is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    kf = {n: ops for n, ops in iac.items() if "Lb1E" in n}
+    assert len(kf) == 2 and len(one) == 4, (iac, one)
+    for name, ops in kf.items():
+        assert ops["HMMA"] > 0, (name, ops)
+    for name, ops in one.items():
+        assert ops["HGMMA"] > 0 and ops["FFMA"] <= SASS_FFMA_MAX, (name, ops)
 
 
 def _flows(dev, seed, b, h, w, scale):
