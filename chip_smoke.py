@@ -10,9 +10,10 @@ Phases, one line or more each:
      and checked), its JSON printed;
   1. device and build: the card's name and power limit (nvidia-smi), torch
      and CUDA versions, the nvcc build of ``fcvsr_tpu_torch/csrc`` (one nvcc
-     a source, in parallel); the SASS of the conv pair's and the single
-     conv's kernels (K2, K3, ``cuobjdump -sass`` of the library) must hold
-     wgmma (HGMMA) and no FFMA main loop, and that of the IAC kernel's
+     a source, in parallel); the SASS of the conv pair's, the single
+     conv's and the quad's kernels (K2, K3, K6, ``cuobjdump -sass`` of the
+     library) must hold wgmma (HGMMA) and no FFMA main loop, and that of
+     the IAC kernel's
      fused-prediction instantiations (K1 kf) mma.sync (HMMA), their FFMA
      counts printed;
   2. every kernel of the serving and training paths against its plain
@@ -28,10 +29,11 @@ Phases, one line or more each:
      beside, K2 at SCNet's three levels (both pair shapes, each timed,
      its bound, the function's flops at the bf16 tensor-core rate,
      beside the float32 pipes', its route's passes' and, for float32
-     maps, 3xTF32's); the resident IAC chain (K4) at 272x480x64, 6 iterations, B 1
-     and 2, float32 and bf16, also against 6 K1 launches; the BlockRCB quad
-     (K6) at SCNet's three levels, float32 and bf16, also against 2 K2
-     launches; the IAC adjoint (K5) at the training shape and at small odd
+     maps, 3xTF32's); the resident IAC chain (K4) at 272x480x64, 6
+     iterations, B 1 and 2, float32 and bf16, also against 6 K1 launches,
+     bit for bit; the BlockRCB quad (K6) at SCNet's three levels, float32
+     and bf16, also against 2 K2 launches, bit for bit, its bound K2's
+     kind; the IAC adjoint (K5) at the training shape and at small odd
      shapes, the deformable conv (K7) at EDVR-M's and BasicVSR++'s shapes
      (its serving 192x320 and training 64x64), without a mask and at small
      odd shapes, its adjoint (K8) at the same cases and at the zoo's two
@@ -208,8 +210,8 @@ IAC_RTOL = 2e-5
 IAC_BWD_RTOL = 1e-5
 CONV_RTOL = 1e-4
 # the resident chain (K4) against the plain chain: IAC_RTOL carried through
-# 6 iterations; against K1 launched once an iteration, the same tile code:
-# IAC_RTOL
+# 6 iterations (against K1 launched once an iteration, which runs the same
+# tile body on the same values: exact)
 IAC_CHAIN_RTOL = 1e-4
 # bf16 storage, kernel against plain version: both round at the same
 # handoffs, but a value within reassociation noise of a rounding boundary
@@ -352,6 +354,8 @@ def phase_kernels(torch, dev):
             line.update(ms=times[0], plain_ms=times[1], bound_ms=bound_ms,
                         bound_by=bound_by, library_ms=None)
             line.update(zip(extra, times[2:]))
+            if yardstick:
+                line["ms_over_yardstick"] = line["ms"] / line["yardstick_ms"]
             if warm:
                 line["warm_ms"], line["warm_plain_ms"] = warm_ms([kern, plain])
             if beside:
@@ -451,6 +455,7 @@ def phase_kernels(torch, dev):
               CONV_RTOL, work=work, notes=notes)
         r1 = t(rng.standard_normal((3, 3, 64, 64)) * 0.04)
         r2 = t(rng.standard_normal((3, 3, 64, 64)) * 0.04)
+        quad = (w1, b1, w2, b2, r1, None, r2, None)
         work, notes = pair_work(px, 64, 64, 64)
         check("conv3x3_pair", f"64->64->64 nobias ns0.2 {h}x{w}",
               lambda: fused_conv.conv3x3_pair(x, r1, None, r2, None, 0.2),
@@ -492,17 +497,25 @@ def phase_kernels(torch, dev):
               BF16_RTOL, work=(rw[0] + 2 * px * 64, rw[1], BF16_FLOP_S),
               notes={"route": "bf16 x (w_hi + w_lo)"}, warm=True)
         # the BlockRCB quad (K6): the block pair (64->128->64, biases) and
-        # the RCB pair (64->64->64, none), y and out; against two pairs
-        quad = (w1, b1, w2, b2, r1, None, r2, None)
+        # the RCB pair (64->64->64, none), y and out; against two pairs,
+        # which run the same loop on the same partition: bit for bit.  Its
+        # bound, as K2's: the function's flops at the bf16 tensor-core
+        # rate, the float32 pipes' beside; bytes x read, y and out written
         for st, xs in (("f32", x), ("bf16", xb)):
+            sb = 4 if st == "f32" else 2
+            nbytes, flops = conv_work(px, 64, 128, 64, 64, 64, storage=sb,
+                                      outputs=(64, 64))
+            passes = 3 if sb == 4 else 2
             check("conv3x3_quad", f"{st} 64->128->64->64->64 {h}x{w}",
                   lambda: fused_conv.conv3x3_quad(xs, *quad),
                   lambda: fused_conv.conv3x3_quad_plain(xs, *quad),
                   CONV_RTOL if st == "f32" else BF16_RTOL,
-                  work=conv_work(px, 64, 128, 64, 64, 64,
-                                 storage=4 if st == "f32" else 2,
-                                 outputs=(64, 64)) if h == 272 else None,
-                  yardstick=("2 K2 launches", lambda: _two_pairs(xs, quad)))
+                  work=(nbytes, flops, BF16_FLOP_S),
+                  notes={"route_passes": passes,
+                         "route_passes_bound_ms": bound(
+                             nbytes, passes * flops, BF16_FLOP_S)[0]},
+                  yardstick=("2 K2 launches", lambda: _two_pairs(xs, quad),
+                             0.0))
         del xb, resb
 
     # the resident IAC chain (K4) at FCVSR's shape: 6 iterations, B 1 (the
@@ -526,7 +539,7 @@ def phase_kernels(torch, dev):
                   work=(px * (sb * (2 * c + n_it * 3 * c) + 4 * 2 * n_it),
                         22 * px * c * n_it),
                   yardstick=("6 K1 launches", lambda: fused_iac.iac_fused(
-                      fin, k, offs, n_it, c)))
+                      fin, k, offs, n_it, c), 0.0))
             del fin, k
         # K1, both variants, float32 (B 2; B 1 above) and bf16, at the
         # same shape
@@ -1516,7 +1529,10 @@ def main() -> None:
     one_sass = _native.sass_ops(_native.lib()._name, "conv3x3_one",
                                 ("HGMMA", "FFMA"))
     kf_sass = {n: ops for n, ops in (iac_sass or {}).items() if "Lb1E" in n}
-    say("iac_conv_sass", iac_kernels=iac_sass, conv3x3_kernels=one_sass)
+    quad_sass = _native.sass_ops(_native.lib()._name, "conv3x3_quad_kernel",
+                                 ("HGMMA", "FFMA"))
+    say("iac_conv_sass", iac_kernels=iac_sass, conv3x3_kernels=one_sass,
+        quad_kernels=quad_sass)
     if len(kf_sass) != 2 or any(not ops["HMMA"] for ops in kf_sass.values()):
         fail(f"iac_kernel's kf SASS: {iac_sass}, expected HMMA in both")
     if not one_sass or len(one_sass) != 4 or any(
@@ -1524,6 +1540,12 @@ def main() -> None:
             for ops in one_sass.values()):
         fail(f"conv3x3_one_kernel's SASS: {one_sass}, expected HGMMA and "
              f"at most {PAIR_SASS_FFMA_MAX} FFMA in each of 4")
+    # K6 runs K2's loop twice: 4 (N1, N1) instantiations a storage type
+    if not quad_sass or len(quad_sass) != 8 or any(
+            not ops["HGMMA"] or ops["FFMA"] > PAIR_SASS_FFMA_MAX
+            for ops in quad_sass.values()):
+        fail(f"conv3x3_quad_kernel's SASS: {quad_sass}, expected HGMMA and "
+             f"at most {PAIR_SASS_FFMA_MAX} FFMA in each of 8")
 
     results = phase_kernels(torch, dev)
     torch.cuda.empty_cache()

@@ -29,9 +29,10 @@
 // co-resident (the occupancy query times the SM count), and each block loops
 // over 8x16-pixel output tiles.  A grid that cannot be co-resident is
 // refused, never split.  Each conv pass runs the register tiles of
-// conv3x3.cuh over its tiles, with no halo recompute (what sinks K6).  The
-// last conv also takes each pixel's logit from the bf16-rounded r it stores
-// and keeps, per block and image, online-softmax partials: the max m_b, the
+// conv3x3.cuh over its tiles, with no halo recompute (what sank K6's first
+// design).  The last conv also takes each pixel's logit from the
+// bf16-rounded r it stores and keeps, per block and image, online-softmax
+// partials: the max m_b, the
 // sum s_b of exp(l - m_b) and ctx_b = sum exp(l - m_b) r.  After one more
 // barrier every block merges the partials of the images it holds, runs the
 // ContextBlock's MLP itself (no further barrier) and writes out over its

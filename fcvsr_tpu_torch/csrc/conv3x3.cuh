@@ -1,5 +1,5 @@
-// Device helpers of the float32-pipe 3x3 SAME conv kernels
-// (conv3x3_quad.cu: K6; blockrcb.cu: K11).  A block stages 16 input
+// Device helpers of the float32-pipe 3x3 SAME conv kernel of the BlockRCB
+// level (blockrcb.cu: K11).  A block stages 16 input
 // channels of a window and of the weights in shared memory; each thread
 // keeps a register tile of PPT pixels x CPT output channels, so every
 // shared-memory value it loads feeds 4-8 FMAs.  Neighbouring threads take

@@ -4,225 +4,171 @@
 //   out = conv4(lrelu_ns3(conv3(y) + b3)) + b4      (the RCB's pair)
 //
 // both emitted (the RCB residual needs y).  Replaces the TPU kernel
-// fcvsr_tpu/ops/pallas_conv.py::_quad_kernel (conv3x3_quad_rows).  It is
-// the same function as two fcvsr_conv3x3_pair launches (conv3x3.cu, K2),
-// with the same storage rounding at every handoff.
+// fcvsr_tpu/ops/pallas_conv.py::_quad_kernel (conv3x3_quad_rows), which
+// recomputes a halo so that y never leaves VMEM.  It is the same function
+// as two fcvsr_conv3x3_pair launches (conv3x3.cu, K2), with the same
+// products (bf16x3 for float maps, two bf16 products for bf16 maps) and
+// the same storage rounding at every handoff.
 //
-// Bound on the H100: arithmetic (57.8 GFLOP at a 272x480 map with FCVSR's
-// 64->128->64 and 64->64->64 convs, 0.86 ms on the f32 FMA pipes).  What
-// the fusion saves against two pair launches is y's round trip through
-// device memory and one launch; what it costs is halo recompute: the four
-// convs run from one input window, each on a region one pixel ring larger
-// than the next, so the window carries 4 rings and the first conv computes
-// (TH+6) x (TW+6) pixels for TH x TW outputs.  The 128-channel first
-// intermediate fills shared memory and sets the tile: 6x16 in float
-// storage (1.9x the pair chain's conv work... at 64->128 the first conv
-// alone 2.75x), 16x16 in bf16 (1.5x overall).  The regions live in shared
-// memory at the storage type T: the first intermediate (later overwritten
-// by the third), y (whose space first holds the staged input window), and
-// a 16-input-channel slice of the weights.  Every conv runs the register
-// tiles of conv3x3.cuh over passes of 256 pixels.  Values outside the frame
-// are zero in every region, which gives each conv SAME zero padding.  Any H
-// and W: tiles at the frame's edge are cut.
-#include "conv3x3.cuh"
+// Bound on the H100: arithmetic.  At a 272x480 map with FCVSR's
+// 64->128->64 and 64->64->64 pairs, 28.9 G multiply-adds, 57.8 GFLOP at
+// the tensor cores' 989 TFLOP/s (0.058 ms; 0.86 ms on the f32 FMA pipes);
+// the bytes (x read, y and out written, 100 MB in float) take 0.030 ms.
+//
+// The design.  On the H100 the TPU's trade is wrong: y is an output of K6
+// whatever the design, so a fusion can save only y's re-read (16.7 MB in
+// bf16, 33.4 MB in float, most of it still in the 50 MB L2) and one launch,
+// and the halo recompute that keeps y on chip costs more: the earlier
+// design (four convs from one 4-ring window on the f32 FMA pipes, 6x16 or
+// 16x16 tiles) took 9.730 / 5.698 ms against 2 K2 launches' 1.317 / 1.215
+// (PERF.md §6).  So K6 is K2's main loop run twice in one persistent
+// cooperative launch:
+//
+// - Phase 1 runs pair_rows (conv_tc.cuh, K2's row loop: wgmma on rows
+//   rolled through shared memory, the weights streamed a tap a stage) over
+//   K2's work items (62-pixel segments x blocks of rows x images, the same
+//   partition as a K2 launch), and writes y.
+// - cooperative_groups::this_grid().sync() separates the phases.
+// - Phase 2 runs pair_rows over y, reading it through L2 only (ld.global.cg:
+//   other blocks of the launch wrote it, and L1 is not coherent across
+//   SMs), and writes out.
+// - The grid is as large as the card holds co-resident (the occupancy
+//   query times the SM count: one block an SM) and never larger than the
+//   work items; each block loops over items, so any B, H and W runs.  A
+//   grid that cannot be co-resident at all is refused, never split into
+//   two launches.
+// - Each phase's N1 (C1 padded to 2 N1) is a template argument, as in K2:
+//   32 for C1 (or C3) <= 64, 64 up to 128.
+//
+// The alternative for bf16 maps, all four convs rolled through one block
+// (3 rows each of window, conv1, y and conv3 in shared memory, about 127
+// KB plus two weight stages; float maps do not fit in 227 KB), avoids the
+// grid barrier but recomputes what the pair chain does not: a segment
+// keeps 58 of its 64 columns (K2: 62), and a block of R output rows runs
+// conv1 over R + 6 rows, y over R + 4, conv3 over R + 2 (the chain: R + 2,
+// R, R + 2, R), each row step streaming the weights of every conv it runs,
+// the stream that holds K2 (PERF.md §6).  At K2's partition of 272x480 (R
+// = 17) that is 1.20x the chain's rows.  Measured before choosing
+// (benchmarks/pair_ab.py --quad --takeouts, an H100 80GB HBM3 at 700 W,
+// bf16 272x480, ms): this kernel 1.180, without its grid barrier 1.169,
+// phase 1 alone 0.629, phase 2 alone 0.523, 2 K2 launches 1.193.  The
+// barrier and the phases' tails cost 0.028 ms (this kernel less its two
+// phases alone) and y's re-read from L2 (16.7 MB) a few microseconds; the
+// rolled chain's 20% more rows would cost about 0.23 ms.  It was not built.
+//
+// Storage: the maps (x, y, out, and the pairs' intermediates) are float or
+// bf16 (T); weights and biases are float.
+#include <cooperative_groups.h>
+
+#include "conv_tc.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace fcvsr {
 namespace {
+namespace tc {
 
-using conv::accumulate;
-using conv::CIB;
-using conv::stage_input;
-using conv::stage_weights;
-
-template <typename T>
-struct QuadTile;
-template <>
-struct QuadTile<float> {
-  static constexpr int TH = 6, TW = 16;
-};
-template <>
-struct QuadTile<__nv_bfloat16> {
-  static constexpr int TH = 16, TW = 16;
-};
-
-constexpr int NCG = 8, CPT = 8, COB = NCG * CPT, NPG = kThreads / NCG;
-constexpr int PPT = 8, PASS = NPG * PPT;  // 256 pixels a pass
-
-// leading dimension of a T region of c channels: one spare element (two
-// for bf16, keeping rows 4-byte aligned)
-template <typename T>
-__host__ __device__ constexpr int region_ld(int c) { return c + (sizeof(T) == 4 ? 1 : 2); }
-
-__host__ __device__ constexpr size_t align16(size_t n) { return (n + 15) / 16 * 16; }
-
-// Shared-memory layout in bytes: region A (the first intermediate, later
-// the third), region B (the staged input window, later y), the weights.
-template <typename T>
-struct QuadLayout {
-  static constexpr int TH = QuadTile<T>::TH, TW = QuadTile<T>::TW;
-  static constexpr int R1H = TH + 6, R1W = TW + 6;  // conv1 out, at (y0-3, x0-3)
-  static constexpr int R2H = TH + 4, R2W = TW + 4;  // y, at (y0-2, x0-2)
-  static constexpr int R3H = TH + 2, R3W = TW + 2;  // conv3 out, at (y0-1, x0-1)
-  static constexpr int IH = TH + 8, IW = TW + 8;    // input window, at (y0-4, x0-4)
-  size_t a, b, w, total;
-  __host__ __device__ QuadLayout(int c1, int c2, int c3) {
-    const size_t mid1 = sizeof(T) * (size_t)R1H * R1W * region_ld<T>(c1);
-    const size_t mid3 = sizeof(T) * (size_t)R3H * R3W * region_ld<T>(c3);
-    const size_t ys = sizeof(T) * (size_t)R2H * R2W * region_ld<T>(c2);
-    const size_t in = sizeof(float) * (size_t)IH * IW * (CIB + 1);
-    a = 0;
-    b = align16(mid1 > mid3 ? mid1 : mid3);
-    w = b + align16(ys > in ? ys : in);
-    total = w + sizeof(float) * 9 * CIB * COB;
-  }
-};
-
-// One conv of the chain over an npix-pixel region of width ow: for each
-// 64-channel output chunk and 256-pixel pass, sum over 16-channel input
-// chunks (stage(ci0, cn) returns the source, staging it first if needed),
-// then epi(p, co, v) for each pixel p < npix and channel co < Cout.
-template <typename S, typename Stage, typename Epi>
-__device__ __forceinline__ void conv_region(int npix, int ow, int Cin, int Cout,
-                                            const float* __restrict__ w, float* w_s,
-                                            Stage stage, Epi epi) {
-  const int cg = threadIdx.x % NCG, pg = threadIdx.x / NCG;
-  for (int co0 = 0; co0 < Cout; co0 += COB) {
-    for (int p0 = 0; p0 < npix; p0 += PASS) {
-      float acc[PPT][CPT] = {};
-      for (int ci0 = 0; ci0 < Cin; ci0 += CIB) {
-        const int cn = min(CIB, Cin - ci0);
-        int ld = 0, sw = 0;
-        const S* src = stage(ci0, cn, ld, sw);
-        stage_weights<COB>(w_s, w, Cin, Cout, ci0, cn, co0);
-        __syncthreads();
-        accumulate<NCG, CPT, PPT>(acc, src, ld, sw, w_s, cn, npix, ow, p0);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) {
-        const int p = p0 + pg + i * NPG;
-        if (p >= npix) continue;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int co = co0 + cg + NCG * j;
-          if (co < Cout) epi(p, co, acc[i][j]);
-        }
-      }
-    }
-  }
-  __syncthreads();  // the next conv reads what epi wrote
+// Work item i of a phase: segment i % strips, row block (i / strips) %
+// rblocks, image i / (strips rblocks), as K2's grid (x, y, z) orders them.
+template <typename T, int N1, bool CG>
+__device__ __forceinline__ void pair_phase(unsigned char* smem, const T* x,
+                                           const float* w1, const float* b1,
+                                           const float* w2, const float* b2, T* out,
+                                           int B, int H, int W, int Cin, int C1,
+                                           int Cout, float ns, int rows, int vec) {
+  const int strips = (W + kSeg - 1) / kSeg, rblocks = (H + rows - 1) / rows;
+  const int items = strips * rblocks * B;
+  for (int i = blockIdx.x; i < items; i += gridDim.x)
+    pair_rows<T, N1, CG>(smem, x, w1, b1, w2, b2, out, H, W, Cin, C1, Cout, ns, rows,
+                         vec, i % strips * kSeg, (i / strips) % rblocks * rows,
+                         i / (strips * rblocks));
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int N1A, int N1B>
+__global__ void __launch_bounds__(kThreadsTc, 1)
 conv3x3_quad_kernel(const T* __restrict__ x, const float* __restrict__ w1,
                     const float* __restrict__ b1, const float* __restrict__ w2,
                     const float* __restrict__ b2, const float* __restrict__ w3,
                     const float* __restrict__ b3, const float* __restrict__ w4,
-                    const float* __restrict__ b4, T* __restrict__ y_out,
-                    T* __restrict__ out, int H, int W, int C, int C1, int C2, int C3,
-                    int Cout, float ns1, float ns3) {
-  using L = QuadLayout<T>;
-  constexpr int TH = L::TH, TW = L::TW;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const L lay(C1, C2, C3);
-  T* mid1 = reinterpret_cast<T*>(smem_raw + lay.a);
-  T* mid3 = mid1;  // conv3 writes once conv2 has read conv1's output
-  float* in_s = reinterpret_cast<float*>(smem_raw + lay.b);
-  T* ys = reinterpret_cast<T*>(smem_raw + lay.b);  // y once conv1 is done
-  float* w_s = reinterpret_cast<float*>(smem_raw + lay.w);
-  const int ld1 = region_ld<T>(C1), ld2 = region_ld<T>(C2), ld3 = region_ld<T>(C3);
-
-  const int b = blockIdx.z;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH;
-  const T* xb = x + (size_t)b * H * W * C;
-
-  // conv1: the input window -> the first intermediate over R1
-  conv_region<float>(
-      L::R1H * L::R1W, L::R1W, C, C1, w1, w_s,
-      [&](int ci0, int cn, int& ld, int& sw) -> const float* {
-        stage_input(in_s, CIB + 1, xb, H, W, C, ci0, cn, y0 - 4, x0 - 4, L::IH, L::IW);
-        ld = CIB + 1;
-        sw = L::IW;
-        return in_s;
-      },
-      [&](int p, int co, float v) {
-        const int yy = y0 - 3 + p / L::R1W, xx = x0 - 3 + p % L::R1W;
-        v += b1 ? b1[co] : 0.f;
-        mid1[p * ld1 + co] = from_f32<T>(in_frame(yy, xx, H, W) ? leaky(v, ns1) : 0.f);
-      });
-
-  // conv2: y over R2; the tile's own pixels also go to y_out
-  conv_region<T>(
-      L::R2H * L::R2W, L::R2W, C1, C2, w2, w_s,
-      [&](int ci0, int, int& ld, int& sw) -> const T* {
-        ld = ld1;
-        sw = L::R1W;
-        return mid1 + ci0;
-      },
-      [&](int p, int co, float v) {
-        const int ry = p / L::R2W, rx = p % L::R2W;
-        const int yy = y0 - 2 + ry, xx = x0 - 2 + rx;
-        const bool inside = in_frame(yy, xx, H, W);
-        const T q = from_f32<T>(inside ? v + (b2 ? b2[co] : 0.f) : 0.f);
-        ys[p * ld2 + co] = q;
-        if (inside && ry >= 2 && ry < TH + 2 && rx >= 2 && rx < TW + 2)
-          y_out[(((size_t)b * H + yy) * W + xx) * C2 + co] = q;
-      });
-
-  // conv3: the third intermediate over R3
-  conv_region<T>(
-      L::R3H * L::R3W, L::R3W, C2, C3, w3, w_s,
-      [&](int ci0, int, int& ld, int& sw) -> const T* {
-        ld = ld2;
-        sw = L::R2W;
-        return ys + ci0;
-      },
-      [&](int p, int co, float v) {
-        const int yy = y0 - 1 + p / L::R3W, xx = x0 - 1 + p % L::R3W;
-        v += b3 ? b3[co] : 0.f;
-        mid3[p * ld3 + co] = from_f32<T>(in_frame(yy, xx, H, W) ? leaky(v, ns3) : 0.f);
-      });
-
-  // conv4: out over the TH x TW tile
-  conv_region<T>(
-      TH * TW, TW, C3, Cout, w4, w_s,
-      [&](int ci0, int, int& ld, int& sw) -> const T* {
-        ld = ld3;
-        sw = L::R3W;
-        return mid3 + ci0;
-      },
-      [&](int p, int co, float v) {
-        const int yy = y0 + p / TW, xx = x0 + p % TW;
-        if (in_frame(yy, xx, H, W))
-          out[(((size_t)b * H + yy) * W + xx) * Cout + co] =
-              from_f32<T>(v + (b4 ? b4[co] : 0.f));
-      });
+                    const float* __restrict__ b4, T* y, T* __restrict__ out, int B,
+                    int H, int W, int C, int C1, int C2, int C3, int Cout, float ns1,
+                    float ns3, int rows, int vec_x, int vec_y) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  pair_phase<T, N1A, false>(smem, x, w1, b1, w2, b2, y, B, H, W, C, C1, C2, ns1, rows,
+                            vec_x);
+  cg::this_grid().sync();  // y complete, and visible in L2
+  pair_phase<T, N1B, true>(smem, y, w3, b3, w4, b4, out, B, H, W, C2, C3, Cout, ns3,
+                           rows, vec_y);
 }
 
-template <typename T>
+template <typename T, int N1A, int N1B>
 int launch_quad(const void* x, const float* w1, const float* b1, const float* w2,
                 const float* b2, const float* w3, const float* b3, const float* w4,
                 const float* b4, void* y, void* out, int B, int H, int W, int C, int C1,
                 int C2, int C3, int Cout, float ns1, float ns3, cudaStream_t stream) {
-  using L = QuadLayout<T>;
-  constexpr auto kernel = &conv3x3_quad_kernel<T>;
-  const size_t smem = L(C1, C2, C3).total;
-  cudaError_t err = allow_smem<kernel>(smem);  // refuses above 227 KB
+  constexpr auto kernel = &conv3x3_quad_kernel<T, N1A, N1B>;
+  constexpr int smem = pair_smem<T, N1A>() > pair_smem<T, N1B>() ? pair_smem<T, N1A>()
+                                                                  : pair_smem<T, N1B>();
+  cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + L::TW - 1) / L::TW, (H + L::TH - 1) / L::TH, B);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(x), w1, b1, w2, b2, w3, b3, w4, b4, static_cast<T*>(y),
-      static_cast<T*>(out), H, W, C, C1, C2, C3, Cout, ns1, ns3);
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return (int)err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsTc, smem);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  int rows = pair_rows_per_block(B, H, W, sms);
+  const long long items =
+      (long long)((W + kSeg - 1) / kSeg) * ((H + rows - 1) / rows) * B;
+  const long long fill = (long long)per_sm * sms;
+  const int grid = (int)(items < fill ? items : fill);
+  const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
+  int vec_x = (C * (int)sizeof(T)) % 16 == 0 && addr(x) % 16 == 0;
+  int vec_y = (C2 * (int)sizeof(T)) % 16 == 0 && addr(y) % 16 == 0;
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  T* ot = static_cast<T*>(out);
+  void* args[] = {&xt, &w1, &b1, &w2, &b2, &w3, &b3, &w4, &b4, &yt, &ot, &B, &H,
+                  &W, &C, &C1, &C2, &C3, &Cout, &ns1, &ns3, &rows, &vec_x, &vec_y};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                    dim3(kThreadsTc), args, smem, stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int quad_dispatch(const void* x, const float* w1, const float* b1, const float* w2,
+                  const float* b2, const float* w3, const float* b3, const float* w4,
+                  const float* b4, void* y, void* out, int B, int H, int W, int C, int C1,
+                  int C2, int C3, int Cout, float ns1, float ns3, cudaStream_t s) {
+  if (C1 <= 64 && C3 <= 64)
+    return launch_quad<T, 32, 32>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C,
+                                  C1, C2, C3, Cout, ns1, ns3, s);
+  if (C1 <= 64)
+    return launch_quad<T, 32, 64>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C,
+                                  C1, C2, C3, Cout, ns1, ns3, s);
+  if (C3 <= 64)
+    return launch_quad<T, 64, 32>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C,
+                                  C1, C2, C3, Cout, ns1, ns3, s);
+  return launch_quad<T, 64, 64>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C, C1,
+                                C2, C3, Cout, ns1, ns3, s);
+}
+
+}  // namespace tc
 }  // namespace
 }  // namespace fcvsr
 
 // w1 (3,3,C,C1), w2 (3,3,C1,C2), w3 (3,3,C2,C3), w4 (3,3,C3,Cout)
 // contiguous; any bias may be null.  x (B,H,W,C), y (B,H,W,C2) and out
-// (B,H,W,Cout) are bf16 when bf16 is set, float otherwise.
+// (B,H,W,Cout) are bf16 when bf16 is set, float otherwise.  Each pair takes
+// K2's channels: C, C2 <= 64, C1, C3 <= 128, Cout <= 64 (SCNet's BlockRCB
+// is 64->128->64->64->64).
 extern "C" int fcvsr_conv3x3_quad(const void* x, const float* w1, const float* b1,
                                   const float* w2, const float* b2, const float* w3,
                                   const float* b3, const float* w4, const float* b4,
@@ -230,10 +176,14 @@ extern "C" int fcvsr_conv3x3_quad(const void* x, const float* w1, const float* b
                                   int C2, int C3, int Cout, float ns1, float ns3, int bf16,
                                   void* stream) {
   using namespace fcvsr;
+  if (B < 1 || H < 1 || W < 1 || C < 1 || C1 < 1 || C2 < 1 || C3 < 1 || Cout < 1 ||
+      C > tc::kCinMax || C1 > tc::kC1Max || C2 > tc::kCoutMax || C3 > tc::kC1Max ||
+      Cout > tc::kCoutMax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
-    return launch_quad<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W,
-                                      C, C1, C2, C3, Cout, ns1, ns3, s);
-  return launch_quad<float>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C, C1,
-                            C2, C3, Cout, ns1, ns3, s);
+    return tc::quad_dispatch<__nv_bfloat16>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B,
+                                            H, W, C, C1, C2, C3, Cout, ns1, ns3, s);
+  return tc::quad_dispatch<float>(x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C,
+                                  C1, C2, C3, Cout, ns1, ns3, s);
 }

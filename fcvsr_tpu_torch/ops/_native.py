@@ -48,8 +48,8 @@ _SIGNATURES = {
     # B, H, W, C, act, bf16, stream
     "fcvsr_iac_step": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
-    # feat_in, flows, k, buf0, buf1, out, B, H, W, C, ac, act_last, bf16,
-    # stream
+    # feat_in, flows, k, scratch, out, counters, B, H, W, C, ac, act_last,
+    # bf16, stream
     "fcvsr_iac_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
     # src, flow, k, k_ld, k_off, gz, dk, dwarped, B, H, W, C, stream

@@ -13,12 +13,12 @@ it runs the plain version, under ordinary autograd.  ``conv3x3.launches``,
 launches.
 
 Storage: the maps (x, res, the outputs, and the pair's intermediate) are
-float32 or bfloat16, weights and biases float32.  The quad kernel computes
-in float32; the conv's and the pair's kernels multiply on the tensor cores,
-in bf16 parts with float32 sums, within 3 x 2^-16 of each product
-(:func:`conv3x3_emulated`, :func:`conv3x3_pair_emulated`).  All round where
-they store; the plain versions compute in float32 and round at the same
-handoffs: the pair's intermediate and each output.
+float32 or bfloat16, weights and biases float32.  The kernels multiply on
+the tensor cores, in bf16 parts with float32 sums, within 3 x 2^-16 of
+each product (:func:`conv3x3_emulated`, :func:`conv3x3_pair_emulated`; the
+quad is two pairs).  All round where they store; the plain versions
+compute in float32 and round at the same handoffs: the pair's intermediate
+and each output.
 bf16 and :func:`conv3x3_quad` are serving options: under autograd the
 wrappers take float32 only and the quad raises.
 
@@ -306,11 +306,14 @@ conv3x3_pair.launches = 0
 def conv3x3_quad(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
                  ns3: float = 0.2):
     """(y, out) of a BlockRCB body in one kernel: y = conv3x3_pair(x, w1,
-    b1, w2, b2, ns1), out = conv3x3_pair(y, w3, b3, w4, b4, ns3), y kept
-    on chip for the second pair and also returned (the RCB residual needs
-    it).  x: (B, H, W, C); w1..w4 HWIO, each conv's Cin the previous one's
-    Cout; biases (Cout,) or None.  Serving only: it raises under
-    autograd."""
+    b1, w2, b2, ns1), out = conv3x3_pair(y, w3, b3, w4, b4, ns3), the two
+    pairs' main loops in one persistent launch with a grid-wide barrier
+    between them (y, which the RCB residual needs, is written and read
+    back through L2).  x: (B, H, W, C); w1..w4 HWIO, each conv's Cin the
+    previous one's Cout; biases (Cout,) or None.  On the card each pair
+    takes :data:`PAIR_MAX_CHANNELS` (larger raise).  Serving only: it
+    raises under autograd.  The kernel's products: two
+    :func:`conv3x3_pair_emulated` calls."""
     if _native.on_cpu(x):
         return conv3x3_quad_plain(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1, ns3)
     if _native.records(x, w1, b1, w2, b2, w3, b3, w4, b4):
@@ -324,6 +327,11 @@ def conv3x3_quad(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
     c2 = _check_weight(w2, b2, c1, "w2", dev)
     c3 = _check_weight(w3, b3, c2, "w3", dev)
     cout = _check_weight(w4, b4, c3, "w4", dev)
+    for pair in ((cin, c1, c2), (c2, c3, cout)):
+        if any(c > m for c, m in zip(pair, PAIR_MAX_CHANNELS)):
+            raise ValueError(
+                f"conv3x3_quad's kernel takes each pair's (Cin, C1, Cout) up "
+                f"to {PAIR_MAX_CHANNELS}, got {pair}")
     y = torch.empty((b, h, w, c2), device=dev, dtype=x.dtype)
     out = torch.empty((b, h, w, cout), device=dev, dtype=x.dtype)
     lib = _native.lib()

@@ -53,8 +53,9 @@ from .sac import sac
 from .warp import flow_warp
 
 __all__ = ["warp_sac_fused", "warp_sac_fused_kf", "warp_sac_bwd", "iac_fused",
-           "iac_fused_kf", "iac_fused_resident", "IACChainFn",
-           "warp_sac_plain", "iac_chain_plain", "warp_sac_vjp_plain",
+           "iac_fused_kf", "iac_fused_resident", "chain_scratch",
+           "IACChainFn", "warp_sac_plain", "iac_chain_plain",
+           "warp_sac_vjp_plain",
            "predict_kernels", "predict_kernels_emulated", "wsel_planes",
            "IAC_MAX_CHANNELS", "IAC_MAX_C0"]
 
@@ -355,33 +356,51 @@ def iac_fused(feat_in, pred_k_tap_major, offsets, ac_num: int, channels: int,
     return _chain_forward(feat_in, k, offsets, ac_num, act_last)[-1]
 
 
+def chain_scratch(feat_in, ac_num: int):
+    """(scratch, counters) of a resident-chain launch: the maps its
+    iterations rotate through (min(3, ac_num - 1) of feat_in's shape and
+    type; None for one iteration), and its tile counters, zero (a claim
+    counter, ac_num finished-tile counts, and B x H of a tile row for each
+    iteration; ``csrc/iac_chain.cu``)."""
+    b, h = feat_in.shape[:2]
+    scratch = torch.empty((min(3, ac_num - 1),) + tuple(feat_in.shape),
+                          device=feat_in.device, dtype=feat_in.dtype) \
+        if ac_num > 1 else None
+    counters = torch.zeros(1 + ac_num + ac_num * b * h,
+                           device=feat_in.device, dtype=torch.int32)
+    return scratch, counters
+
+
 def iac_fused_resident(feat_in, k, offsets, ac_num: int,
                        act_last: bool = True):
     """The whole IAC chain in one launch (``csrc/iac_chain.cu``), the
     counterpart of ``pallas_iac.iac_fused_resident``: the same function as
-    :func:`iac_fused`, with the map kept between iterations in two scratch
-    buffers instead of one launch an iteration.  feat_in: (B, H, W, C);
-    k: (B, H, W, ac_num*3C) tap-major kernels of feat_in's type (float32
-    or bfloat16); offsets: (AC, B, H, W, 2) float32.  Serving only: it
-    raises under autograd."""
+    :func:`iac_fused`, with the maps between iterations in scratch buffers
+    and the iterations ordered by the rows each tile reads, not by launch
+    boundaries.  feat_in: (B, H, W, C); k: (B, H, W, ac_num*3C) tap-major
+    kernels of feat_in's type (float32 or bfloat16); offsets: (AC, B, H,
+    W, 2) float32.  Each iteration runs
+    the tile body of :func:`warp_sac_fused`'s kernel, so the result equals
+    :func:`iac_fused`'s bit for bit; on the card C is at most
+    :data:`IAC_MAX_CHANNELS`.  Serving only: it raises under autograd."""
     if _native.on_cpu(feat_in):
         return iac_chain_plain(feat_in, k, offsets, ac_num, act_last)
     b, h, w, c = feat_in.shape
     dev, dt = feat_in.device, feat_in.dtype
     _native.require(feat_in, "feat_in", dev, dtype=dt)
+    if c > IAC_MAX_CHANNELS:
+        raise ValueError(f"the IAC chain's kernel takes C up to "
+                         f"{IAC_MAX_CHANNELS}, got {c}")
     _native.require(k, "k", dev, (b, h, w, ac_num * 3 * c), dtype=dt)
     _native.require(offsets, "offsets", dev, (ac_num, b, h, w, 2))
     out = torch.empty_like(feat_in)
-    bufs = torch.empty((2,) + tuple(feat_in.shape), device=dev, dtype=dt) \
-        if ac_num > 1 else None
+    scratch, counters = chain_scratch(feat_in, ac_num)
     lib = _native.lib()
     with _native.launch_guard(feat_in) as stream:
         rc = lib.fcvsr_iac_chain(
             feat_in.data_ptr(), offsets.data_ptr(), k.data_ptr(),
-            _native.ptr(None if bufs is None else bufs[0]),
-            _native.ptr(None if bufs is None else bufs[1]), out.data_ptr(),
-            b, h, w, c, ac_num, int(act_last), _native.storage(feat_in),
-            stream)
+            _native.ptr(scratch), out.data_ptr(), counters.data_ptr(), b, h,
+            w, c, ac_num, int(act_last), _native.storage(feat_in), stream)
     _native.check(rc, "iac_chain")
     iac_fused_resident.launches += 1
     return out

@@ -170,11 +170,26 @@ def test_pair_ab_one_pass_edit_applies():
     from fcvsr_tpu_torch.benchmarks import pair_ab
     from fcvsr_tpu_torch.ops import _native
 
-    base = _native.edited_sources(pair_ab.SOURCE, [])[pair_ab.SOURCE]
-    one = _native.edited_sources(pair_ab.SOURCE,
-                                 [pair_ab.ONE_PASS])[pair_ab.SOURCE]
-    assert pair_ab.ONE_PASS[0] in base and pair_ab.ONE_PASS[0] not in one
-    assert one == base.replace(*pair_ab.ONE_PASS)
+    header, old, new = pair_ab.ONE_PASS
+    base = _native.edited_sources(pair_ab.SOURCE, [])[header]
+    one = _native.edited_sources(pair_ab.SOURCE, [pair_ab.ONE_PASS])[header]
+    assert old in base and old not in one
+    assert one == base.replace(old, new)
+
+
+def test_quad_ab_takeouts_apply():
+    """The quad A/B's takeouts (``pair_ab --quad --takeouts``: no grid
+    barrier, phase 1 alone, phase 2 alone) match the quad's source: each
+    old text is there once and gone from its variant."""
+    from fcvsr_tpu_torch.benchmarks import pair_ab
+    from fcvsr_tpu_torch.ops import _native
+
+    src = pair_ab.QUAD_SOURCE
+    base = _native.edited_sources(src, [])[src]
+    for name, edits in pair_ab.QUAD_TAKEOUTS.items():
+        text = _native.edited_sources(src, edits)[src]
+        for old, _ in edits:
+            assert base.count(old) == 1 and old not in text, name
 
 
 @pytest.mark.parametrize("cout", [64, 3, 1])
@@ -206,18 +221,29 @@ def test_conv_route_against_float64(cout, dtype, route, bar):
 
 
 def test_iac_ab_edits_apply(tmp_path, monkeypatch):
-    """The IAC A/B's takeouts match the kernel's source, and a fake nvcc
-    is handed each variant's tree, the edit applied."""
+    """The IAC A/B's takeouts match the kernel's source (and its chain
+    variants the resident chain's), and a fake nvcc is handed each
+    variant's tree, the edit applied."""
     from fcvsr_tpu_torch.benchmarks import iac_ab
     from fcvsr_tpu_torch.ops import _native
 
+    src = iac_ab.CHAIN_SOURCE
+    assert list(iac_ab.variants(True, None, {}, chain=True)) == \
+        ["base", *iac_ab.CHAIN_VARIANTS]
+    for name, edits in iac_ab.CHAIN_VARIANTS.items():
+        text = _native.edited_sources(src, edits)[src]
+        for old, new in edits:
+            assert old in _native.edited_sources(src, [])[src] \
+                and new in text and old not in text, name
+
     runs = iac_ab.variants(True, None, {})
     assert list(runs) == ["base", *iac_ab.TAKEOUTS]
-    base = _native.edited_sources(iac_ab.SOURCE, [])[iac_ab.SOURCE]
+    base = _native.edited_sources(iac_ab.SOURCE, [])
     for name, edits in iac_ab.TAKEOUTS.items():
-        text = _native.edited_sources(iac_ab.SOURCE, edits)[iac_ab.SOURCE]
-        for old, new in edits:
-            assert old in base and new in text and old not in text, name
+        texts = _native.edited_sources(iac_ab.SOURCE, edits)
+        for fname, old, new in edits:
+            assert old in base[fname] and new in texts[fname] \
+                and old not in texts[fname], name
     nvcc = tmp_path / "nvcc"
     nvcc.write_text("#!/bin/sh\necho 'error: no card here'\nexit 2\n")
     nvcc.chmod(0o755)
@@ -227,8 +253,9 @@ def test_iac_ab_edits_apply(tmp_path, monkeypatch):
         _native.build_variants("iac_ab", iac_ab.SOURCE, runs,
                                "fcvsr_iac_step", [])
     for name, edits in iac_ab.TAKEOUTS.items():
-        written = (tmp_path / "build" / "iac_ab" / name / "iac.cu").read_text()
-        assert all(new in written for _, new in edits), name
+        for fname, _, new in edits:
+            written = (tmp_path / "build" / "iac_ab" / name / fname).read_text()
+            assert new in written, name
 
 
 @pytest.mark.parametrize("source", ["conv3x3.cu", "microbench/conv2.cu",
@@ -253,3 +280,50 @@ def test_build_variants_writes_each_tree_and_raises_on_nvcc(
         assert (root / source).read_text() == (_native.CSRC / source) \
             .read_text()
         assert (root / "hopper.cuh").is_file()
+
+
+@pytest.mark.parametrize("b,h,w,chans,bias", [
+    (2, 19, 21, (16, 40, 24, 20, 12), True),
+    (1, 1, 33, (8, 16, 8, 8, 3), False)])
+def test_quad_route_against_float64(b, h, w, chans, bias):
+    """The quad (K6) is two K2 pairs in one launch: its products are two
+    ``conv3x3_pair_emulated`` calls (bf16x3, float32 maps), held to the
+    float64 BlockRCB body at CONV_RTOL of max(1, max|out|), y and out, at
+    the odd channel sets and the draws of the GPU test
+    (test_torch_kernels_gpu.py::test_quad_kernel_matches_plain), where a
+    padded channel chunk or a short C1 would show."""
+    def draw(seed, *shape, scale=1.0):
+        return np.random.default_rng(seed).standard_normal(shape) * scale
+
+    x = draw(80, b, h, w, chans[0])
+    ws = [draw(81 + i, 3, 3, ci, co, scale=0.1)
+          for i, (ci, co) in enumerate(zip(chans, chans[1:]))]
+    bs = [draw(85 + i, co, scale=0.1) if bias or i < 2 else None
+          for i, co in enumerate(chans[1:])]
+
+    def pair(a, i, ns, conv):
+        w1, w2 = ws[i], ws[i + 1]
+        b1, b2 = bs[i], bs[i + 1]
+        return conv(a, w1, b1, w2, b2, ns)
+
+    def f64(a, w1, b1, w2, b2, ns):
+        t = [None if v is None else _t(v, torch.float64)
+             for v in (w1, b1, w2, b2)]
+        mid = torch.nn.functional.leaky_relu(
+            fused_conv._conv_plain(a, t[0], t[1]), ns)
+        return fused_conv._conv_plain(mid, t[2], t[3])
+
+    def emulated(a, w1, b1, w2, b2, ns):
+        return fused_conv.conv3x3_pair_emulated(
+            a, *[None if v is None else _t(v) for v in (w1, b1, w2, b2)], ns)
+
+    torch.set_num_threads(1)
+    y_ref = pair(_t(x, torch.float64), 0, 0.1, f64)
+    out_ref = pair(y_ref, 2, 0.2, f64)
+    y = pair(_t(x), 0, 0.1, emulated)
+    out = pair(y, 2, 0.2, emulated)
+    for got, ref in ((y, y_ref), (out, out_ref)):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        tol = CONV_RTOL * max(1.0, float(ref.abs().max()))
+        err = float((got.double() - ref).abs().max())
+        assert err <= tol, (chans, err, tol)

@@ -34,12 +34,15 @@ tiles of 64) also at the edges of their tiles, float32 and bf16 maps,
 with their SASS holding tensor-core instructions.
 
 The serving kernels of the --fast path: the resident IAC chain (K4, one
-cooperative launch) and the BlockRCB quad (K6), in float32 and bf16
-storage, and K1-K3 in bf16, against their plain versions; float32 bars as
-above (1e-4 for the chain, carried through its iterations), bf16 two bf16
-steps of the output's magnitude (1.6e-2), since the two versions round at
-the same handoffs but a value within reassociation noise of a rounding
-boundary rounds either way.  FCVSR-S under the serving flags on the card
+cooperative launch of K1's tile body) and the BlockRCB quad (K6, two of
+K2's loops in one persistent cooperative launch, also where its work
+items outnumber the co-resident grid), in float32 and bf16 storage, and
+K1-K3 in bf16, against their plain versions; K4 also bit for bit against
+K1 launched once an iteration.  Float32 bars as above (1e-4 for the
+chain, carried through its iterations), bf16 two bf16 steps of the
+output's magnitude (1.6e-2), since the two versions round at the same
+handoffs but a value within reassociation noise of a rounding boundary
+rounds either way.  FCVSR-S under the serving flags on the card
 against the CPU, with its launches.
 
 The BlockRCB level (K11, one cooperative launch, bf16 maps) against its
@@ -48,7 +51,7 @@ plain version at the bf16 bar, at H and W below and not multiples of its
 exact.  Every launch enters its tensors' device: K1, K2, K7, K8 and K11 on
 cuda:1 with cuda:0 current (skips below two cards), and K2 and K11
 launched from a side stream, complete once that stream alone is
-synchronised.
+synchronised, as are K4 and K6.
 """
 
 import numpy as np
@@ -172,17 +175,20 @@ SASS_FFMA_MAX = 32
 
 
 def test_pair_kernel_runs_on_the_tensor_cores(cuda):
-    """The SASS of every conv3x3_pair_kernel in the main library holds
-    HGMMA and no FFMA main loop (chip_smoke.py checks the same)."""
+    """The SASS of every conv3x3_pair_kernel (K2) and conv3x3_quad_kernel
+    (K6, two of K2's loops) in the main library holds HGMMA and no FFMA
+    main loop (chip_smoke.py checks the same)."""
     from fcvsr_tpu_torch.ops import _native
 
-    counts = _native.sass_ops(_native.lib()._name, "conv3x3_pair_kernel",
-                              ("HGMMA", "FFMA", "HMMA"))
-    if counts is None:
-        pytest.skip("the toolkit has no cuobjdump")
-    assert counts, "no conv3x3_pair_kernel in the library"
-    for name, ops in counts.items():
-        assert ops["HGMMA"] > 0 and ops["FFMA"] <= SASS_FFMA_MAX, (name, ops)
+    for kernel in ("conv3x3_pair_kernel", "conv3x3_quad_kernel"):
+        counts = _native.sass_ops(_native.lib()._name, kernel,
+                                  ("HGMMA", "FFMA", "HMMA"))
+        if counts is None:
+            pytest.skip("the toolkit has no cuobjdump")
+        assert counts, f"no {kernel} in the library"
+        for name, ops in counts.items():
+            assert ops["HGMMA"] > 0 and ops["FFMA"] <= SASS_FFMA_MAX, \
+                (name, ops)
 
 
 @pytest.mark.parametrize("h,w,cin,cout,res,act", [
@@ -256,7 +262,8 @@ def test_conv_tc_kernel_edges(cuda, dtype, b, h, w, cin, cout, res, act):
 
 
 def test_tc_kernels_refuse_what_they_do_not_take(cuda):
-    """K3 takes Cin up to 64; K1 C up to 128 and C0 up to 64."""
+    """K3 takes Cin up to 64; K1 and K4 C up to 128 and K1 C0 up to 64; K6
+    each pair's channels as K2 does."""
     x = _rand(cuda, 140, 1, 4, 5, 72)
     with pytest.raises(ValueError, match="up to"):
         fused_conv.conv3x3(x, _rand(cuda, 141, 3, 3, 72, 8))
@@ -270,6 +277,14 @@ def test_tc_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="up to"):
         fused_iac.warp_sac_fused(wide, flow, _rand(cuda, 148, 1, 4, 5, 408),
                                  wide)
+    with pytest.raises(ValueError, match="up to"):
+        fused_iac.iac_fused_resident(wide, _rand(cuda, 149, 1, 4, 5, 408),
+                                     flow[None], 1)
+    x8 = _rand(cuda, 150, 1, 4, 5, 8)
+    w8, w8_wide = _rand(cuda, 151, 3, 3, 8, 8), _rand(cuda, 152, 3, 3, 8, 72)
+    with pytest.raises(ValueError, match="up to"):  # y (C2) 72 wide
+        fused_conv.conv3x3_quad(x8, w8, None, w8_wide, None,
+                                _rand(cuda, 153, 3, 3, 72, 8), None, w8, None)
 
 
 def test_iac_and_conv_kernels_run_on_the_tensor_cores(cuda):
@@ -677,9 +692,10 @@ def _assert_close_as(got, ref, rtol_f32):
     (1, 9, 17, 8, 1, False)])
 def test_iac_chain_kernel_matches_plain(cuda, dtype, b, h, w, c, ac, act_last):
     """K4, the whole chain in one cooperative launch, against the plain
-    chain and against K1 launched once an iteration, with flows beyond
-    +-20 px and out of the frame; B 1 and 2, tiles cut at the frame's
-    edges, channel chunks cut short."""
+    chain, and bit for bit against K1 launched once an iteration (both run
+    K1's tile body on the same values), with flows beyond +-20 px and out
+    of the frame; B 1 and 2, tiles cut at the frame's edges, channel
+    blocks cut short."""
     fin = _rand(cuda, 50, b, h, w, c).to(dtype)
     k = _rand(cuda, 51, b, h, w, ac * 3 * c, scale=0.3).to(dtype)
     offs = torch.stack([_flows(cuda, 52 + i, b, h, w, 1.5) for i in range(ac)])
@@ -693,7 +709,9 @@ def test_iac_chain_kernel_matches_plain(cuda, dtype, b, h, w, c, ac, act_last):
                      CHAIN_RTOL)
     periter = fused_iac.iac_fused(fin, k, offs, ac, c, act_last)
     assert launch_counts()["iac"] - mid["iac"] == ac
-    _assert_close_as(got, periter, 2e-5)
+    torch.cuda.synchronize()
+    assert torch.equal(got, periter), \
+        float((got.float() - periter.float()).abs().max())
 
 
 @pytest.mark.parametrize("h,w,c", [(13, 29, 20), (5, 7, 64)])
@@ -742,10 +760,14 @@ def test_conv_kernels_bf16_match_plain(cuda, h, w, cin, c1, cout, bias):
     (2, 5, 7, (64, 128, 64, 64, 64), True),     # H and W below one tile
     (1, 37, 50, (64, 128, 64, 64, 64), False),  # tiles cut at both edges
     (2, 19, 21, (16, 40, 24, 20, 12), True),    # chunks cut short
-    (1, 1, 33, (8, 16, 8, 8, 3), False)])
+    (1, 1, 33, (8, 16, 8, 8, 3), False),
+    # 46 segments x 3 images: more work items than the card holds blocks
+    (3, 9, 2800, (64, 128, 64, 64, 64), True)])
 def test_quad_kernel_matches_plain(cuda, dtype, b, h, w, chans, bias):
     """K6 against its plain version (two plain pairs) and against two K2
-    launches; y and out both."""
+    launches; y and out both.  Its persistent blocks loop over K2's work
+    items (62-pixel segments x row blocks x images); at 3 x 9 x 2800 the
+    items outnumber the co-resident grid (138 against one block an SM)."""
     c, c1, c2, c3, cout = chans
     x = _rand(cuda, 80, b, h, w, c).to(dtype)
     ws = [_rand(cuda, 81 + i, 3, 3, ci, co, scale=0.1)
@@ -915,24 +937,39 @@ def test_kernels_launch_on_their_tensors_device(cuda):
 
 
 def test_kernels_launch_on_the_current_stream(cuda):
-    """K2 and K11 launched from a side stream: their results are complete
-    once that stream alone is synchronised."""
+    """K2, K11 and the two persistent cooperative launches, K4 and K6,
+    launched from a side stream: their results are complete once that
+    stream alone is synchronised."""
     from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb, block_rcb_plain
 
     x = _rand(cuda, 10, 2, 37, 50, 64)
     w1, w2 = _rand(cuda, 11, 3, 3, 64, 128, scale=0.05), \
         _rand(cuda, 12, 3, 3, 128, 64, scale=0.05)
+    r1, r2 = _rand(cuda, 13, 3, 3, 64, 64, scale=0.05), \
+        _rand(cuda, 14, 3, 3, 64, 64, scale=0.05)
+    quad = (w1, None, w2, None, r1, None, r2, None)
     xb, kw = _block_rcb_case(cuda, 90, 2, 37, 50, 64, 128)
+    fin = _rand(cuda, 15, 2, 37, 50, 64)
+    k = _rand(cuda, 16, 2, 37, 50, 3 * 3 * 64, scale=0.3)
+    offs = torch.stack([_flows(cuda, 17 + i, 2, 37, 50, 1.5)
+                        for i in range(3)])
     ref_pair = fused_conv.conv3x3_pair_plain(x, w1, None, w2, None)
+    ref_quad = fused_conv.conv3x3_quad_plain(x, *quad)
     ref_level = block_rcb_plain(xb, **kw)
+    ref_chain = fused_iac.iac_chain_plain(fin, k, offs, 3)
     torch.cuda.synchronize()
     s = torch.cuda.Stream()
     with torch.cuda.stream(s):
         pair = fused_conv.conv3x3_pair(x, w1, None, w2, None)
+        y, out = fused_conv.conv3x3_quad(x, *quad)
         level = block_rcb(xb, **kw)
+        chain = fused_iac.iac_fused_resident(fin, k, offs, 3)
     s.synchronize()
     _assert_close(pair, ref_pair, 1e-4)
+    _assert_close(y, ref_quad[0], 1e-4)
+    _assert_close(out, ref_quad[1], 1e-4)
     _assert_close_as(level, ref_level, 1e-4)
+    _assert_close(chain, ref_chain, CHAIN_RTOL)
 
 
 # K9 and K10, the probes' kernels (csrc/microbench/), against their plain
