@@ -34,10 +34,11 @@ Phases, one line or more each:
      bit for bit; the BlockRCB quad (K6) at SCNet's three levels, float32
      and bf16, also against 2 K2 launches, bit for bit, its bound K2's
      kind; the IAC adjoint (K5) at the training shape and at small odd
-     shapes, the deformable conv (K7) at EDVR-M's and BasicVSR++'s shapes
-     (its serving 192x320 and training 64x64), without a mask and at small
-     odd shapes, its adjoint (K8) at the same cases and at the zoo's two
-     training shapes (each gradient's error over its max), the BlockRCB
+     shapes, the deformable conv (K7, on wgmma) at EDVR-M's and
+     BasicVSR++'s serving and training shapes, without a mask and at small
+     odd shapes, its adjoint (K8, one launch on wgmma) at the same cases
+     (each gradient's error over its max), both bound at the bf16 tensor
+     cores' rate with the float32 pipes' beside, the BlockRCB
      level (K11) at 272x480x64 with C1 64 and 128, at SCNet's levels 2 and 3
      and at B 2, beside the unfused path (2 K2 launches and the
      ContextBlock), the probe kernel (K12; also warm, 200 launches an
@@ -251,6 +252,11 @@ MB_RTOL = 1e-4
 # is the epilogue's bias, activation and splits (FADD, FMUL).  The FMA
 # kernel it replaced ran its main loop as FFMA on register tiles
 PAIR_SASS_FFMA_MAX = 32
+# K7's and K8's kernels issue wgmma; their FFMA are the sampler's
+# bilinear sums and the adjoint's derivatives, unrolled over a quad's 4
+# channels: 96 and 104 on the H100's toolkit (PERF.md §6); the FMA
+# kernels they replaced ran each contraction on register tiles of FFMA
+DCN_SASS_FFMA_MAX = 160
 # K11's mean abs error against its plain version, relative to max|plain|, as
 # tests/test_torch_blockrcb.py holds the plain version to JAX: the bf16 bar
 # above allows a flipped rounding here and there, not a shifted map
@@ -653,21 +659,25 @@ def phase_kernels(torch, dev):
     del src, flow, k, gz
 
     # the deformable conv (K7) at EDVR-M's level 1 (the 5 frames of a REDS
-    # window, 64 -> 64, 8 deform groups) and BasicVSR++'s alignment (128 ->
-    # 64, 16 groups), serving 192x320 and training 64x64 (the shape of its
-    # 116 launches a step), offsets mixed as the flows above; without a
-    # mask; at small odd shapes.  Work: x, offsets, mask and weights read,
-    # out written; 2 flops a multiply-add of the 9 * Cin * Cout contraction
-    # and 8 a sampled value (4 corner products and their sum, the weights).
-    # The library yardstick is cuDNN's conv of the same shapes, the
-    # zero-offset special case
+    # window, 64 -> 64, 8 deform groups) and its training batch (4 windows
+    # of 5 frames at 64x64), BasicVSR++'s alignment (128 -> 64, 16 groups),
+    # serving 192x320 and training 64x64 (the shape of its 116 launches a
+    # step), offsets mixed as the flows above; without a mask; at small odd
+    # shapes (a group width of 3 reads scalars).  Work: x, offsets, mask and
+    # weights read, out written; 2 flops a multiply-add of the 9 * Cin *
+    # Cout contraction and 8 a sampled value (4 corner products and their
+    # sum, the weights), at the bf16 tensor cores' rate (the contraction's),
+    # the float32 pipes' beside.  The yardstick beside it is cuDNN's conv of
+    # the same shapes, the zero-offset special case
     for (b, h, w, cin, cout, dg, with_mask, timed) in (
             (5, 180, 320, 64, 64, 8, True, True),
             (1, 192, 320, 128, 64, 16, True, True),
             (1, 64, 64, 128, 64, 16, True, True),
+            (20, 64, 64, 64, 64, 8, True, True),
             (2, 64, 96, 64, 64, 8, False, False),
             (2, 13, 29, 24, 40, 3, True, False),
-            (1, 5, 7, 8, 70, 1, True, False)):
+            (1, 5, 7, 8, 70, 1, True, False),
+            (2, 9, 11, 6, 20, 2, True, False)):
         x = t(rng.standard_normal((b, h, w, cin)))
         off = t(mixed_flows(rng, b, h, w, dg * 18))
         mask = t(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg * 9))))) \
@@ -677,7 +687,7 @@ def phase_kernels(torch, dev):
         px = b * h * w
         work = (4 * (px * (cin + dg * 18 + (dg * 9 if with_mask else 0)
                            + cout) + 9 * cin * cout + cout),
-                px * 9 * cin * (2 * cout + 8))
+                px * 9 * cin * (2 * cout + 8), BF16_FLOP_S)
         check("dcn", f"{b}x{h}x{w} {cin}->{cout} dg{dg} "
               f"{'v2' if with_mask else 'v1'}",
               lambda: fused_dcn.modulated_deform_conv2d_fused(
@@ -694,9 +704,8 @@ def phase_kernels(torch, dev):
 
 
 def phase_dcn_bwd(torch, dev):
-    """The DCN adjoint (K8, two launches a call) against the plain VJP
-    (autograd through the plain forward) on the card, at K7's cases and at
-    the zoo's two training shapes.  Each of the five gradients is held to
+    """The DCN adjoint (K8, one launch a call) against the plain VJP
+    (autograd through the plain forward) on the card, at K7's cases.  Each of the five gradients is held to
     DCN_BWD_RTOL of its own max; the timed cases time K8, the plain VJP and,
     beside them, cuDNN's convolution_backward (input, weight and bias
     gradients of the plain conv of the same shapes: not the same function,
@@ -704,11 +713,12 @@ def phase_dcn_bwd(torch, dev):
     Work: x, offsets, mask, weights and g read, the five gradients
     written; 2 flops a multiply-add of both 9 * Cin * Cout contractions
     (g W^T and cols^T g) and 32 a sampled value (the sample, its two
-    derivatives, the 4-corner scatter and launch 2's re-sample).  Returns
-    the result-line fields of the first timed case."""
+    derivatives, the 4-corner scatter and the re-sample the two-launch
+    version took), at the bf16 tensor cores' rate, the float32 pipes'
+    beside.  Returns the result-line fields of the first timed case."""
     from fcvsr_tpu_torch.ops import fused_dcn
     from fcvsr_tpu_torch.ops.dcn import modulated_deform_conv2d_vjp
-    from fcvsr_tpu_torch.profiling import bound, cuda_ms
+    from fcvsr_tpu_torch.profiling import BF16_FLOP_S, bound, cuda_ms
 
     rng = np.random.default_rng(7)
 
@@ -724,7 +734,8 @@ def phase_dcn_bwd(torch, dev):
             ("BasicVSR++ training", 1, 64, 64, 128, 64, 16, True, True),
             ("v1", 2, 64, 96, 64, 64, 8, False, False),
             ("odd", 2, 13, 29, 24, 40, 3, True, False),
-            ("odd", 1, 5, 7, 8, 70, 1, True, False)):
+            ("odd", 1, 5, 7, 8, 70, 1, True, False),
+            ("odd", 2, 9, 11, 6, 20, 2, True, False)):
         x = t(rng.standard_normal((b, h, w, cin)))
         off = t(mixed_flows(rng, b, h, w, dg * 18))
         mask = t(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg * 9))))) \
@@ -766,11 +777,12 @@ def phase_dcn_bwd(torch, dev):
                          + 2 * cout),
                     px * 9 * cin * (4 * cout + 32))
             times = cuda_ms([kern, plain, beside])
-            bound_ms, bound_by = bound(*work)
+            bound_ms, bound_by = bound(*work, BF16_FLOP_S)
             line.update(ms=times[0], plain_ms=times[1], library_ms=None,
                         beside="cuDNN plain conv backward (no offsets, no "
                         "mask)", beside_ms=times[2],
                         bound_ms=bound_ms, bound_by=bound_by,
+                        f32_pipes_bound_ms=bound(*work)[0],
                         gflop=work[1] / 1e9, gbytes=work[0] / 1e9)
             if "ms" not in result:
                 result.update((k, line[k]) for k in (
@@ -1100,9 +1112,9 @@ def phase_zoo_grads(torch, dev):
                                max=floor[2], over_grad_rtol=floor[3]),
             launches=counts)
         want = dcn_per_forward(name, 5)
-        if (counts["dcn"], counts["dcn_bwd"]) != (want, 2 * want):
+        if (counts["dcn"], counts["dcn_bwd"]) != (want, want):
             fail(f"{name}: DCN launches {counts}, expected {want} forward "
-                 f"and {2 * want} adjoint")
+                 f"and {want} adjoint")
         if not (whole <= GRAD_RTOL and median <= GRAD_RTOL
                 and worst <= FLIP_RTOL):
             fail(f"{name}: GPU vs CPU gradients beyond the bounds: whole "
@@ -1211,12 +1223,11 @@ def phase_zoo_train(torch, card):
                 tensors=len(start), card=card)
             if not all(math.isfinite(v) for v in losses):
                 fail(f"{name}: non-finite training loss {losses}")
-            if per_step != {k: float(want if k == "dcn" else 2 * want
-                                     if k == "dcn_bwd" else 0)
+            if per_step != {k: float(want if k in ("dcn", "dcn_bwd") else 0)
                             for k in counts}:
                 fail(f"{name}: launches per step {per_step}, expected "
-                     f"{want} forward and {2 * want} adjoint DCN launches "
-                     "and no other kernel")
+                     f"{want} forward and {want} adjoint DCN launches and "
+                     "no other kernel")
             if still != frozen or (seq and not frozen):
                 fail(f"{name}: unmoved tensors {still[:8]} differ from the "
                      f"frozen ones {frozen[:8]}")
@@ -1546,6 +1557,16 @@ def main() -> None:
             for ops in quad_sass.values()):
         fail(f"conv3x3_quad_kernel's SASS: {quad_sass}, expected HGMMA and "
              f"at most {PAIR_SASS_FFMA_MAX} FFMA in each of 8")
+    # K7 (one kernel) and K8 (Cout padded to 64 and to 128) contract on
+    # wgmma; their FFMA are the sampler's
+    dcn_sass = _native.sass_ops(_native.lib()._name, "dcn_",
+                                ("HGMMA", "FFMA"))
+    say("dcn_sass", kernels=dcn_sass, ffma_max=DCN_SASS_FFMA_MAX)
+    if not dcn_sass or len(dcn_sass) != 3 or any(
+            not ops["HGMMA"] or ops["FFMA"] > DCN_SASS_FFMA_MAX
+            for ops in dcn_sass.values()):
+        fail(f"the DCN kernels' SASS: {dcn_sass}, expected HGMMA and at most "
+             f"{DCN_SASS_FFMA_MAX} FFMA in each of 3")
 
     results = phase_kernels(torch, dev)
     torch.cuda.empty_cache()

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks, written as PTX: mbarriers, TMA tensor
 // loads on a tensor map, the wgmma shared-memory descriptors and the bf16
 // warpgroup MMA with float32 sums.  Used by the rows-conv probes' GEMM
-// stream (K9, csrc/microbench/conv2.cu) and by the SCNet conv pair and
-// single conv (K2, K3: csrc/conv3x3.cu), whose operands are in the
-// no-swizzle layout below.
+// stream (K9, csrc/microbench/conv2.cu), by the SCNet conv pair and
+// single conv (K2, K3: csrc/conv3x3.cu) and by the deformable conv and its
+// adjoint (K7, K8: csrc/dcn.cuh), whose operands are in the no-swizzle
+// layout below.
 //
 // Layouts.  Every operand tile in shared memory is in the 128-byte swizzle
 // that TMA's CU_TENSOR_MAP_SWIZZLE_128B writes and a wgmma descriptor of
@@ -166,19 +167,24 @@ __device__ __forceinline__ void fence_operand(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (64 x N, float32) = A (64 x 16 bf16, K-major, descriptor a) x B (16 x
-// N bf16, descriptor b) + (scale_d ? d : 0), N 32, 64 or 128, in d[0 : N /
-// 2] of a thread's registers.  B is MN-major, read through the transpose
-// bit (TB 1, the mm probes'), or K-major (TB 0: each of the N rows holds its
-// 16 k values, K2's).  The fragment of thread t = 32 w + l of the
+// d (64 x N, float32) = A (64 x 16 bf16, descriptor a) x B (16 x N bf16,
+// descriptor b) + (scale_d ? d : 0), N 32, 64 or 128, in d[0 : N / 2] of a
+// thread's registers.  B is MN-major, read through the transpose bit (TB
+// 1, the mm probes'), or K-major (TB 0: each of the N rows holds its 16 k
+// values, K2's); A K-major (TA 0) or MN-major (TA 1: each of the 16 k rows
+// holds M values, the DCN adjoint's weight gradient).  MN-major without a
+// swizzle: core matrices of 8 k rows x 8 M (or N) values, 16 bytes a row;
+// SBO the distance between core matrices 8 M (or N) apart, LBO between
+// those 8 k apart.  The fragment of thread t = 32 w + l of the
 // warpgroup: d[4 j + e] holds row 16 w + l / 4 + 8 (e / 2), column 8 j + 2
 // (l % 4) + e % 2, so an N 64 product fills what the first 64 columns of
 // an N 128 one would.
-template <int N, int TB = 1, int R>
+template <int N, int TB = 1, int TA = 0, int R>
 __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
                                                   uint64_t b, int scale_d) {
   static_assert(N == 32 || N == 64 || N == 128, "wgmma m64nNk16: N 32, 64 or 128 here");
   static_assert(TB == 0 || TB == 1, "B K-major (0) or MN-major (1)");
+  static_assert(TA == 0 || TA == 1, "A K-major (0) or MN-major (1)");
   static_assert(R >= N / 2, "the fragment is d[0 : N / 2]");
   if constexpr (N == 32) {
     asm volatile(
@@ -188,13 +194,13 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{ %0, %1, %2, %3, %4, %5, %6, %7,"
         " %8, %9, %10, %11, %12, %13, %14, %15},"
-        " %16, %17, p, 1, 1, 0, %19;\n"
+        " %16, %17, p, 1, 1, %19, %20;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
           "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
           "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else if constexpr (N == 64) {
     asm volatile(
         "{\n"
@@ -205,7 +211,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
         " %8, %9, %10, %11, %12, %13, %14, %15,"
         " %16, %17, %18, %19, %20, %21, %22, %23,"
         " %24, %25, %26, %27, %28, %29, %30, %31},"
-        " %32, %33, p, 1, 1, 0, %35;\n"
+        " %32, %33, p, 1, 1, %35, %36;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -215,7 +221,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
           "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
           "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
           "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   } else {
     asm volatile(
         "{\n"
@@ -230,7 +236,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
         " %40, %41, %42, %43, %44, %45, %46, %47,"
         " %48, %49, %50, %51, %52, %53, %54, %55,"
         " %56, %57, %58, %59, %60, %61, %62, %63},"
-        " %64, %65, p, 1, 1, 0, %67;\n"
+        " %64, %65, p, 1, 1, %67, %68;\n"
         "}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
           "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -248,7 +254,7 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
           "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
           "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
           "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TA), "n"(TB));
   }
 }
 

@@ -70,13 +70,9 @@ _SIGNATURES = {
     "fcvsr_blockrcb": [_P] * 14 + [_I] * 6 + [_F, _P],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, dg, stream
     "fcvsr_dcn3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # x, offset, mask, w, g, dx, doffset, dmask, B, H, W, Cin, Cout, dg,
-    # stream
-    "fcvsr_dcn3x3_bwd_data": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                              _I, _I, _P],
-    # x, offset, mask, g, dw, dbias, B, H, W, Cin, Cout, dg, stream
-    "fcvsr_dcn3x3_bwd_weight": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                _I, _P],
+    # x, offset, mask, w, g, dx, doffset, dmask, dw, dbias, B, H, W, Cin,
+    # Cout, dg, zeroed, stream
+    "fcvsr_dcn3x3_bwd": [_P] * 10 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -229,8 +225,9 @@ def build_variants(tool: str, source: str, variants: dict, entry: str,
     """{name: (``entry`` of the variant's library, nvcc's output)}: each
     variant (``name: edits``, see :func:`edited_sources`) written to
     ``_build/<tool>/<name>/`` and built alone by nvcc (``flags`` added),
-    all at once, for the A/B scripts of ``benchmarks/``.  A failed build
-    raises with nvcc's output."""
+    all at once, for the A/B scripts of ``benchmarks/``; with ``entry``
+    None, the library itself in its place.  A failed build raises with
+    nvcc's output."""
     jobs = {}
     for name, edits in variants.items():
         root = BUILD_DIR / tool / name
@@ -247,7 +244,11 @@ def build_variants(tool: str, source: str, variants: dict, entry: str,
     for name, (lib, cmd, proc) in jobs.items():
         out = proc.communicate()[0]
         _raise_if_failed(cmd, proc.returncode, out)
-        fn = getattr(ctypes.CDLL(str(lib)), entry)
+        handle = ctypes.CDLL(str(lib))
+        if entry is None:
+            built[name] = (handle, out)
+            continue
+        fn = getattr(handle, entry)
         fn.argtypes, fn.restype = argtypes, ctypes.c_int
         built[name] = (fn, out)
     return built

@@ -10,12 +10,15 @@ its adjoint 8x16, the conv's row segments of 64 and 128 pixels), channel
 counts not multiples of the 8- and 16-channel chunks, C_out 1 and 3; the conv pair (K2, on the tensor cores)
 also with W past its 62-pixel segments, H past its row blocks, B 2, a
 pixel stride that is not a multiple of 16 bytes, and in its one-pass
-route, with its SASS holding wgmma; the DCN at frames smaller than its
-128-pixel tile, Cin not a multiple of its 32-channel chunk, one deform group
-wider than a chunk and C_out above its 64-channel block, and its adjoint
-(two launches a call) at those shapes and with groups split across
-chunks, alone, under its autograd Function and through the small zoo
-models' training gradients.  Tolerance: f32
+route, with its SASS holding wgmma; the DCN (K7, on wgmma) at frames
+smaller than its 128-pixel tile (and its adjoint's 64), Cin and C_out not
+multiples of 16, Cin not a multiple of its 64-channel chunk, one deform
+group wider than 32 channels, C_out above its 64-channel block, a group
+width of 3 (corners read as scalars) and of 4, and its adjoint (K8, one
+launch a call on wgmma, C_out padded to 64 or 128) at those shapes and
+with groups split across chunks, alone, under its autograd Function and
+through the small zoo models' training gradients, with the SASS of both
+holding wgmma.  Tolerance: f32
 against f32 in another summation order, 2e-5 (IAC), 1e-5 (its adjoint, whose
 dsrc sums by atomics in an order that changes from run to run) and 1e-4
 (convs, DCN) times max(1, max |plain|); the DCN adjoint's five gradients
@@ -172,6 +175,9 @@ def test_pair_kernel_refuses_wide_channels(cuda):
 # is the epilogue's bias, activation and splits (FADD, FMUL).  The FMA
 # kernel it replaced ran its main loop as FFMA on register tiles
 SASS_FFMA_MAX = 32
+# K7's and K8's FFMA: the sampler's bilinear sums and the adjoint's
+# derivatives, unrolled over a quad's 4 channels (chip_smoke.py's bar)
+DCN_SASS_FFMA_MAX = 160
 
 
 def test_pair_kernel_runs_on_the_tensor_cores(cuda):
@@ -398,7 +404,10 @@ def test_conv_functions_grads_match_plain(cuda, h, w, cin, c1, cout, bias):
     (1, 5, 7, 8, 70, 1, True),       # a frame smaller than a tile, 2 co blocks
     (2, 9, 21, 64, 64, 8, False),    # DCNv1 (no mask), EDVR's layout
     (1, 12, 10, 128, 64, 16, True),  # BasicVSR++'s layout
-    (1, 6, 11, 64, 20, 1, True),     # one group wider than a 32-channel chunk
+    (1, 6, 11, 64, 20, 1, True),     # one group wider than 32 channels
+    (2, 9, 11, 6, 20, 2, True),      # a group width of 3: scalar corners
+    (1, 7, 6, 32, 12, 8, True),      # a group width of 4, 42 pixels
+    (2, 10, 13, 96, 72, 4, False),   # Cin across two chunks, 2 co blocks
 ])
 def test_dcn_kernel_matches_plain(cuda, b, h, w, cin, cout, dg, with_mask):
     """Offsets small, +-20 px and out of the frame; the tolerance of the
@@ -445,6 +454,32 @@ def test_dcn_kernel_raises_under_autograd_and_on_other_configs(cuda):
                                                     deform_groups=3)
 
 
+def test_dcn_kernels_run_on_the_tensor_cores(cuda):
+    """The SASS of K7's kernel and K8's two (Cout padded to 64 and 128)
+    holds HGMMA; their FFMA are the sampler's and the derivatives', no
+    contraction (chip_smoke.py checks the same)."""
+    from fcvsr_tpu_torch.ops import _native
+
+    counts = _native.sass_ops(_native.lib()._name, "dcn_", ("HGMMA", "FFMA"))
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert len(counts) == 3, counts
+    for name, ops in counts.items():
+        assert ops["HGMMA"] > 0 and ops["FFMA"] <= DCN_SASS_FFMA_MAX, \
+            (name, ops)
+
+
+def test_dcn_adjoint_raises_beyond_its_cout(cuda):
+    """K8 holds g's tile and its weight slice, Cout padded to 64 or 128,
+    in shared memory: a wider Cout raises before any launch."""
+    x, off, mask, wt, bb, g = _dcn_case(cuda, 80, 1, 5, 6, 8, 130, 1, True)
+    n0 = fused_dcn.modulated_deform_conv2d_fused_vjp.launches
+    with pytest.raises(ValueError, match="Cout <= 128"):
+        fused_dcn.modulated_deform_conv2d_fused_vjp(x, off, mask, wt, bb, g,
+                                                    deform_groups=1)
+    assert fused_dcn.modulated_deform_conv2d_fused_vjp.launches == n0
+
+
 def _dcn_case(dev, seed, b, h, w, cin, cout, dg, with_mask, bias=True):
     x = _rand(dev, seed, b, h, w, cin)
     off = torch.cat([_flows(dev, seed + 1 + i, b, h, w, 1.5)
@@ -476,24 +511,27 @@ def _assert_grads_close(got, ref, rtol):
     (1, 12, 10, 128, 64, 16, True, True),  # BasicVSR++'s layout
     (1, 6, 11, 64, 20, 1, True, True),     # one group wider than a chunk
     (3, 17, 19, 48, 24, 2, True, True),    # 24-channel groups across chunks
+    (2, 9, 11, 6, 20, 2, True, True),      # a group width of 3: scalar
+    (1, 7, 6, 32, 12, 8, True, False),     # a group width of 4, 42 pixels
+    (2, 10, 13, 96, 100, 4, False, True),  # Cin across chunks, Cout 100
 ])
 def test_dcn_bwd_kernel_matches_plain(cuda, b, h, w, cin, cout, dg,
                                       with_mask, bias):
-    """K8 (two launches a call) against the plain VJP, offsets small, +-20
+    """K8 (one launch a call) against the plain VJP, offsets small, +-20
     px and out of the frame."""
     x, off, mask, wt, bb, g = _dcn_case(cuda, 60, b, h, w, cin, cout, dg,
                                         with_mask, bias)
     n0 = fused_dcn.modulated_deform_conv2d_fused_vjp.launches
     got = fused_dcn.modulated_deform_conv2d_fused_vjp(x, off, mask, wt, bb, g,
                                                       deform_groups=dg)
-    assert fused_dcn.modulated_deform_conv2d_fused_vjp.launches == n0 + 2
+    assert fused_dcn.modulated_deform_conv2d_fused_vjp.launches == n0 + 1
     ref = modulated_deform_conv2d_vjp(x, off, mask, wt, bb, g, dg)
     _assert_grads_close(got, ref, 1e-4)
 
 
 @pytest.mark.parametrize("with_mask", [True, False])
 def test_dcn_function_grads_match_plain(cuda, with_mask):
-    """DCNFn under autograd: one K7 launch forward, two K8 launches
+    """DCNFn under autograd: one K7 launch forward, one K8 launch
     backward, the gradients of autograd through the plain forward."""
     x, off, mask, wt, bb, g = _dcn_case(cuda, 70, 2, 11, 15, 32, 24, 4,
                                         with_mask)
@@ -505,7 +543,7 @@ def test_dcn_function_grads_match_plain(cuda, with_mask):
     got = torch.autograd.grad(out, leaves, g)
     after = launch_counts()
     assert after["dcn"] - before["dcn"] == 1
-    assert after["dcn_bwd"] - before["dcn_bwd"] == 2
+    assert after["dcn_bwd"] - before["dcn_bwd"] == 1
     ref = torch.autograd.grad(
         modulated_deform_conv2d(x, off, mask, wt, bb, deform_groups=4),
         leaves, g)
@@ -546,7 +584,7 @@ def test_zoo_model_gpu_matches_cpu(cuda, name):
 @pytest.mark.parametrize("name", ["EDVRNet", "BasicVSRPlusPlus"])
 def test_zoo_model_gpu_grads_match_cpu(cuda, name):
     """Small EDVR and BasicVSR++ trained one step's gradient on the card (K7
-    forward, K8 backward: 2 adjoint launches a DCN) against the CPU: the
+    forward, K8 backward: 1 adjoint launch a DCN) against the CPU: the
     whole gradient and the median tensor within 1e-3 of their norm, each
     tensor of the DCNs (their weights and offset convs) within 5e-2 (a
     sample point or a relu input within f32 noise of its branch moves the
@@ -585,7 +623,7 @@ def test_zoo_model_gpu_grads_match_cpu(cuda, name):
     after = launch_counts()
     n = 4 if name == "EDVRNet" else 4 * (t - 1)
     assert after["dcn"] - before["dcn"] == n
-    assert after["dcn_bwd"] - before["dcn_bwd"] == 2 * n
+    assert after["dcn_bwd"] - before["dcn_bwd"] == n
     got = {k: p.grad.cpu() for k, p in model.named_parameters()}
     rel = {k: float((got[k] - r).norm() / r.norm()) for k, r in ref.items()}
     whole = float(torch.cat([(got[k] - r).flatten() for k, r in
