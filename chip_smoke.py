@@ -12,7 +12,8 @@ Phases, one line or more each:
      and CUDA versions, the nvcc build of ``fcvsr_tpu_torch/csrc`` (one nvcc
      a source, in parallel); the SASS of the conv pair's, the single
      conv's and the quad's kernels (K2, K3, K6, ``cuobjdump -sass`` of the
-     library) must hold wgmma (HGMMA) and no FFMA main loop, and that of
+     library) must hold wgmma (HGMMA) and no FFMA main loop, the BlockRCB
+     level's (K11) wgmma, and that of
      the IAC kernel's
      fused-prediction instantiations (K1 kf) mma.sync (HMMA), their FFMA
      counts printed;
@@ -33,15 +34,17 @@ Phases, one line or more each:
      iterations, B 1 and 2, float32 and bf16, also against 6 K1 launches,
      bit for bit; the BlockRCB quad (K6) at SCNet's three levels, float32
      and bf16, also against 2 K2 launches, bit for bit, its bound K2's
-     kind; the IAC adjoint (K5) at the training shape and at small odd
-     shapes, the deformable conv (K7, on wgmma) at EDVR-M's and
+     kind; the IAC adjoint (K5, one launch a call) at the training shape
+     and at small odd shapes (C 5; B 3 with flows far out of the frame),
+     the deformable conv (K7, on wgmma) at EDVR-M's and
      BasicVSR++'s serving and training shapes, without a mask and at small
      odd shapes, its adjoint (K8, one launch on wgmma) at the same cases
      (each gradient's error over its max), both bound at the bf16 tensor
      cores' rate with the float32 pipes' beside, the BlockRCB
-     level (K11) at 272x480x64 with C1 64 and 128, at SCNet's levels 2 and 3
-     and at B 2, beside the unfused path (2 K2 launches and the
-     ContextBlock), the probe kernel (K12; also warm, 200 launches an
+     level (K11, K6's wgmma phases and the ContextBlock) at 272x480x64 with
+     C1 64 and 128, at SCNet's levels 2 and 3 with both, and at B 2, beside
+     the unfused path (2 K2 launches and the ContextBlock), its y and r
+     against a K6 launch on bf16-rounded weights, bit for bit, the probe kernel (K12; also warm, 200 launches an
      event pair beside ``torch.mul``, in turns,
      ``benchmarks/launch_path.py``), and the conv autograd
      Functions' gradients at the three SCNet levels;
@@ -153,10 +156,10 @@ FLAG_VARIANTS = {
     "batch_mgaa_scnet_bf16": dict(batch_mgaa=True, scnet_dtype="bf16"),
     "fast_unfolded": dict(batch_mgaa=True, k_fused=True, iac_dtype="bf16",
                           scnet_dtype="bf16")}
-# per training step: the forward's launches; the IAC adjoint is two
-# launches an iteration; each pair's backward rebuilds its intermediate
+# per training step: the forward's launches; the IAC adjoint is one
+# launch an iteration; each pair's backward rebuilds its intermediate
 # with one conv3x3 launch
-PER_STEP = dict(PER_FRAME, iac_bwd=72, conv3x3=211)
+PER_STEP = dict(PER_FRAME, iac_bwd=36, conv3x3=211)
 ZOO_T = 10  # frames of the zoo's serving clip
 
 
@@ -585,6 +588,7 @@ def phase_kernels(torch, dev):
 
     for (b, h, w, c1) in ((1, 272, 480, 64), (1, 272, 480, 128),
                           (1, 136, 240, 128), (1, 68, 120, 128),
+                          (1, 136, 240, 64), (1, 68, 120, 64),
                           (2, 272, 480, 128)):
         xs, blk = ab.seeded_level(0, h, w, 64, c1)
         xs = torch.cat([xs] + [ab.seeded_level(s, h, w, 64, c1)[0]
@@ -599,6 +603,18 @@ def phase_kernels(torch, dev):
                   yardstick=("unfused: 2 K2 launches + ContextBlock",
                              lambda: block_rcb_level(blk, xs, "pair"),
                              AB_RTOL), mean_rtol=BF16_MEAN_RTOL)
+            if c1 == 128 and b == 1:
+                # its conv phases: y and r equal a K6 launch on the same
+                # input with the weights rounded to bf16, bit for bit
+                scratch = (torch.empty_like(xs), torch.empty_like(xs))
+                rw = [kw[n].bfloat16().float()
+                      for n in ("wb0", "wb1", "wr0", "wr1")]
+                check("blockrcb", f"y, r against K6 B{b} {h}x{w}x64 C1 {c1}",
+                      lambda: (block_rcb(xs, **kw, scratch=scratch),
+                               scratch)[1],
+                      lambda: fused_conv.conv3x3_quad(
+                          xs, rw[0], kw["bb0"], rw[1], kw["bb1"], rw[2],
+                          None, rw[3], None, 0.1, 0.2), 0.0)
         del xs, blk, kw
 
     # the probe kernel (K12): o = 2 x on an (8, 128) float32 tensor, exact;
@@ -646,13 +662,22 @@ def phase_kernels(torch, dev):
               work=(4 * px * (9 * c + 4), 40 * px * c) if it == 0 else None)
     del src, flow, k, g, dk, gz
     # and at small odd shapes: tiles cut at the frame's edges, channel
-    # chunks cut short
-    for (h, w, c) in ((5, 7, 8), (13, 29, 20)):
-        src = t(rng.standard_normal((2, h, w, c)))
-        flow = t(mixed_flows(rng, 2, h, w))
-        k = t(rng.standard_normal((2, h, w, 3 * 3 * c)) * 0.3)
-        gz = t(rng.standard_normal((2, h, w, c)))
-        check("iac_bwd", f"it=1 2x{h}x{w}x{c}",
+    # chunks cut short, C not a multiple of 4 (scalar loads and atomics),
+    # and B 3 with most flows pushed 5 frames' size out of the frame
+    for (b, h, w, c, far) in ((2, 5, 7, 8, False), (2, 13, 29, 20, False),
+                              (2, 9, 21, 5, False), (3, 11, 18, 24, True)):
+        src = t(rng.standard_normal((b, h, w, c)))
+        fl = mixed_flows(rng, b, h, w)
+        if far:
+            side = rng.integers(0, 5, (b, h, w))
+            for i, (dx, dy) in enumerate(((5 * w, 0), (-5 * w, 0),
+                                          (0, 5 * h), (0, -5 * h))):
+                fl[..., 0] += (side == i) * dx
+                fl[..., 1] += (side == i) * dy
+        flow = t(fl)
+        k = t(rng.standard_normal((b, h, w, 3 * 3 * c)) * 0.3)
+        gz = t(rng.standard_normal((b, h, w, c)))
+        check("iac_bwd", f"it=1 {b}x{h}x{w}x{c}{' far' if far else ''}",
               lambda: fused_iac.warp_sac_bwd(src, flow, k, gz, 1),
               lambda: fused_iac.warp_sac_vjp_plain(src, flow, k, gz, 1),
               IAC_BWD_RTOL)
@@ -1557,6 +1582,14 @@ def main() -> None:
             for ops in quad_sass.values()):
         fail(f"conv3x3_quad_kernel's SASS: {quad_sass}, expected HGMMA and "
              f"at most {PAIR_SASS_FFMA_MAX} FFMA in each of 8")
+    # K11's two instantiations (C1 up to 64, up to 128) run K2's loop
+    rcb_sass = _native.sass_ops(_native.lib()._name, "blockrcb_kernel",
+                                ("HGMMA", "FFMA"))
+    say("blockrcb_sass", kernels=rcb_sass)
+    if not rcb_sass or len(rcb_sass) != 2 or any(
+            not ops["HGMMA"] for ops in rcb_sass.values()):
+        fail(f"blockrcb_kernel's SASS: {rcb_sass}, expected HGMMA in each "
+             "of 2")
     # K7 (one kernel) and K8 (Cout padded to 64 and to 128) contract on
     # wgmma; their FFMA are the sampler's
     dcn_sass = _native.sass_ops(_native.lib()._name, "dcn_",

@@ -9,7 +9,8 @@ uniform(-1, 1) and the weights N(0, 0.2) drawn from ``--seed`` in that
 script's order; ``--c1`` sets the width of the first conv (FCVSR's is 128).
 
   fused    ``ops.fused_blockrcb.block_rcb``: the whole level in one
-           cooperative launch (K11), every conv's weights rounded to bf16;
+           cooperative launch (K11: K6's two wgmma phases, then the
+           ContextBlock), every conv's weights rounded to bf16;
   unfused  ``models.scnet_rows.block_rcb_level`` with ``fuse='pair'`` on a
            ``blocks.BlockRCB`` holding the same weights: two conv-pair
            launches (K2, float32 weights), then the ContextBlock, the leaky
@@ -19,8 +20,8 @@ On a CUDA device both are timed with CUDA events (the median of 7 after 2
 warm-ups, the two in turns).  One JSON line: both times, the least time the
 card could take for the level (the larger of its bytes over the memory rate
 and its operations over the bf16 tensor-core rate, since the fused level
-multiplies bf16 maps by bf16-rounded weights), the same bound at the float32
-FMA pipes' rate that the kernel runs on today, the max abs deviation of
+multiplies bf16 maps by bf16-rounded weights on the tensor cores), the same
+bound at the float32 FMA pipes' rate beside it, the max abs deviation of
 fused from unfused and its ratio to max|unfused|, and the card's name and
 power limit.  ``--device cpu`` runs both plain versions, for the tests, and times
 nothing.  Without a CUDA device the default ``--device cuda`` raises.

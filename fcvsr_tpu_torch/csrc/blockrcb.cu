@@ -15,74 +15,66 @@
 // which keeps the whole level in VMEM and sweeps its tiles with a loop.
 //
 // Bound on the H100: arithmetic.  At a 272x480 map with C = C1 = 64 the four
-// convs are 38.5 GFLOP (0.575 ms on the f32 FMA pipes); with FCVSR's C1 =
-// 128, 57.8 GFLOP (0.862 ms).  The bytes, x read and out written once, are
-// 33 MB (0.01 ms).
+// convs are 38.5 GFLOP, 0.039 ms at the bf16 tensor cores' 989 TFLOP/s;
+// with FCVSR's C1 = 128, 57.8 GFLOP (0.058 ms).  The bytes, x read and out
+// written once, are 33 MB (0.01 ms).
 //
-// The design.  An SM holds 228 KB of shared memory, not the level, so the
-// level stays resident in the 50 MB L2 instead: a, y and r (a bf16 272x480x64
-// map is 16.7 MB) go to scratch buffers in device memory, and each conv's
-// input is read back by the blocks that need its neighbourhood.  Every conv
-// needs its input's neighbours from other tiles, and the softmax needs the
-// whole image, so the passes are separated by grid-wide barriers: the launch
-// is cooperative and persistent, its grid as large as the card holds
-// co-resident (the occupancy query times the SM count), and each block loops
-// over 8x16-pixel output tiles.  A grid that cannot be co-resident is
-// refused, never split.  Each conv pass runs the register tiles of
-// conv3x3.cuh over its tiles, with no halo recompute (what sank K6's first
-// design).  The last conv also takes each pixel's logit from the
-// bf16-rounded r it stores and keeps, per block and image, online-softmax
-// partials: the max m_b, the
-// sum s_b of exp(l - m_b) and ctx_b = sum exp(l - m_b) r.  After one more
-// barrier every block merges the partials of the images it holds, runs the
-// ContextBlock's MLP itself (no further barrier) and writes out over its
-// tiles, in place of r.  Maps that other blocks of the launch wrote are read
-// through L2 (ld.global.cg): L1 is not coherent across SMs.
+// The design: K6 (conv3x3_quad.cu) with the ContextBlock after it, in one
+// persistent cooperative launch.  A level's conv body is exactly K6's
+// function with ns1 = ns_body, ns3 = 0.2, no biases in the second pair, and
+// every weight rounded to bf16, so:
+//
+// - Phase 1 runs K2's row loop (conv_tc.cuh::pair_rows, wgmma on rows
+//   rolled through shared memory) over K2's work items and writes y.
+// - grid.sync(); phase 2 runs it over y, read through L2 only (other blocks
+//   wrote it; L1 is not coherent across SMs), and writes r.  Both phases
+//   take one bf16 product a k step (bf16 maps times bf16 weights: the
+//   weights' lo plane, which K6's bf16 route multiplies too, is zero), so
+//   y and r equal a K6 launch's on bf16-rounded weights bit for bit.
+// - Straight after each of its phase-2 items a block reads back the r it
+//   just stored (hot in L2) and folds the item's pixels into online-softmax
+//   partials: 8 lanes a pixel, a lane 8 channels, the logit summed by
+//   shuffles over the 8 lanes, and each lane keeps the max m, the sum s of
+//   exp(l - m) and its 8 channels of ctx = sum exp(l - m) r.  At the end of
+//   each image the block merges its lanes' partials and stores one row
+//   (m_b, s_b, ctx_b) a block and image.
+// - grid.sync(); every block merges the rows of the images it holds, runs
+//   the 64x64 MLP itself (no further barrier) and writes out = y +
+//   lrelu_0.2(r + t) over its items, y and r read through L2.
+//
+// The grid is K6's: the occupancy query times the SM count, never more than
+// the items; a grid that cannot be co-resident is refused, never split.
+// The wrapper sizes the partials' buffer from it (fcvsr_blockrcb_grid).
+// Channels: C <= 64 and C1 <= 128, what K2's loop takes.
 #include <cooperative_groups.h>
 
 #include <cmath>
 
-#include "conv3x3.cuh"
+#include "conv_tc.cuh"
 
 namespace coop = cooperative_groups;
 
 namespace fcvsr {
 namespace {
+namespace rcb {
 
 using bf16 = __nv_bfloat16;
-using conv::accumulate;
-using conv::CIB;
-using conv::stage_input;
-using conv::stage_weights;
+using tc::kSeg;
+using tc::kThreadsTc;
 
-constexpr int TH = 8, TW = 16, TP = TH * TW;  // an output tile
-constexpr int NCG = 8, CPT = 8, COB = NCG * CPT, NPG = kThreads / NCG;
-constexpr int PPT = TP / NPG;
-constexpr int IH = TH + 2, IW = TW + 2, LD = CIB + 1;
-constexpr int CONV_FLOATS = IH * IW * LD + 9 * CIB * COB;
-constexpr int NWARP = kThreads / 32;
-
-// Shared memory in floats: the conv staging area (which the merge reuses
-// for its per-block weights), then the ContextBlock's scratch.
-__host__ __device__ constexpr int smem_floats(int C) {
-  return CONV_FLOATS + 2 * TP + kThreads + NWARP + 4 * C;
-}
+constexpr int kLanes = 8;                     // lanes of a pixel, 8 channels each
+constexpr int kSlots = kThreadsTc / kLanes;   // pixels a block folds at once
+constexpr int kWarps = kThreadsTc / 32;
+// floats of the merge's scratch before its per-block weights
+constexpr int kMergeFloats = kThreadsTc + 3 * tc::kCoutMax + kWarps;
 
 struct Params {
   const bf16* x;
   const float *wb0, *bb0, *wb1, *bb1, *wr0, *wr1, *wmask, *a0, *a1;
-  bf16 *a, *y, *out;  // scratch a (B,H,W,max(C,C1)), y (B,H,W,C); out
-  float* part;        // (grid, B, C + 2): m_b, s_b, ctx_b
-  int B, H, W, C, C1;
+  bf16 *y, *r, *out;
+  float* part;  // (gridDim.x, B, C + 2): m_b, s_b, ctx_b
+  int B, H, W, C, C1, rows, vec;
   float ns_body;
-};
-
-struct Smem {
-  float *in_s, *w_s, *logit_s, *e_s, *red_s, *wred, *ctx_t, *ctx_b, *h_s, *t_s;
-  __device__ Smem(float* sm, int C)
-      : in_s(sm), w_s(sm + IH * IW * LD), logit_s(sm + CONV_FLOATS),
-        e_s(logit_s + TP), red_s(e_s + TP), wred(red_s + kThreads),
-        ctx_t(wred + NWARP), ctx_b(ctx_t + C), h_s(ctx_b + C), t_s(h_s + C) {}
 };
 
 // The max (MAX) or sum of v over the block, returned to every thread.
@@ -98,275 +90,291 @@ __device__ float block_reduce(float v, float* wred) {
   __syncthreads();
   v = wred[0];
 #pragma unroll
-  for (int i = 1; i < NWARP; ++i) v = MAX ? fmaxf(v, wred[i]) : v + wred[i];
+  for (int i = 1; i < kWarps; ++i) v = MAX ? fmaxf(v, wred[i]) : v + wred[i];
   return v;
 }
 
-struct Tile {
-  int b, y0, x0, th, tw;  // image, origin, the part inside the frame
-};
-
-__device__ Tile tile_at(int t, int H, int W) {
-  const int tiles_x = (W + TW - 1) / TW, tiles_y = (H + TH - 1) / TH;
-  Tile tl;
-  tl.x0 = (t % tiles_x) * TW;
-  t /= tiles_x;
-  tl.y0 = (t % tiles_y) * TH;
-  tl.b = t / tiles_y;
-  tl.th = min(TH, H - tl.y0);
-  tl.tw = min(TW, W - tl.x0);
-  return tl;
+// 8 bf16 values of a 16-byte row as floats
+__device__ __forceinline__ void unpack8(const uint4& u, float (&v)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = __uint_as_float(w[i] << 16);
+    v[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
 }
 
-// The block's online-softmax partial of one image, as every thread of the
-// block holds it: m and s in registers (block-uniform), ctx in ctx_b[c],
-// kept by thread c.
+// A lane's online-softmax partial of one image: its pixels' max logit m,
+// the sum s of exp(l - m), and its 8 channels of sum exp(l - m) r
 struct Partial {
-  int b = -1;
-  float m = -INFINITY, s = 0.f;
+  float m = -INFINITY, s = 0.f, ctx[8] = {};
 };
 
-__device__ void flush(const Params& p, const Smem& sh, const Partial& pt) {
-  float* row = p.part + ((size_t)blockIdx.x * p.B + pt.b) * (p.C + 2);
-  if (threadIdx.x == 0) {
-    row[0] = pt.m;
-    row[1] = pt.s;
+// Fold the pixels of a work item (segment x0, rows y0.., image b) of r,
+// which this block has just stored, into the lanes' partials.
+__device__ void fold_item(const Params& p, Partial& pt, int x0, int y0, int b) {
+  const int lane8 = threadIdx.x % kLanes, slot = threadIdx.x / kLanes;
+  const int c0 = lane8 * 8, nch = (p.C + 7) / 8;
+  const int nx = min(kSeg, p.W - x0), ny = min(p.rows, p.H - y0);
+  float wm[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e) wm[e] = c0 + e < p.C ? __ldg(p.wmask + c0 + e) : 0.f;
+  // every lane runs every round, so that the shuffles see a whole warp
+  for (int k0 = 0; k0 < nx * ny; k0 += kSlots) {
+    const int k = k0 + slot;
+    const bool in = k < nx * ny;
+    const size_t pix = ((size_t)b * p.H + y0 + k / nx) * p.W + x0 + k % nx;
+    uint4 raw;
+    tc::load8<true>(raw, p.r + pix * p.C + c0, p.C - c0, in && lane8 < nch, p.vec);
+    float v[8];
+    unpack8(raw, v);
+    float l = 0.f;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) l = fmaf(v[e], wm[e], l);
+#pragma unroll
+    for (int o = kLanes / 2; o; o >>= 1) l += __shfl_xor_sync(0xffffffffu, l, o);
+    if (!in) continue;
+    if (l > pt.m) {
+      const float sc = expf(pt.m - l);  // 0 for the first pixel
+      pt.s *= sc;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) pt.ctx[e] *= sc;
+      pt.m = l;
+    }
+    const float ex = expf(l - pt.m);
+    pt.s += ex;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) pt.ctx[e] = fmaf(ex, v[e], pt.ctx[e]);
   }
-  if (threadIdx.x < p.C) row[2 + threadIdx.x] = sh.ctx_b[threadIdx.x];
 }
 
-// Fold the tile just stored in out (r, with its logits in logit_s) into
-// the block's partial.
-__device__ void fold_tile(const Params& p, const Smem& sh, const Tile& tl,
-                          Partial& pt) {
-  const int C = p.C;
-  const bool mine = threadIdx.x < TP && threadIdx.x / TW < tl.th &&
-                    threadIdx.x % TW < tl.tw;
-  const float l = mine ? sh.logit_s[threadIdx.x] : -INFINITY;
-  const float mt = block_reduce<true>(l, sh.wred);
-  const float e = mine ? expf(l - mt) : 0.f;
-  if (threadIdx.x < TP) sh.e_s[threadIdx.x] = e;
-  const float st = block_reduce<false>(e, sh.wred);  // e_s visible after it
-  // ctx of the tile: thread (q, c) sums channel c over pixels q, q + nq, ...
-  const int nq = kThreads / C;
-  if (threadIdx.x < nq * C) {
-    const int c = threadIdx.x % C, q = threadIdx.x / C;
-    const bf16* r = p.out + (((size_t)tl.b * p.H + tl.y0) * p.W + tl.x0) * C + c;
-    float s = 0.f;
-    for (int px = q; px < TP; px += nq)
-      if (px / TW < tl.th && px % TW < tl.tw)
-        s += sh.e_s[px] * load_cg(r + ((size_t)(px / TW) * p.W + px % TW) * C);
-    sh.red_s[threadIdx.x] = s;
-  }
+// Merge the lanes' partials of image b into the block's row of it.
+__device__ void flush(const Params& p, float* sm, const Partial& pt, int b) {
+  float* red = sm;                       // [kSlots][64]
+  float* wred = sm + kSlots * tc::kCoutMax;
+  const int lane8 = threadIdx.x % kLanes, slot = threadIdx.x / kLanes;
+  const float M = block_reduce<true>(pt.m, wred);
+  const float sc = pt.s > 0.f ? expf(pt.m - M) : 0.f;
+  const float S = block_reduce<false>(lane8 == 0 ? pt.s * sc : 0.f, wred);
+#pragma unroll
+  for (int e = 0; e < 8; ++e) red[slot * tc::kCoutMax + lane8 * 8 + e] = pt.ctx[e] * sc;
   __syncthreads();
-  if (tl.b != pt.b) {  // the block's first tile of this image
-    if (pt.b >= 0) flush(p, sh, pt);
-    pt = Partial();
-    pt.b = tl.b;
-    if (threadIdx.x < C) sh.ctx_b[threadIdx.x] = 0.f;
+  float* row = p.part + ((size_t)blockIdx.x * p.B + b) * (p.C + 2);
+  if (threadIdx.x < p.C) {
+    float v = 0.f;
+    for (int q = 0; q < kSlots; ++q) v += red[q * tc::kCoutMax + threadIdx.x];
+    row[2 + threadIdx.x] = v;
   }
-  const float m = fmaxf(pt.m, mt);
-  const float sa = pt.m == -INFINITY ? 0.f : expf(pt.m - m), sb = expf(mt - m);
-  pt.m = m;
-  pt.s = pt.s * sa + st * sb;
-  if (threadIdx.x < C) {
-    float s = 0.f;
-    for (int q = 0; q < nq; ++q) s += sh.red_s[q * C + threadIdx.x];
-    sh.ctx_b[threadIdx.x] = sh.ctx_b[threadIdx.x] * sa + s * sb;
+  if (threadIdx.x == 0) {
+    row[0] = M;
+    row[1] = S;
   }
+  __syncthreads();  // red is free for the next item's smem
 }
 
-// One conv pass over the block's tiles: dst = bf16(act(conv(src, w) + bias)).
-// CG: src was written by this launch.  LOGITS: the last conv, which also
-// folds each tile into the block's softmax partials.
-template <bool CG, bool LOGITS>
-__device__ void conv_pass(const Params& p, const Smem& sh, const bf16* src,
-                          const float* w, const float* bias, bf16* dst, int Cin,
-                          int Cout, bool act, float ns, Partial& pt) {
-  const int ntiles = ((p.W + TW - 1) / TW) * ((p.H + TH - 1) / TH) * p.B;
-  const int cg = threadIdx.x % NCG, pg = threadIdx.x / NCG;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Tile tl = tile_at(t, p.H, p.W);
-    const bf16* sb = src + (size_t)tl.b * p.H * p.W * Cin;
-    bf16* db = dst + (size_t)tl.b * p.H * p.W * Cout;
-    for (int co0 = 0; co0 < Cout; co0 += COB) {
-      float acc[PPT][CPT] = {};
-      for (int ci0 = 0; ci0 < Cin; ci0 += CIB) {
-        const int cn = min(CIB, Cin - ci0);
-        stage_input<CG>(sh.in_s, LD, sb, p.H, p.W, Cin, ci0, cn, tl.y0 - 1,
-                        tl.x0 - 1, IH, IW);
-        stage_weights<COB, true>(sh.w_s, w, Cin, Cout, ci0, cn, co0);
-        __syncthreads();
-        accumulate<NCG, CPT, PPT>(acc, sh.in_s, LD, IW, sh.w_s, cn, TP, TW);
-        __syncthreads();
-      }
-#pragma unroll
-      for (int i = 0; i < PPT; ++i) {
-        const int px = pg + i * NPG, py = px / TW, pxx = px % TW;
-        const bool inside = py < tl.th && pxx < tl.tw;
-        const size_t o = (((size_t)(tl.y0 + py)) * p.W + tl.x0 + pxx) * Cout;
-        float lp = 0.f;
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const int co = co0 + cg + NCG * j;
-          if (co >= Cout) continue;
-          float v = acc[i][j] + (bias ? bias[co] : 0.f);
-          if (act) v = leaky(v, ns);
-          const bf16 q = from_f32<bf16>(v);
-          if (inside) db[o + co] = q;
-          if (LOGITS) lp = fmaf(to_f32(q), p.wmask[co], lp);
-        }
-        if (LOGITS) {
-          // the NCG threads of a pixel are neighbouring lanes of one warp
-#pragma unroll
-          for (int d = NCG / 2; d; d >>= 1) lp += __shfl_xor_sync(0xffffffffu, lp, d);
-          if (cg == 0) sh.logit_s[px] = (co0 == 0 ? 0.f : sh.logit_s[px]) + lp;
-        }
-      }
-    }
-    if (LOGITS) {
-      __syncthreads();  // the tile's logits and r are complete
-      fold_tile(p, sh, tl, pt);
-    }
-  }
-  if (LOGITS && pt.b >= 0) flush(p, sh, pt);
-}
-
-// Merge every block's partial of image b into t = MLP(ctx) in sh.t_s.
-__device__ void context_of(const Params& p, const Smem& sh, int b) {
+// Merge every block's row of image b and run the MLP: t in t_s.
+__device__ void context_of(const Params& p, float* sm, int b, float* t_s) {
   const int C = p.C, G = gridDim.x;
+  float* red = sm;                  // kThreadsTc
+  float* ctx_t = red + kThreadsTc;  // C
+  float* h_s = ctx_t + tc::kCoutMax;
+  float* wred = t_s + tc::kCoutMax;
+  float* wrow = sm + kMergeFloats;  // G
   const size_t stride = (size_t)p.B * (C + 2);
   const float* rows = p.part + (size_t)b * (C + 2);
   float m = -INFINITY;
-  for (int j = threadIdx.x; j < G; j += kThreads)
+  for (int j = threadIdx.x; j < G; j += kThreadsTc)
     if (__ldcg(rows + j * stride + 1) > 0.f) m = fmaxf(m, __ldcg(rows + j * stride));
-  const float M = block_reduce<true>(m, sh.wred);
-  float* wrow = sh.in_s;  // G floats of the conv staging area
+  const float M = block_reduce<true>(m, wred);
   float s = 0.f;
-  for (int j = threadIdx.x; j < G; j += kThreads) {
+  for (int j = threadIdx.x; j < G; j += kThreadsTc) {
     const float sj = __ldcg(rows + j * stride + 1);
     const float wj = sj > 0.f ? expf(__ldcg(rows + j * stride) - M) : 0.f;
     wrow[j] = wj;
     s += wj * sj;
   }
-  const float S = block_reduce<false>(s, sh.wred);  // wrow visible after it
-  const int nq = kThreads / C;
+  const float S = block_reduce<false>(s, wred);  // wrow visible after it
+  const int nq = kThreadsTc / C;
   if (threadIdx.x < nq * C) {
     const int c = threadIdx.x % C, q = threadIdx.x / C;
     float v = 0.f;
     for (int j = q; j < G; j += nq)
       if (wrow[j] != 0.f) v += wrow[j] * __ldcg(rows + j * stride + 2 + c);
-    sh.red_s[threadIdx.x] = v;
+    red[threadIdx.x] = v;
   }
   __syncthreads();
   if (threadIdx.x < C) {
     float v = 0.f;
-    for (int q = 0; q < nq; ++q) v += sh.red_s[q * C + threadIdx.x];
-    sh.ctx_t[threadIdx.x] = v / S;
+    for (int q = 0; q < nq; ++q) v += red[q * C + threadIdx.x];
+    ctx_t[threadIdx.x] = v / S;
   }
   __syncthreads();
   if (threadIdx.x < C) {
     float v = 0.f;
-    for (int k = 0; k < C; ++k) v = fmaf(sh.ctx_t[k], p.a0[k * C + threadIdx.x], v);
-    sh.h_s[threadIdx.x] = leaky(v, 0.2f);
+    for (int k = 0; k < C; ++k) v = fmaf(ctx_t[k], __ldg(p.a0 + k * C + threadIdx.x), v);
+    h_s[threadIdx.x] = leaky(v, 0.2f);
   }
   __syncthreads();
   if (threadIdx.x < C) {
     float v = 0.f;
-    for (int k = 0; k < C; ++k) v = fmaf(sh.h_s[k], p.a1[k * C + threadIdx.x], v);
-    sh.t_s[threadIdx.x] = v;
+    for (int k = 0; k < C; ++k) v = fmaf(h_s[k], __ldg(p.a1 + k * C + threadIdx.x), v);
+    t_s[threadIdx.x] = v;
   }
   __syncthreads();
 }
 
-// Two blocks an SM: ptxas gives the kernel 238 registers unbounded (one
-// block an SM), 128 with a few spills at two; two ran 14% (C1 64) and 21%
-// (C1 128) faster on an H100, three (80 registers, more spills) slower.
-__global__ void __launch_bounds__(kThreads, 2) blockrcb_kernel(Params p) {
-  extern __shared__ float sm[];
-  const Smem sh(sm, p.C);
+// out = bf16(y + lrelu_0.2(r + t)) over a work item, 8 channels an element
+__device__ void out_item(const Params& p, const float* t_s, int x0, int y0, int b) {
+  const int nch = (p.C + 7) / 8;
+  const int nx = min(kSeg, p.W - x0), ny = min(p.rows, p.H - y0);
+  for (int e = threadIdx.x; e < nx * ny * nch; e += kThreadsTc) {
+    const int k = e / nch, c0 = e % nch * 8;
+    const size_t o = (((size_t)b * p.H + y0 + k / nx) * p.W + x0 + k % nx) * p.C + c0;
+    uint4 yr, rr;
+    tc::load8<true>(yr, p.y + o, p.C - c0, true, p.vec);
+    tc::load8<true>(rr, p.r + o, p.C - c0, true, p.vec);
+    float yv[8], rv[8];
+    unpack8(yr, yv);
+    unpack8(rr, rv);
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float v[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int j = 2 * i + h;
+        v[h] = yv[j] + leaky(rv[j] + (c0 + j < p.C ? t_s[c0 + j] : 0.f), 0.2f);
+      }
+      w[i] = tc::bf16x2_bits(__floats2bfloat162_rn(v[0], v[1]));
+    }
+    if (p.vec) {
+      *reinterpret_cast<uint4*>(p.out + o) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      unsigned short* q = reinterpret_cast<unsigned short*>(p.out + o);
+      for (int j = 0; j < 8 && c0 + j < p.C; ++j)
+        q[j] = (unsigned short)(j % 2 ? w[j / 2] >> 16 : w[j / 2] & 0xffffu);
+    }
+  }
+}
+
+// N1: phase 1's C1 padded to 2 N1 (32 up to 64, 64 up to 128); phase 2's
+// conv pair is C -> C -> C (N1 32)
+template <int N1>
+__global__ void __launch_bounds__(kThreadsTc, 1) blockrcb_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* sm = reinterpret_cast<float*>(smem);
   coop::grid_group grid = coop::this_grid();
   const int C = p.C;
-  // this block's partial rows start empty (s = 0): a block may hold no tile
-  // of an image
-  for (int e = threadIdx.x; e < p.B * (C + 2); e += kThreads)
-    p.part[(size_t)blockIdx.x * p.B * (C + 2) + e] =
-        e % (C + 2) == 0 ? -INFINITY : 0.f;
-  Partial pt;
-  conv_pass<false, false>(p, sh, p.x, p.wb0, p.bb0, p.a, C, p.C1, true, p.ns_body, pt);
-  grid.sync();
-  conv_pass<true, false>(p, sh, p.a, p.wb1, p.bb1, p.y, p.C1, C, false, 0.f, pt);
-  grid.sync();
-  conv_pass<true, false>(p, sh, p.y, p.wr0, nullptr, p.a, C, C, true, 0.2f, pt);
-  grid.sync();
-  conv_pass<true, true>(p, sh, p.a, p.wr1, nullptr, p.out, C, C, false, 0.f, pt);
-  grid.sync();
+  const int strips = (p.W + kSeg - 1) / kSeg, rblocks = (p.H + p.rows - 1) / p.rows;
+  const int per_image = strips * rblocks, items = per_image * p.B;
+  // this block's rows start empty (s = 0): a block may hold no item of an
+  // image
+  for (int e = threadIdx.x; e < p.B * (C + 2); e += kThreadsTc)
+    p.part[(size_t)blockIdx.x * p.B * (C + 2) + e] = e % (C + 2) == 0 ? -INFINITY : 0.f;
 
-  // out = bf16(y + lrelu_0.2(r + t)) over the block's tiles, in place of r
-  const int ntiles = ((p.W + TW - 1) / TW) * ((p.H + TH - 1) / TH) * p.B;
+  tc::pair_phase<bf16, N1, false, 1>(smem, p.x, p.wb0, p.bb0, p.wb1, p.bb1, p.y, p.B,
+                                     p.H, p.W, C, p.C1, C, p.ns_body, p.rows, p.vec);
+  grid.sync();  // y complete, and visible in L2
+
+  Partial pt;
+  int cur = -1;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const int b = i / per_image, x0 = i % strips * kSeg, y0 = (i / strips) % rblocks * p.rows;
+    if (b != cur) {
+      if (cur >= 0) flush(p, sm, pt, cur);
+      pt = Partial();
+      cur = b;
+    }
+    tc::pair_rows<bf16, 32, true, 1>(smem, p.y, p.wr0, nullptr, p.wr1, nullptr, p.r,
+                                     p.H, p.W, C, C, C, 0.2f, p.rows, p.vec, x0, y0, b);
+    fold_item(p, pt, x0, y0, b);
+  }
+  if (cur >= 0) flush(p, sm, pt, cur);
+  grid.sync();  // r and every block's rows complete
+
+  float* t_s = sm + kMergeFloats - tc::kCoutMax - kWarps;
   int merged = -1;
-  for (int t = blockIdx.x; t < ntiles; t += gridDim.x) {
-    const Tile tl = tile_at(t, p.H, p.W);
-    if (tl.b != merged) {
-      context_of(p, sh, tl.b);
-      merged = tl.b;
+  for (int i = blockIdx.x; i < items; i += gridDim.x) {
+    const int b = i / per_image, x0 = i % strips * kSeg, y0 = (i / strips) % rblocks * p.rows;
+    if (b != merged) {
+      context_of(p, sm, b, t_s);
+      merged = b;
     }
-    for (int e = threadIdx.x; e < TP * C; e += kThreads) {
-      const int px = e / C, c = e % C;
-      if (px / TW >= tl.th || px % TW >= tl.tw) continue;
-      const size_t o =
-          (((size_t)tl.b * p.H + tl.y0 + px / TW) * p.W + tl.x0 + px % TW) * C + c;
-      const float v = load_cg(p.y + o) + leaky(load_cg(p.out + o) + sh.t_s[c], 0.2f);
-      p.out[o] = from_f32<bf16>(v);
-    }
+    out_item(p, t_s, x0, y0, b);
   }
 }
 
+template <int N1>
+constexpr int smem_bytes() {
+  return tc::pair_smem<bf16, N1, 1>() > tc::pair_smem<bf16, 32, 1>()
+             ? tc::pair_smem<bf16, N1, 1>()
+             : tc::pair_smem<bf16, 32, 1>();
+}
+
+// The kernel's grid and rows on this card; the merge's weights must fit its
+// shared memory beside its scratch
+template <int N1>
+cudaError_t plan(int B, int H, int W, int* grid, int* rows) {
+  constexpr auto kernel = &blockrcb_kernel<N1>;
+  cudaError_t err = allow_smem<kernel>(smem_bytes<N1>());
+  if (err != cudaSuccess) return err;
+  err = tc::persistent_plan(kernel, smem_bytes<N1>(), B, H, W, grid, rows);
+  if (err != cudaSuccess) return err;
+  if (kMergeFloats + *grid > smem_bytes<N1>() / 4) return cudaErrorInvalidConfiguration;
+  return cudaSuccess;
+}
+
+template <int N1>
+int launch(Params p, int part_blocks, cudaStream_t stream) {
+  int grid = 0;
+  cudaError_t err = plan<N1>(p.B, p.H, p.W, &grid, &p.rows);
+  if (err != cudaSuccess) return (int)err;
+  if (grid > part_blocks) return (int)cudaErrorInvalidValue;
+  void* args[] = {&p};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(&blockrcb_kernel<N1>),
+                                    dim3(grid), dim3(kThreadsTc), args, smem_bytes<N1>(),
+                                    stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+bool channels_ok(int C, int C1) {
+  return C >= 1 && C <= tc::kCinMax && C1 >= 1 && C1 <= tc::kC1Max;
+}
+
+}  // namespace rcb
 }  // namespace
 }  // namespace fcvsr
 
+// The grid a launch takes at (B, H, W, C, C1) on the current device, into
+// *grid: the rows of the partials' buffer.
+extern "C" int fcvsr_blockrcb_grid(int B, int H, int W, int C, int C1, int* grid) {
+  using namespace fcvsr::rcb;
+  if (B < 1 || H < 1 || W < 1 || !channels_ok(C, C1)) return (int)cudaErrorInvalidValue;
+  int rows = 0;
+  return (int)(C1 <= 64 ? plan<32>(B, H, W, grid, &rows) : plan<64>(B, H, W, grid, &rows));
+}
+
 // x, out: (B,H,W,C) bf16; wb0 (3,3,C,C1), wb1 (3,3,C1,C), wr0, wr1 (3,3,C,C)
 // float; bb0 (C1) and bb1 (C) float or null; wmask (C); a0, a1 (C,C) (in,
-// out) float.  Scratch: a (B,H,W,max(C,C1)) and y (B,H,W,C) bf16, part
-// (part_blocks, B, C+2) float; the grid is at most part_blocks blocks.
+// out) float.  Scratch: y and r (B,H,W,C) bf16, part (part_blocks, B, C+2)
+// float, part_blocks at least fcvsr_blockrcb_grid's grid.  C <= 64, C1 <=
+// 128.
 extern "C" int fcvsr_blockrcb(const void* x, const float* wb0, const float* bb0,
                               const float* wb1, const float* bb1, const float* wr0,
                               const float* wr1, const float* wmask, const float* a0,
-                              const float* a1, void* a, void* y, void* out, float* part,
+                              const float* a1, void* y, void* r, void* out, float* part,
                               int part_blocks, int B, int H, int W, int C, int C1,
                               float ns_body, void* stream) {
-  using namespace fcvsr;
-  if (B < 1 || H < 1 || W < 1 || C < 1 || C > kThreads || C1 < 1 || part_blocks < 1)
+  using namespace fcvsr::rcb;
+  if (B < 1 || H < 1 || W < 1 || !channels_ok(C, C1) || part_blocks < 1)
     return (int)cudaErrorInvalidValue;
-  constexpr auto kernel = &blockrcb_kernel;
-  const size_t smem = sizeof(float) * smem_floats(C);
-  cudaError_t err = allow_smem<kernel>(smem);
-  if (err != cudaSuccess) return (int)err;
-  int dev = 0, cooperative = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&cooperative, cudaDevAttrCooperativeLaunch, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  if (!cooperative) return (int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const long long ntiles =
-      (long long)((W + TW - 1) / TW) * ((H + TH - 1) / TH) * B;
-  long long grid = (long long)per_sm * sms;
-  if (ntiles < grid) grid = ntiles;
-  if (part_blocks < grid) grid = part_blocks;
-  if (grid > CONV_FLOATS) grid = CONV_FLOATS;  // the merge's weights fit
+  const auto addr = [](const void* q) { return reinterpret_cast<uintptr_t>(q); };
+  const int vec = C % 8 == 0 && addr(x) % 16 == 0 && addr(y) % 16 == 0 &&
+                  addr(r) % 16 == 0 && addr(out) % 16 == 0;
   Params p{static_cast<const bf16*>(x), wb0, bb0, wb1, bb1, wr0, wr1, wmask, a0, a1,
-           static_cast<bf16*>(a), static_cast<bf16*>(y), static_cast<bf16*>(out),
-           part, B, H, W, C, C1, ns_body};
-  void* args[] = {&p};
-  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel),
-                                    dim3((unsigned)grid), dim3(kThreads), args, smem,
-                                    (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+           static_cast<bf16*>(y), static_cast<bf16*>(r), static_cast<bf16*>(out),
+           part, B, H, W, C, C1, 0, vec, ns_body};
+  cudaStream_t s = (cudaStream_t)stream;
+  return C1 <= 64 ? launch<32>(p, part_blocks, s) : launch<64>(p, part_blocks, s);
 }

@@ -68,22 +68,6 @@ namespace fcvsr {
 namespace {
 namespace tc {
 
-// Work item i of a phase: segment i % strips, row block (i / strips) %
-// rblocks, image i / (strips rblocks), as K2's grid (x, y, z) orders them.
-template <typename T, int N1, bool CG>
-__device__ __forceinline__ void pair_phase(unsigned char* smem, const T* x,
-                                           const float* w1, const float* b1,
-                                           const float* w2, const float* b2, T* out,
-                                           int B, int H, int W, int Cin, int C1,
-                                           int Cout, float ns, int rows, int vec) {
-  const int strips = (W + kSeg - 1) / kSeg, rblocks = (H + rows - 1) / rows;
-  const int items = strips * rblocks * B;
-  for (int i = blockIdx.x; i < items; i += gridDim.x)
-    pair_rows<T, N1, CG>(smem, x, w1, b1, w2, b2, out, H, W, Cin, C1, Cout, ns, rows,
-                         vec, i % strips * kSeg, (i / strips) % rblocks * rows,
-                         i / (strips * rblocks));
-}
-
 template <typename T, int N1A, int N1B>
 __global__ void __launch_bounds__(kThreadsTc, 1)
 conv3x3_quad_kernel(const T* __restrict__ x, const float* __restrict__ w1,
@@ -111,23 +95,9 @@ int launch_quad(const void* x, const float* w1, const float* b1, const float* w2
                                                                   : pair_smem<T, N1B>();
   cudaError_t err = allow_smem<kernel>(smem);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
-      cudaSuccess)
+  int grid = 0, rows = 0;
+  if ((err = persistent_plan(kernel, smem, B, H, W, &grid, &rows)) != cudaSuccess)
     return (int)err;
-  if (!coop) return (int)cudaErrorNotSupported;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsTc, smem);
-  if (err != cudaSuccess) return (int)err;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  int rows = pair_rows_per_block(B, H, W, sms);
-  const long long items =
-      (long long)((W + kSeg - 1) / kSeg) * ((H + rows - 1) / rows) * B;
-  const long long fill = (long long)per_sm * sms;
-  const int grid = (int)(items < fill ? items : fill);
   const auto addr = [](const void* p) { return reinterpret_cast<uintptr_t>(p); };
   int vec_x = (C * (int)sizeof(T)) % 16 == 0 && addr(x) % 16 == 0;
   int vec_y = (C2 * (int)sizeof(T)) % 16 == 0 && addr(y) % 16 == 0;

@@ -233,10 +233,10 @@ constexpr int pair_smem(int a_planes, int c1p, int w_planes) {
          2 * w_planes * (kCinMax > kCoutMax ? kCinMax : kCoutMax) * c1p * 2;
 }
 
-// ... for maps of T at N1 (C1 padded to 2 N1)
-template <typename T, int N1>
+// ... for maps of T at N1 (C1 padded to 2 N1), PASSES products a k step
+template <typename T, int N1, int PASSES = kPasses<T>>
 constexpr int pair_smem() {
-  return pair_smem(sizeof(T) == 4 ? 2 : 1, 2 * N1, kPasses<T> > 1 ? 2 : 1);
+  return pair_smem(sizeof(T) == 4 ? 2 : 1, 2 * N1, PASSES > 1 ? 2 : 1);
 }
 
 // K2's partition of a map: segments of kSeg pixels, and as many blocks of
@@ -251,9 +251,11 @@ inline int pair_rows_per_block(int B, int H, int W, int sms) {
 // segment of output pixels x0 .. x0 + kSeg - 1 (cut at W) and output rows
 // y0 .. y0 + rows - 1 (cut at H) of image b.  Cin is padded to kCinMax (8
 // chunks) and C1 to C1P = 2 N1, so that every count of the main loop is a
-// compile-time one.  CG reads x through L2 only.  Every thread of the block
-// calls it; it ends with a barrier, so the next call may reuse `smem`.
-template <typename T, int N1, bool CG>
+// compile-time one.  CG reads x through L2 only.  PASSES is the bf16
+// products a k step (kPasses<T>: K2's routes; 1 for bf16 maps whose weights
+// are rounded to bf16, as K11 takes them).  Every thread of the block calls
+// it; it ends with a barrier, so the next call may reuse `smem`.
+template <typename T, int N1, bool CG, int PASSES = kPasses<T>>
 __device__ __forceinline__ void pair_rows(unsigned char* smem, const T* __restrict__ x,
                                           const float* __restrict__ w1,
                                           const float* __restrict__ b1,
@@ -263,7 +265,6 @@ __device__ __forceinline__ void pair_rows(unsigned char* smem, const T* __restri
                                           int C1, int Cout, float ns1, int rows, int vec,
                                           int x0, int y0, int b) {
   constexpr int PA = sizeof(T) == 4 ? 2 : 1;  // A planes: hi and lo, or the bf16 map
-  constexpr int PASSES = kPasses<T>;
   static_assert(PASSES <= PA + 1, "the third pass reads the map's lo plane");
   constexpr int C1P = 2 * N1, cin_p = kCinMax, nch = cin_p / 8;
   constexpr int pw = PASSES > 1 ? 2 : 1;  // weight planes
@@ -391,6 +392,53 @@ __device__ __forceinline__ void pair_rows(unsigned char* smem, const T* __restri
     sm90::fence_proxy_async();
     __syncthreads();
   }
+}
+
+// Every work item of a phase, in turn over the blocks of a persistent grid:
+// item i is segment i % strips, row block (i / strips) % rblocks, image
+// i / (strips rblocks), as K2's grid (x, y, z) orders them.
+template <typename T, int N1, bool CG, int PASSES = kPasses<T>>
+__device__ __forceinline__ void pair_phase(unsigned char* smem, const T* x,
+                                           const float* w1, const float* b1,
+                                           const float* w2, const float* b2, T* out,
+                                           int B, int H, int W, int Cin, int C1,
+                                           int Cout, float ns, int rows, int vec) {
+  const int strips = (W + kSeg - 1) / kSeg, rblocks = (H + rows - 1) / rows;
+  const int items = strips * rblocks * B;
+  for (int i = blockIdx.x; i < items; i += gridDim.x)
+    pair_rows<T, N1, CG, PASSES>(smem, x, w1, b1, w2, b2, out, H, W, Cin, C1, Cout, ns,
+                                 rows, vec, i % strips * kSeg,
+                                 (i / strips) % rblocks * rows, i / (strips * rblocks));
+}
+
+// The plan of a persistent cooperative launch of `kernel` (kThreadsTc
+// threads, `smem` bytes) over K2's work items of a (B, H, W) map: the rows
+// a block takes (K2's partition) and the grid, as many blocks as the card
+// holds co-resident (the occupancy query times the SM count) and never
+// more than the items.  An error where the card takes no cooperative
+// launch or not one block of the kernel: such a grid is refused, never
+// split.
+template <typename K>
+cudaError_t persistent_plan(K kernel, int smem, int B, int H, int W, int* grid,
+                            int* rows) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) !=
+      cudaSuccess)
+    return err;
+  if (!coop) return cudaErrorNotSupported;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+      cudaSuccess)
+    return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreadsTc, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  *rows = pair_rows_per_block(B, H, W, sms);
+  const long long items = (long long)((W + kSeg - 1) / kSeg) * ((H + *rows - 1) / *rows) * B;
+  const long long fill = (long long)per_sm * sms;
+  *grid = (int)(items < fill ? items : fill);
+  return cudaSuccess;
 }
 
 }  // namespace tc

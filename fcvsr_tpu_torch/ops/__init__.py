@@ -20,8 +20,8 @@ __all__ = [
 
 # kernel name -> the wrappers that launch it (the IAC kernel has a
 # materialised-kernel and a fused-prediction variant; the resident chain
-# is one launch for all iterations; the IAC adjoint is two launches a
-# call, the DCN adjoint one)
+# is one launch for all iterations; the IAC adjoint and the DCN adjoint
+# are one launch a call)
 _WRAPPERS = {
     "iac": (fused_iac.warp_sac_fused, fused_iac.warp_sac_fused_kf),
     "iac_chain": (fused_iac.iac_fused_resident,),

@@ -52,10 +52,9 @@ _SIGNATURES = {
     # bf16, stream
     "fcvsr_iac_chain": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _P],
-    # src, flow, k, k_ld, k_off, gz, dk, dwarped, B, H, W, C, stream
-    "fcvsr_iac_bwd_sac": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I, _P],
-    # src, flow, dwarped, dsrc, dflow, B, H, W, C, stream
-    "fcvsr_iac_bwd_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # src, flow, k, k_ld, k_off, gz, dk, dsrc, dflow, B, H, W, C, stream
+    "fcvsr_iac_bwd": [_P, _P, _P, _I, _I, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _P],
     # x, w, bias, res, out, B, H, W, Cin, Cout, act, ns, bf16, stream
     "fcvsr_conv3x3": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I,
                       _P],
@@ -65,9 +64,11 @@ _SIGNATURES = {
     # x, w1, b1, w2, b2, w3, b3, w4, b4, y, out, B, H, W, C, C1, C2, C3,
     # Cout, ns1, ns3, bf16, stream
     "fcvsr_conv3x3_quad": [_P] * 11 + [_I] * 8 + [_F, _F, _I, _P],
-    # x, wb0, bb0, wb1, bb1, wr0, wr1, wmask, a0, a1, a, y, out, part,
+    # x, wb0, bb0, wb1, bb1, wr0, wr1, wmask, a0, a1, y, r, out, part,
     # part_blocks, B, H, W, C, C1, ns_body, stream
     "fcvsr_blockrcb": [_P] * 14 + [_I] * 6 + [_F, _P],
+    # B, H, W, C, C1, int* grid
+    "fcvsr_blockrcb_grid": [_I] * 5 + [ctypes.POINTER(_I)],
     # x, offset, mask, w, bias, out, B, H, W, Cin, Cout, dg, stream
     "fcvsr_dcn3x3": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # x, offset, mask, w, g, dx, doffset, dmask, dw, dbias, B, H, W, Cin,

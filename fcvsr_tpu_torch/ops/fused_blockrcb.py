@@ -3,7 +3,9 @@ version.
 
 Counterpart of ``benchmarks/microbench_blockrcb_kernel.py::block_rcb_rows``
 in the JAX package: one BlockRCB level, the four chained 3x3 convs, the
-ContextBlock and the residual, in one launch.  The JAX package keeps it as
+ContextBlock and the residual, in one launch: K6's two conv-pair phases on
+the tensor cores (one bf16 product a k step: the weights are rounded to
+bf16), then the ContextBlock.  The JAX package keeps it as
 an A/B benchmark against the unfused path and wires it into no model; so
 does the port (``fcvsr_tpu_torch.benchmarks.microbench_blockrcb_kernel``).
 There is no rows layout here: maps are NHWC (B, H, W, C) bf16, any H and W,
@@ -17,11 +19,13 @@ model path runs this one.  Inference only: under autograd it raises.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 import torch.nn.functional as F
 
 from . import _native
-from .fused_conv import _check_weight, _conv_plain
+from .fused_conv import PAIR_MAX_CHANNELS, _check_weight, _conv_plain
 
 __all__ = ["block_rcb", "block_rcb_plain"]
 
@@ -61,10 +65,14 @@ def block_rcb_plain(x, wb0, bb0, wb1, bb1, wr0, wr1, w_mask, w_add0, w_add1,
 
 
 def block_rcb(x, wb0, bb0, wb1, bb1, wr0, wr1, w_mask, w_add0, w_add1,
-              ns_body: float = 0.1):
+              ns_body: float = 0.1, scratch=None):
     """:func:`block_rcb_plain`'s function in one cooperative launch on a
     CUDA tensor; the plain version on a CPU tensor.  bf16 maps only (a
-    TypeError otherwise); serving only (it raises under autograd)."""
+    TypeError otherwise); serving only (it raises under autograd).  On the
+    card C is at most 64 and C1 at most 128, what K2's loop takes (a
+    ValueError beyond).  ``scratch``: (y, r), two (B, H, W, C) bf16
+    buffers the kernel writes the level's y and r into (made when None),
+    so that a caller can read them."""
     if x.dtype != torch.bfloat16:
         raise TypeError(f"block_rcb stores its maps as bfloat16, not "
                         f"{x.dtype}")
@@ -88,23 +96,31 @@ def block_rcb(x, wb0, bb0, wb1, bb1, wr0, wr1, w_mask, w_add0, w_add1,
     _native.require(w_mask, "w_mask", dev, (c,))
     _native.require(w_add0, "w_add0", dev, (c, c))
     _native.require(w_add1, "w_add1", dev, (c, c))
-    if c > 256:
-        raise ValueError(f"block_rcb takes at most 256 channels, not {c}")
-    a = torch.empty((b, h, w, max(c, c1)), device=dev, dtype=x.dtype)
-    y = torch.empty_like(x)
+    max_c, max_c1 = PAIR_MAX_CHANNELS[:2]  # its conv phases run K2's loop
+    if c > max_c or c1 > max_c1:
+        raise ValueError(f"block_rcb's kernel takes C up to {max_c} and C1 "
+                         f"up to {max_c1}, not {c} and {c1}")
+    if scratch is None:
+        scratch = (torch.empty_like(x), torch.empty_like(x))
+    for name, t in zip(("y", "r"), scratch):
+        _native.require(t, f"scratch {name}", dev, x.shape, dtype=x.dtype)
+    y, r = scratch
     out = torch.empty_like(x)
-    # one row of softmax partials a block and image; at most 8 blocks of
-    # 256 threads are resident on an SM
-    blocks = 8 * torch.cuda.get_device_properties(dev).multi_processor_count
-    part = torch.empty((blocks, b, c + 2), device=dev, dtype=torch.float32)
     lib = _native.lib()
     with _native.launch_guard(x) as stream:
+        # one row of softmax partials a block of the launch and image
+        grid = ctypes.c_int(0)
+        _native.check(lib.fcvsr_blockrcb_grid(b, h, w, c, c1,
+                                              ctypes.byref(grid)),
+                      "blockrcb (grid)")
+        part = torch.empty((grid.value, b, c + 2), device=dev,
+                           dtype=torch.float32)
         rc = lib.fcvsr_blockrcb(
             x.data_ptr(), wb0.data_ptr(), _native.ptr(bb0), wb1.data_ptr(),
             _native.ptr(bb1), wr0.data_ptr(), wr1.data_ptr(),
             w_mask.data_ptr(), w_add0.data_ptr(), w_add1.data_ptr(),
-            a.data_ptr(), y.data_ptr(), out.data_ptr(), part.data_ptr(),
-            blocks, b, h, w, c, c1, float(ns_body), stream)
+            y.data_ptr(), r.data_ptr(), out.data_ptr(), part.data_ptr(),
+            grid.value, b, h, w, c, c1, float(ns_body), stream)
     _native.check(rc, "blockrcb")
     block_rcb.launches += 1
     return out

@@ -12,8 +12,8 @@ with the activation skipped when ``act`` is False.  Unlike the TPU kernel
 the warp is unbounded (no radius clamp) and nothing constrains H or W.
 :func:`iac_fused_resident` runs the whole chain in one launch of
 ``iac_chain.cu``.  :func:`warp_sac_bwd` is the iteration's exact adjoint
-without the residual and the activation, two launches (the SAC adjoint,
-then the warp adjoint).
+without the residual and the activation, in one launch of
+``iac_bwd.cu``.
 
 Storage: the serving wrappers take float32 or bfloat16 maps (feat, k, f0,
 feat_in; the output has their type) and float32 flows, ``wsel`` and
@@ -55,14 +55,17 @@ from .warp import flow_warp
 __all__ = ["warp_sac_fused", "warp_sac_fused_kf", "warp_sac_bwd", "iac_fused",
            "iac_fused_kf", "iac_fused_resident", "chain_scratch",
            "IACChainFn", "warp_sac_plain", "iac_chain_plain",
-           "warp_sac_vjp_plain",
+           "warp_sac_vjp_plain", "launch_adjoint",
            "predict_kernels", "predict_kernels_emulated", "wsel_planes",
-           "IAC_MAX_CHANNELS", "IAC_MAX_C0"]
+           "IAC_MAX_CHANNELS", "IAC_MAX_C0", "IAC_BWD_CHUNK"]
 
 # what K1's kernel takes (csrc/iac.cu): its shared memory holds the warped
 # tile of every channel; the prediction's B fragments stay in registers
 IAC_MAX_CHANNELS = 128
 IAC_MAX_C0 = 64
+# the adjoint's channels a block (csrc/iac_bwd.cu's CC): above it the
+# chunks add their shares of dflow into a zeroed buffer
+IAC_BWD_CHUNK = 16
 
 
 def predict_kernels(f0, wsel, bsel, it: int, channels: int):
@@ -243,7 +246,8 @@ def warp_sac_bwd(src, flow, k, gz, it: int = 0, dk=None):
     """Adjoint of one IAC iteration without its residual and activation:
     (dsrc, dflow, dk) at the cotangent ``gz`` (B, H, W, C).  ``dk`` is a
     buffer shaped like k whose iteration-``it`` block is written (a zeroed
-    one is made when None); the other blocks are left as they are."""
+    one is made when None); the other blocks are left as they are.  One
+    launch a call on the card."""
     c = src.shape[-1]
     cols = slice(it * 3 * c, (it + 1) * 3 * c)
     if _native.on_cpu(src):
@@ -252,28 +256,31 @@ def warp_sac_bwd(src, flow, k, gz, it: int = 0, dk=None):
             return dsrc, dflow, dk_it
         dk[..., cols] = dk_it[..., cols]
         return dsrc, dflow, dk
-    b, h, w, c = _check_common(src, flow, gz)
-    dev = src.device
-    k_ld = _check_k(k, src, it)
+    _check_common(src, flow, gz)
+    _check_k(k, src, it)
     if dk is None:
         dk = torch.zeros_like(k)
-    _native.require(dk, "dk", dev, k.shape)
-    dwarped = torch.empty_like(src)
-    dsrc = torch.zeros_like(src)
-    dflow = torch.empty_like(flow)
-    lib = _native.lib()
-    with _native.launch_guard(src) as stream:
-        rc = lib.fcvsr_iac_bwd_sac(
-            src.data_ptr(), flow.data_ptr(), k.data_ptr(), k_ld, it * 3 * c,
-            gz.data_ptr(), dk.data_ptr(), dwarped.data_ptr(), b, h, w, c,
-            stream)
-        _native.check(rc, "iac_bwd (SAC adjoint)")
-        warp_sac_bwd.launches += 1
-        rc = lib.fcvsr_iac_bwd_warp(
-            src.data_ptr(), flow.data_ptr(), dwarped.data_ptr(),
-            dsrc.data_ptr(), dflow.data_ptr(), b, h, w, c, stream)
-    _native.check(rc, "iac_bwd (warp adjoint)")
+    _native.require(dk, "dk", src.device, k.shape)
+    out = launch_adjoint(_native.lib().fcvsr_iac_bwd, src, flow, k, gz, it,
+                         dk)
     warp_sac_bwd.launches += 1
+    return out
+
+
+def launch_adjoint(fn, src, flow, k, gz, it: int, dk):
+    """One launch of the adjoint entry point ``fn`` on checked operands:
+    dsrc, which blocks add into, zeroed; dflow zeroed only where the
+    kernel's channel chunks add into it (C above :data:`IAC_BWD_CHUNK`).
+    Returns (dsrc, dflow, dk)."""
+    b, h, w, c = src.shape
+    dsrc = torch.zeros_like(src)
+    dflow = torch.zeros_like(flow) if c > IAC_BWD_CHUNK \
+        else torch.empty_like(flow)
+    with _native.launch_guard(src) as stream:
+        rc = fn(src.data_ptr(), flow.data_ptr(), k.data_ptr(), k.shape[-1],
+                it * 3 * c, gz.data_ptr(), dk.data_ptr(), dsrc.data_ptr(),
+                dflow.data_ptr(), b, h, w, c, stream)
+    _native.check(rc, "iac_bwd")
     return dsrc, dflow, dk
 
 

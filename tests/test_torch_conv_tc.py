@@ -258,6 +258,30 @@ def test_iac_ab_edits_apply(tmp_path, monkeypatch):
             assert new in written, name
 
 
+def test_iac_ab_bwd_takeouts_apply():
+    """Every edit of ``iac_ab --bwd --takeouts`` matches the adjoint's
+    source (``csrc/iac_bwd.cu``): each old text is there once, gone from
+    its variant, and the new text stands in its place; with ``--parent``
+    the two-launch kernel's takeouts edit that checkout's copy."""
+    from fcvsr_tpu_torch.benchmarks import iac_ab
+    from fcvsr_tpu_torch.ops import _native
+
+    src = iac_ab.BWD_SOURCE
+    base = _native.edited_sources(src, [])[src]
+    assert list(iac_ab.variants(True, None, {}, bwd=True)) == \
+        ["base", *iac_ab.BWD_TAKEOUTS]
+    for name, edits in iac_ab.BWD_TAKEOUTS.items():
+        text = _native.edited_sources(src, edits)[src]
+        for old, new in edits:
+            assert base.count(old) == 1 and old not in text \
+                and new in text, name
+    runs = iac_ab.variants(True, "DIR", {}, bwd=True)
+    assert list(runs) == ["base", *iac_ab.BWD_TAKEOUTS, "parent",
+                          *(f"parent_{n}" for n in iac_ab.PARENT_BWD_TAKEOUTS)]
+    for name, edits in iac_ab.PARENT_BWD_TAKEOUTS.items():
+        assert runs[f"parent_{name}"] == {"dir": "DIR", "edits": edits}
+
+
 @pytest.mark.parametrize("source", ["conv3x3.cu", "microbench/conv2.cu",
                                     "iac.cu"])
 def test_build_variants_writes_each_tree_and_raises_on_nvcc(

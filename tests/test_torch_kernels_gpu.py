@@ -48,10 +48,15 @@ handoffs but a value within reassociation noise of a rounding boundary
 rounds either way.  FCVSR-S under the serving flags on the card
 against the CPU, with its launches.
 
-The BlockRCB level (K11, one cooperative launch, bf16 maps) against its
-plain version at the bf16 bar, at H and W below and not multiples of its
-8x16 tile, C1 = C and 2C, B 1 and 2; the toolchain probe's kernel (K12),
-exact.  Every launch enters its tensors' device: K1, K2, K7, K8 and K11 on
+The BlockRCB level (K11: K6's two wgmma phases and the ContextBlock in
+one cooperative launch, bf16 maps) against its plain version at the bf16
+bar, at H and W below and not multiples of K2's 62-pixel segments, C1 =
+C and 2C, B 1 and 2; its y and r bit for bit against a K6 launch on
+bf16-rounded weights, also with more work items than the grid holds; C
+above 64 and C1 above 128 refused, and wgmma in its SASS.  The IAC
+adjoint (K5) is one launch a call, also at C 5 (scalar loads and
+atomics) and with flows far outside the frame.  The toolchain probe's
+kernel (K12), exact.  Every launch enters its tensors' device: K1, K2, K7, K8 and K11 on
 cuda:1 with cuda:0 current (skips below two cards), and K2 and K11
 launched from a side stream, complete once that stream alone is
 synchronised, as are K4 and K6.
@@ -323,18 +328,33 @@ def _flows(dev, seed, b, h, w, scale):
     return torch.from_numpy(f.astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("h,w,c,it", [
-    (13, 29, 20, 0), (5, 7, 64, 2), (17, 33, 8, 1)])
-def test_iac_bwd_kernel_matches_plain(cuda, h, w, c, it):
-    b, n_it = 2, 3
+@pytest.mark.parametrize("b,h,w,c,it,far", [
+    (2, 13, 29, 20, 0, False), (2, 5, 7, 64, 2, False),
+    (2, 17, 33, 8, 1, False),
+    (2, 9, 21, 5, 1, False),    # C 5: no quads, scalar loads and atomics
+    (3, 11, 18, 24, 2, True)])  # flows far outside the frame at every pixel
+def test_iac_bwd_kernel_matches_plain(cuda, b, h, w, c, it, far):
+    """K5, one launch a call, against the plain adjoint at 1e-5: tiles cut
+    at the frame's edges, channel chunks cut short, C not a multiple of 4,
+    and (``far``) four in five pixels' flows pushed 5 frames' size out, in
+    one of four directions, where the clamp holds every corner outside the
+    frame: dsrc and dflow take nothing from them."""
+    n_it = 3
     src = _rand(cuda, 30, b, h, w, c)
     flow = _flows(cuda, 31, b, h, w, 1.5)
+    if far:
+        side = torch.from_numpy(np.random.default_rng(37).integers(
+            0, 5, (b, h, w))).to(cuda)
+        for i, (dx, dy) in enumerate(((5 * w, 0), (-5 * w, 0), (0, 5 * h),
+                                      (0, -5 * h))):
+            flow[..., 0] += (side == i) * dx
+            flow[..., 1] += (side == i) * dy
     k = _rand(cuda, 32, b, h, w, n_it * 3 * c, scale=0.3)
     gz = _rand(cuda, 33, b, h, w, c)
     n0 = fused_iac.warp_sac_bwd.launches
     got = fused_iac.warp_sac_bwd(src, flow, k, gz, it)
     ref = fused_iac.warp_sac_vjp_plain(src, flow, k, gz, it)
-    assert fused_iac.warp_sac_bwd.launches == n0 + 2
+    assert fused_iac.warp_sac_bwd.launches == n0 + 1
     for g, r in zip(got, ref):
         _assert_close(g, r, 1e-5)
 
@@ -342,7 +362,7 @@ def test_iac_bwd_kernel_matches_plain(cuda, h, w, c, it):
 @pytest.mark.parametrize("act_last", [True, False])
 def test_iac_chain_grads_match_plain(cuda, act_last):
     """IACChainFn (forward and adjoint kernels) against autograd through the
-    plain chain; launches: ac_num forward, 2 * ac_num adjoint."""
+    plain chain; launches: ac_num forward, ac_num adjoint."""
     b, h, w, c, ac = 2, 11, 19, 24, 3
     leaves = [_rand(cuda, 34, b, h, w, c),
               _rand(cuda, 35, b, h, w, ac * 3 * c, scale=0.3),
@@ -355,7 +375,7 @@ def test_iac_chain_grads_match_plain(cuda, act_last):
     got = torch.autograd.grad(out, leaves, g)
     after = launch_counts()
     assert after["iac"] - before["iac"] == ac
-    assert after["iac_bwd"] - before["iac_bwd"] == 2 * ac
+    assert after["iac_bwd"] - before["iac_bwd"] == ac
     cur = leaves[0]
     for i in range(ac):  # the plain chain under ordinary autograd
         cur = fused_iac.warp_sac_plain(cur, leaves[2][i], leaves[1], leaves[0],
@@ -901,10 +921,10 @@ def _block_rcb_case(dev, seed, b, h, w, c, c1):
 
 
 @pytest.mark.parametrize("b,h,w,c,c1", [
-    (1, 5, 7, 16, 16),     # H and W below one 8x16 tile
-    (2, 13, 29, 16, 32),   # tiles cut at both edges, C1 = 2C, two images
+    (1, 5, 7, 16, 16),     # H and W below one row segment
+    (2, 13, 29, 16, 32),   # segments cut at both edges, C1 = 2C, two images
     (1, 37, 50, 64, 128),  # FCVSR's widths
-    (2, 9, 17, 24, 24),    # channel chunks cut short, 256 not a multiple of C
+    (2, 9, 17, 24, 24),    # C not a multiple of 16, 256 not a multiple of C
     (2, 20, 33, 64, 64)])  # C1 = C, two images
 def test_blockrcb_kernel_matches_plain(cuda, b, h, w, c, c1):
     """K11, one cooperative launch, against its plain version at the bf16
@@ -919,6 +939,47 @@ def test_blockrcb_kernel_matches_plain(cuda, b, h, w, c, c1):
     _assert_close_as(got, block_rcb_plain(x, **kw), 1e-4)
     if b == 2:  # the first image alone gives the same output
         _assert_close_as(block_rcb(x[:1].contiguous(), **kw), got[:1], 1e-4)
+
+
+@pytest.mark.parametrize("b,h,w,c,c1", [
+    (2, 13, 29, 16, 32), (1, 37, 50, 64, 128), (2, 9, 17, 24, 24),
+    (1, 70, 130, 64, 64)])  # more work items than one wave of the grid
+def test_blockrcb_conv_phases_equal_quad(cuda, b, h, w, c, c1):
+    """K11's y and r, read through scratch handed to the wrapper, equal a
+    K6 launch on the same input with the weights rounded to bf16
+    beforehand (K6's lo weight products are then zero) bit for bit: the
+    two run K2's loop over the same items."""
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb
+
+    x, kw = _block_rcb_case(cuda, 91, b, h, w, c, c1)
+    scratch = (torch.empty_like(x), torch.empty_like(x))
+    with torch.no_grad():
+        block_rcb(x, **kw, scratch=scratch)
+        rw = {n: kw[n].bfloat16().float() for n in ("wb0", "wb1", "wr0",
+                                                     "wr1")}
+        y, r = fused_conv.conv3x3_quad(x, rw["wb0"], kw["bb0"], rw["wb1"],
+                                       kw["bb1"], rw["wr0"], None, rw["wr1"],
+                                       None, 0.1, 0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch[0], y) and torch.equal(scratch[1], r)
+
+
+def test_blockrcb_kernel_takes_k2s_channels_on_the_tensor_cores(cuda):
+    """K11 refuses C above 64 and C1 above 128, what K2's loop takes, and
+    its kernels' SASS holds wgmma (HGMMA), as chip_smoke.py checks."""
+    from fcvsr_tpu_torch.ops import _native
+    from fcvsr_tpu_torch.ops.fused_blockrcb import block_rcb
+
+    for c, c1 in ((72, 72), (64, 192)):
+        x, kw = _block_rcb_case(cuda, 92, 1, 5, 7, c, c1)
+        with pytest.raises(ValueError, match="C up to 64"):
+            block_rcb(x, **kw)
+    sass = _native.sass_ops(_native.lib()._name, "blockrcb_kernel",
+                            ("HGMMA",))
+    if sass is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert len(sass) == 2 and all(ops["HGMMA"] for ops in sass.values()), \
+        sass
 
 
 def test_probe_kernel_builds_and_runs(cuda):
