@@ -98,8 +98,10 @@ Phases, one line or more each:
      (mm probes warm, the rest cold) beside its bound, its plain version,
      its library call (held to the plain version too) and its yardstick,
      the mm probes also with the L2 bytes they read and that rate; then the
-     mm kernel's SASS (``cuobjdump -sass`` of the library) must hold wgmma
-     (HGMMA) and TMA tensor loads (UTMALDG) and no mma.sync or ldmatrix;
+     probes' SASS (``cuobjdump -sass`` of the library): the mm kernel must
+     hold wgmma (HGMMA) and TMA tensor loads (UTMALDG) and no mma.sync or
+     ldmatrix, the window kernel's six instantiations TMA tensor loads,
+     the copy kernel TMA bulk copies (UBLKCP), and none cp.async (LDGSTS);
   8. a JSON line of the kernels (launches from the run of the path that
      launches each: FCVSR training for FCVSR's, fast serving with the
      resident chain and the quad for K4 and K6, zoo training for K7 and K8,
@@ -199,8 +201,13 @@ MICROBENCH = {
     "dma_serial": "benchmarks/microbench_dma.py:80",
     "dma_dbuf": "benchmarks/microbench_dma.py:102",
 }
-# the mm probes' route within CUDA: Hopper's warpgroup MMA fed by TMA
-MM_DESIGN = dict.fromkeys(("mm_stream", "mm_stream3"), "wgmma + TMA")
+# the probes' routes within CUDA: Hopper's warpgroup MMA fed by TMA; the
+# window and copy probes as persistent TMA streams on mbarrier rings
+PROBE_DESIGN = {**dict.fromkeys(("mm_stream", "mm_stream3"), "wgmma + TMA"),
+             **dict.fromkeys(("im2col", "dma_window"),
+                             "TMA tensor-map ring, row units"),
+             **dict.fromkeys(("dma_one_shot", "dma_serial", "dma_dbuf"),
+                             "TMA bulk-copy ring, a block an SM")}
 KERNELS.update({name: ("fcvsr_tpu_torch/csrc/microbench/"
                        + ("dma.cu" if "microbench_dma" in where
                           else "conv2.cu"), where)
@@ -1469,6 +1476,7 @@ def phase_microbench(torch):
     version and every time positive.  Returns the launches of the seven wrappers
     over both runs and each kernel's line for the result (the first case
     timed; its max error over all cases)."""
+    from fcvsr_tpu_torch.benchmarks import microbench_common as common
     from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
     from fcvsr_tpu_torch.benchmarks import microbench_dma as dma
 
@@ -1508,15 +1516,12 @@ def phase_microbench(torch):
             max_abs_err=0.0, **{k: rep[k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}))
         line["max_abs_err"] = max(line["max_abs_err"], rep["max_abs_dev"])
-    sass = conv2.mm_sass()
-    say("microbench_sass", kernels=sass,
+    sass = common.sass()
+    say("microbench_sass", kernels=sass, wants=common.SASS_WANTS,
         note=None if sass is not None else "no cuobjdump in the toolkit")
-    for kernel, ops in (sass or {}).items():
-        if not (ops["HGMMA"] and ops["UTMALDG"]) or ops["HMMA"] or ops["LDSM"]:
-            fail(f"{kernel}: SASS {ops}, expected HGMMA and UTMALDG and no "
-                 "HMMA or LDSM")
-    if sass is not None and list(sass) != ["mm_stream_kernel"]:
-        fail(f"the mm kernel's SASS: found {sorted(sass)}")
+    faults = common.sass_faults(sass or {}) if sass is not None else []
+    if faults:
+        fail(f"the probes' SASS: {faults}")
     say("microbench_phase", seconds=time.perf_counter() - t0,
         launches=launches)
     return launches, results
@@ -1643,8 +1648,8 @@ def main() -> None:
         kernels.append(dict(name=name, route="cuda", source=source,
                             replaces=replaces, launches=counts[name],
                             **results[name]))
-        if name in MM_DESIGN:
-            kernels[-1]["design"] = MM_DESIGN[name]
+        if name in PROBE_DESIGN:
+            kernels[-1]["design"] = PROBE_DESIGN[name]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -21,6 +21,7 @@ host's falls inside the pair:
 from __future__ import annotations
 
 import ctypes
+import re
 import statistics
 from pathlib import Path
 
@@ -28,8 +29,8 @@ import torch
 
 from ..ops import _native
 
-__all__ = ["lib", "cold_ms", "warm_ms", "SOURCES", "FLUSH_BYTES",
-           "COLD_REPS", "WARM_ITERS"]
+__all__ = ["lib", "cold_ms", "warm_ms", "sass", "sass_faults", "SOURCES",
+           "FLUSH_BYTES", "COLD_REPS", "WARM_ITERS", "SASS_OPS", "SASS_WANTS"]
 
 SOURCES = sorted((Path(__file__).resolve().parent.parent / "csrc"
                   / "microbench").glob("*.cu"))
@@ -45,8 +46,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     # rhs, w, out, checksums, partials, counters, TH, WP, tiles, stream
     "fcvsr_mb_mm_stream": [_P] * 6 + [_I] * 3 + [_P],
-    # src, out, TH, C, WP, tiles, build, stream
-    "fcvsr_mb_window": [_P, _P] + [_I] * 5 + [_P],
+    # src, out, sums, TH, C, WP, tiles, build, stream
+    "fcvsr_mb_window": [_P] * 3 + [_I] * 5 + [_P],
     # src, out, folds, total bytes, WP, bf16, stream
     "fcvsr_mb_one_shot": [_P, _P, _P, _L, _I, _I, _P],
     # src, out, folds, tiles, TH, row bytes, WP, bf16, dbuf, stream
@@ -58,6 +59,52 @@ def lib():
     """The probes' library (built on first call; a failed build raises)."""
     return _native.side_lib("microbench", SOURCES, SIGNATURES,
                             "fcvsr_mb_error_string")[0]
+
+
+# SASS ops: wgmma, a TMA tensor load, a TMA bulk copy, cp.async (an
+# element copy through the SM's threads), mma.sync, ldmatrix
+SASS_OPS = ("HGMMA", "UTMALDG", "UBLKCP", "LDGSTS", "HMMA", "LDSM")
+# the probes' kernels, each with the ops it must hold and those it must
+# not: the mm stream on wgmma fed by TMA tensor loads, the window kernel's
+# six instantiations (im2col or not, 64, 32 or 16 lanes a unit) on TMA
+# tensor loads, the copies on bulk copies; none copies through cp.async
+SASS_WANTS = {"mm_stream_kernel": (("HGMMA", "UTMALDG"), ("HMMA", "LDSM", "LDGSTS")),
+              **{f"window_kernel<{b}, {n}>": (("UTMALDG",), ("LDGSTS",))
+                 for b in ("im2col", "dma_window") for n in (64, 32, 16)},
+              "copy_kernel": (("UBLKCP",), ("LDGSTS",))}
+
+
+def _readable(mangled: str) -> str:
+    got = re.search(r"window_kernelILb([01])ELi(\d+)E", mangled)
+    if got:
+        return (f"window_kernel<{'im2col' if got[1] == '1' else 'dma_window'}"
+                f", {got[2]}>")
+    return next((k for k in ("mm_stream_kernel", "copy_kernel") if k in mangled),
+                mangled)
+
+
+def sass(path=None):
+    """{kernel: {op: count}} of :data:`SASS_OPS` for the probes' kernels
+    in ``cuobjdump -sass`` of their library (``path``, or the one
+    :func:`lib` builds), under the names of :data:`SASS_WANTS`.  None when
+    the toolkit has no cuobjdump."""
+    counts = _native.sass_ops(path or lib()._name, "_kernel", SASS_OPS)
+    return None if counts is None else {
+        _readable(name): ops for name, ops in counts.items()}
+
+
+def sass_faults(counts) -> list:
+    """What :func:`sass` found against :data:`SASS_WANTS`: a kernel
+    missing or unknown, an op missing or present that must not be."""
+    faults = [f"{k}: not found" for k in SASS_WANTS if k not in counts]
+    faults += [f"{k}: not a probe kernel" for k in counts if k not in SASS_WANTS]
+    for k, (need, never) in SASS_WANTS.items():
+        ops = counts.get(k)
+        if ops is None:
+            continue
+        faults += [f"{k}: no {op}" for op in need if not ops[op]]
+        faults += [f"{k}: {ops[op]} {op}" for op in never if ops[op]]
+    return faults
 
 
 def cold_ms(fn) -> float:

@@ -29,6 +29,20 @@ tensor, or raises; on a CPU tensor it runs its plain version.
 ``<wrapper>.launches`` counts the launches.  The operands are drawn from
 seed 0 in the JAX script's order (:func:`seeded_operands`).
 
+The window probes' kernel replaces the TPU's ``im2col_kernel`` and
+``dma_kernel`` (``:107, 140``) with a persistent TMA stream: one block an
+SM takes units of (source row, 64 lanes; fewer for C > 64) in turn, each
+unit's C channels one TMA box from a float32 tensor map into a ring of 12
+stages on mbarriers, summed over the channels by four consumer warps; each
+source row is read once.  dma_window writes the sums into the one or two
+windows that hold the row; im2col sums the bf16-rounded rows into a (tiles
+* TH + 2, WP) scratch and, after a grid barrier in the same cooperative
+launch, takes their 3x3 box with the lanes wrapping
+(:func:`im2col_boxsum_emulated` is that route on the CPU): no (9C, WP)
+operand is built, as K2 builds none on Hopper.  It takes WP a multiple of
+4 (TMA's 16-byte row stride) and C <= 256 (a box's rows) on a CUDA tensor
+(else ValueError).
+
 The mm probes' kernel replaces the TPU's ``mm_stream_kernel`` and
 ``mm_stream3_kernel`` (``benchmarks/microbench_conv2.py:62, 82``) with
 Hopper's warpgroup MMA (``wgmma``, bf16, float32 sums) fed by TMA: one
@@ -84,8 +98,9 @@ from . import microbench_common as common
 
 __all__ = ["TH", "C", "WP", "TILES", "seeded_operands", "mm_stream",
            "mm_stream3", "im2col", "dma_window", "mm_stream_plain",
-           "mm_stream3_plain", "im2col_plain", "dma_window_plain", "work",
-           "mm_l2_bytes", "mm_sass", "main"]
+           "mm_stream3_plain", "im2col_plain", "im2col_boxsum_emulated",
+           "dma_window_plain", "work",
+           "mm_l2_bytes", "main"]
 
 TH, C, WP, TILES = 16, 64, 512, 17
 REPLACES = {"mm_stream": "benchmarks/microbench_conv2.py:62",
@@ -95,6 +110,8 @@ REPLACES = {"mm_stream": "benchmarks/microbench_conv2.py:62",
 MM_C = 64  # the mm kernel's output channels (the wgmma tile's M)
 MM_LANES = 128  # output lanes a work item of the mm kernel (the wgmma N)
 MM_WP_STEP = 8  # the kernel's WP is a multiple of this: TMA's row stride
+WIN_WP_STEP = 4  # the window kernel's: TMA's 16-byte row stride in float32
+WIN_MAX_C = 256  # the window kernel's channels at most: a TMA box's rows
 
 
 def seeded_operands(seed: int = 0, th: int = TH, c: int = C, wp: int = WP,
@@ -235,6 +252,18 @@ def im2col_plain(src, th: int = TH):
     return torch.stack(outs)
 
 
+def im2col_boxsum_emulated(src, th: int = TH):
+    """im2col's function by its kernel's route on the card: the channel
+    sums of every bf16-rounded source row, s[p, x] = sum_c
+    f32(bf16(src[0, p, c, x])), then their 3x3 box, o[t, r, x] = sum over
+    dy, dx < 3 of s[t*TH + r + dy, (x + dx) mod WP]; (tiles, TH, WP).  No
+    (9C, WP) operand is built."""
+    tiles = _check_window(src, th)
+    s = src[0].to(torch.bfloat16).float().sum(dim=1)
+    h = s + s.roll(-1, dims=-1) + s.roll(-2, dims=-1)
+    return (h[:-2] + h[1:-1] + h[2:]).reshape(tiles, th, -1)
+
+
 def dma_window_plain(src, th: int = TH):
     """o (tiles, TH + 2, WP): each tile's window summed over the
     channels."""
@@ -243,14 +272,24 @@ def dma_window_plain(src, th: int = TH):
                         for t in range(tiles)])
 
 
-def _window(src, th: int, build: bool):
+def _window(src, th: int, build: bool, lib=None):
     tiles = _check_window(src, th)
     c, wp = src.shape[2], src.shape[3]
+    if wp % WIN_WP_STEP:
+        raise ValueError(f"the window kernel takes WP a multiple of "
+                         f"{WIN_WP_STEP} (TMA's 16-byte row stride), got {wp}")
+    if c > WIN_MAX_C:
+        raise ValueError(f"the window kernel takes C <= {WIN_MAX_C} (a TMA "
+                         f"box's rows), got {c}")
     out = torch.empty(tiles, th if build else th + 2, wp, device=src.device)
-    lib = common.lib()
+    # im2col's channel sums of every source row, for the 3x3 box
+    sums = torch.empty(tiles * th + 2, wp, device=src.device) if build \
+        else None
+    lib = lib or common.lib()
     with _native.launch_guard(src) as stream:
-        rc = lib.fcvsr_mb_window(src.data_ptr(), out.data_ptr(), th, c, wp,
-                                 tiles, int(build), stream)
+        rc = lib.fcvsr_mb_window(src.data_ptr(), out.data_ptr(),
+                                 _native.ptr(sums), th, c, wp, tiles,
+                                 int(build), stream)
     _native.check_side(lib, rc, "im2col" if build else "dma_window")
     return out
 
@@ -310,21 +349,6 @@ def _mm_blocks(dev, th: int = TH, wp: int = WP, tiles: int = TILES) -> int:
     halves = 2 * tiles * th * -(-wp // MM_LANES)
     return min(halves, torch.cuda.get_device_properties(dev)
                .multi_processor_count)
-
-
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "LDSM")
-
-
-def mm_sass(path=None):
-    """{kernel: {op: count}} for the mm kernel (``mm_stream_kernel``, which
-    both mm probes launch) in ``cuobjdump -sass`` of the probes' library
-    (``path``, or the one :func:`microbench_common.lib` builds): HGMMA is
-    wgmma, UTMALDG a TMA tensor load, HMMA mma.sync and LDSM ldmatrix.
-    None when the toolkit has no cuobjdump."""
-    counts = _native.sass_ops(path or common.lib()._name, "mm_stream_kernel",
-                              SASS_OPS)
-    return None if counts is None else {
-        "mm_stream_kernel": ops for ops in counts.values()}
 
 
 def dma_window_library(src, th: int = TH):

@@ -7,14 +7,17 @@ copies and double-buffered slab copies, in float32 and bf16.
 Counterpart of the JAX package's ``benchmarks/microbench_dma.py``: a (1,
 tiles*TH + 2, C, WP) source, float32 or bf16, copied into shared memory on
 three schedules (``csrc/microbench/dma.cu``, the 1-D bulk form of TMA
-completing on mbarriers).  Each returns the JAX kernel's output, a (1, 1,
+completing on mbarriers: one persistent block an SM, each a share of
+whole KB of every range, its copies through a ring of buffers that a
+producer lane refills as the folding warps hand each back).  Each returns the JAX kernel's output, a (1, 1,
 WP) float32 row, and the fold of what it copied: for each ``FOLD_BYTES``
 segment of the copied range, the wrapping sum of its raw 32-bit words, as
 int32 (:func:`fold_plain`), so that a copy that skipped a byte shows.  Both
 equal the plain version's bit for bit:
 
-  dma_one_shot  src[0, 0, 0, :], after the whole source has been copied, as
-                many blocks as it takes, one bulk copy each; the source's
+  dma_one_shot  src[0, 0, 0, :], after the whole source has been copied,
+                each block's share in 16 KB copies, as many issued at once
+                as its 12 buffers hold (a bf16 share whole); the source's
                 folds (ceil(bytes / FOLD_BYTES),);
   dma_serial    src[0, (tiles - 1)*TH, 0, :], the last slab's first row,
                 after the tiles slabs of TH + 2 rows have been copied in
@@ -148,26 +151,31 @@ def dma_one_shot(src):
     on a CPU tensor."""
     if _native.on_cpu(src):
         return dma_one_shot_plain(src)
+    got = _one_shot(src)
+    dma_one_shot.launches += 1
+    return got
+
+
+def _one_shot(src, lib=None):
     _check(src)
     total = src[0].numel() * src.element_size()
     out = torch.empty(1, 1, src.shape[3], device=src.device)
     folds = _folds(total, src.device)
-    lib = common.lib()
+    lib = lib or common.lib()
     with _native.launch_guard(src) as stream:
         rc = lib.fcvsr_mb_one_shot(src.data_ptr(), out.data_ptr(),
                                    folds.data_ptr(), total, src.shape[3],
                                    int(src.dtype == torch.bfloat16), stream)
     _native.check_side(lib, rc, "dma_one_shot")
-    dma_one_shot.launches += 1
     return out, folds
 
 
-def _slabs(src, th: int, dbuf: bool):
+def _slabs(src, th: int, dbuf: bool, lib=None):
     tiles = _check(src, th)
     row = src.shape[2] * src.shape[3] * src.element_size()
     out = torch.empty(1, 1, src.shape[3], device=src.device)
     folds = _folds(row * (th + 2), src.device, tiles)
-    lib = common.lib()
+    lib = lib or common.lib()
     with _native.launch_guard(src) as stream:
         rc = lib.fcvsr_mb_slabs(src.data_ptr(), out.data_ptr(),
                                 folds.data_ptr(), tiles, th, row,

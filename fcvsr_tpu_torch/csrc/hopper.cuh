@@ -260,20 +260,17 @@ __device__ __forceinline__ void wgmma_m64k16_bf16(float (&d)[R], uint64_t a,
 
 // ----------------------------------------------------------- host side
 
-// A 2-D tensor map of a row-major bf16 array (rows, cols) with a row stride
-// of cols (a multiple of 8: TMA takes row strides of 16 bytes) and boxes of
-// (box_rows, box_cols), 128-byte swizzled.  cuTensorMapEncodeTiled lives in
-// libcuda: it is fetched through the runtime, so the library needs no link
-// against libcuda.
-inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base,
-                                  uint64_t rows, uint64_t cols, uint32_t box_rows,
-                                  uint32_t box_cols) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*,
-                              const cuuint32_t*, const cuuint32_t*,
-                              CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static Encode encode = nullptr;
+using TensorMapEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                     void*, const cuuint64_t*, const cuuint64_t*,
+                                     const cuuint32_t*, const cuuint32_t*,
+                                     CUtensorMapInterleave, CUtensorMapSwizzle,
+                                     CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled lives in libcuda: it is fetched through the
+// runtime, so the library needs no link against libcuda.
+inline cudaError_t tensor_map_encoder(TensorMapEncode* fn_out) {
+  static TensorMapEncode encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
     cudaDriverEntryPointQueryResult found;
@@ -287,20 +284,53 @@ inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base,
     if (err != cudaSuccess) return err;
     if (found != cudaDriverEntryPointSuccess || fn == nullptr)
       return cudaErrorSymbolNotFound;
-    encode = reinterpret_cast<Encode>(fn);
+    encode = reinterpret_cast<TensorMapEncode>(fn);
   }
-  if (cols % 8 || reinterpret_cast<uintptr_t>(base) % 16)
+  *fn_out = encode;
+  return cudaSuccess;
+}
+
+// A 2-D tensor map of a row-major array (rows, cols) of `type` with a row
+// stride of cols elements (`bytes` each; TMA takes row strides that are a
+// multiple of 16 bytes) and boxes of (box_rows, box_cols); elements
+// outside the array land as zeros.
+inline cudaError_t encode_2d(CUtensorMap* map, CUtensorMapDataType type,
+                             unsigned bytes, const void* base, uint64_t rows,
+                             uint64_t cols, uint32_t box_rows, uint32_t box_cols,
+                             CUtensorMapSwizzle swizzle) {
+  TensorMapEncode encode = nullptr;
+  cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  if (cols * bytes % 16 || reinterpret_cast<uintptr_t>(base) % 16)
     return cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
-  const cuuint64_t strides[1] = {cols * 2};
+  const cuuint64_t strides[1] = {cols * bytes};
   const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t steps[2] = {1, 1};
   const CUresult res = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
-      strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      map, type, 2, const_cast<void*>(base), dims, strides, box, steps,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// bf16 (rows, cols), cols a multiple of 8, boxes 128-byte swizzled (the
+// wgmma operand layout above).
+inline cudaError_t encode_bf16_2d(CUtensorMap* map, const void* base,
+                                  uint64_t rows, uint64_t cols, uint32_t box_rows,
+                                  uint32_t box_cols) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, base, rows, cols,
+                   box_rows, box_cols, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// float32 (rows, cols), cols a multiple of 4, boxes unswizzled: a box
+// lands as box_rows rows of box_cols contiguous floats (its start 128-byte
+// aligned in shared memory).
+inline cudaError_t encode_f32_2d(CUtensorMap* map, const void* base,
+                                 uint64_t rows, uint64_t cols, uint32_t box_rows,
+                                 uint32_t box_cols) {
+  return encode_2d(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, base, rows, cols,
+                   box_rows, box_cols, CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 }  // namespace sm90

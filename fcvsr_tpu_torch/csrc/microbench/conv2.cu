@@ -78,15 +78,42 @@
 // load landed, so each has its own.
 //
 // im2col / dma_window.  Bound by bytes: the 35.9 MB float32 source read
-// once (0.0107 ms at 3.35 TB/s); the 16 + 2 rows of a tile's window overlap
-// the next tile's by 2.  Design: a block a (tile, 16-lane strip); cp.async
-// copies the strip's (TH + 2) x C x (16 + 2) window, the 2-lane halo
-// wrapping at the row's end, into shared memory (92 KB, two blocks an SM).
-// im2col then builds, for each output row, the bf16 (9C x 16) operand tile
-// as a tensor-core GEMM reads it (k = (dy * 3 + dx) * C + c rows, lanes
-// contiguous) and reduces it over k; dma_window reduces the window over C.
-// The two differ only by the build.
+// once (0.0107 ms at 3.35 TB/s; the outputs add 0.3 to 0.6 MB).  What a
+// window of rows costs to stream into an SM is the question these probes
+// answer for K2, so they are built as K2's stream should be: one
+// persistent block an SM takes units of (source row, lane chunk), dealt in
+// turn (block b: units b, b + grid, ...), so that no SM takes more than
+// one unit above another (2,192 units of 64 lanes on 132 SMs: 17 at most,
+// 16.6 on average).  A unit's C channels x L lanes arrive as one TMA box
+// (a float32 tensor map over src as a (rows * C, WP) array, unswizzled;
+// L 64 lanes for C <= 64, 16 KB, fewer for more channels) into a ring of
+// 12 stages on full and empty mbarriers, kept full by one producer lane
+// (which issues the first 12 before the block's barrier);
+// four consumer warps take the units in turn (stage s is always warp s %
+// 4's, so no warp waits on a stage's later phase before its earlier one
+// completed), each reading its stage as float4 columns, summing the
+// channels in float32 and handing the stage back.  Each source row is
+// read once: the two rows that neighbouring tiles share come from the
+// same sums.
+//
+// dma_window writes each unit's channel sums where its row lies in one
+// tile's window or in two.  im2col is the same function as the channel
+// sums of the bf16-rounded window taken through the 3x3 box, with lanes x
+// + 1 and x + 2 past WP from lanes 0 and 1: the TPU built the (9C, WP)
+// operand because its matrix unit takes one, but on Hopper K2 builds none
+// either (its taps are descriptor offsets into the stored rows,
+// csrc/conv_tc.cuh), so nothing here stands for the rolls and the concat.
+// A box needs the sums of two more rows and lanes, which other units
+// make: the sums go to a (rows, WP) float32 scratch (0.56 MB at the real
+// shape, in L2), and after a grid barrier in the same cooperative launch
+// every block takes output rows' float4 groups, nine L2 reads each.  (A
+// unit holding three rows' sums would read the source three times; a
+// second launch would cost as much as the barrier and a launch's gap.)
+// TMA takes rows of WP x 4 bytes that are a multiple of 16 and a box of
+// at most 256 elements a dimension: WP a multiple of 4 and C <= 256 (the
+// wrapper raises on others).
 #include <cuda_bf16.h>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -101,27 +128,6 @@ using fcvsr::allow_smem;
 // ---------------------------------------------------------------- helpers
 
 using fcvsr::sm90::smem_u32;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 cudaError_t sm_count(int* sms) {
   int dev = 0;
@@ -411,107 +417,191 @@ __global__ void __launch_bounds__(kMmThreads, 1)
 
 // --------------------------------------------------------- window probes
 
-constexpr int kSW = 16;          // output lanes a block
-constexpr int kLine = kSW + 4;   // f32 stride of a window line: 16 + 2 halo, 16 B rows
-constexpr int kWinThreads = 256;
+constexpr int kWinConsumers = 4;  // warps that sum: a unit each, in turn
+constexpr int kWinStages = 12;    // the ring, 3 stages a consumer
+constexpr int kWinThreads = 32 * (kWinConsumers + 1);
+constexpr int kWinMaxC = 256;     // a TMA box's rows: the channels
 
-static_assert(kWinThreads == kSW * 16, "the reduce takes 16 parts a lane");
+static_assert(kWinStages % kWinConsumers == 0, "a stage serves one consumer");
 
-size_t window_smem(int TH, int C, bool build) {
-  size_t bytes = (size_t)(TH + 2) * C * kLine * sizeof(float);
-  if (build) bytes += (size_t)9 * C * kSW * 2 + kWinThreads * sizeof(float);
-  return bytes;
+// lanes a unit: a stage of at most 16 KB (C x L floats), L a power of two
+// that a warp covers as L / 4 float4 columns
+int window_lanes(int C) { return C <= 64 ? 64 : C <= 128 ? 32 : 16; }
+
+__host__ __device__ inline int window_stage_bytes(int C, int L) {
+  return (C * L * 4 + 127) / 128 * 128;
 }
 
-template <bool kBuild>
-__global__ void __launch_bounds__(kWinThreads)
-    window_kernel(const float* __restrict__ src, float* __restrict__ out, int TH,
-                  int C, int WP, int vec) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* win = reinterpret_cast<float*>(smem);  // (TH + 2) x C x kLine
-  const int tid = threadIdx.x;
-  const int t = blockIdx.y, x0 = blockIdx.x * kSW;
-  const int nout = min(kSW, WP - x0);
-  const int nlane = nout + 2;  // window lanes read, the last 2 wrapping
-  const int lines = (TH + 2) * C;
-  const float* base = src + (size_t)t * TH * C * WP;
+size_t window_smem(int C, int L) {
+  return 128 /* to align */ + (size_t)kWinStages * window_stage_bytes(C, L) +
+         2 * kWinStages * sizeof(uint64_t);
+}
 
-  if (vec && nout == kSW) {  // 4 copies of 16 B and the 2 halo lanes a line
-    for (int q = tid; q < lines * 6; q += kWinThreads) {
-      const int line = q / 6, part = q % 6;
-      const float* gl = base + (size_t)line * WP;
-      float* sl = win + line * kLine;
-      if (part < 4) {
-        cp_async16(sl + 4 * part, gl + x0 + 4 * part);
-      } else {
-        int x = x0 + kSW + part - 4;
-        if (x >= WP) x -= WP;
-        cp_async4(sl + kSW + part - 4, gl + x);
-      }
+__device__ __forceinline__ float4 bf16_rounded(float4 v) {
+  const auto r = [](float f) { return __bfloat162float(__float2bfloat16_rn(f)); };
+  return make_float4(r(v.x), r(v.y), r(v.z), r(v.w));
+}
+
+__device__ __forceinline__ void add4(float4& a, float4 b) {
+  a.x += b.x;
+  a.y += b.y;
+  a.z += b.z;
+  a.w += b.w;
+}
+
+// o[i, x] = sum over dy, dx < 3 of s[i + dy, (x + dx) mod WP], i < tiles
+// TH, from the (tiles * TH + 2, WP) sums: a float4 group of lanes a
+// thread of the grid, the next group's first two lanes (group 0's past the
+// row's end) for x + 1 and x + 2; the sums read through L2, where the
+// other blocks wrote them
+__device__ __forceinline__ void window_box(float* __restrict__ out, const float* sums,
+                                           int TH, int WP, int tiles) {
+  const int q4 = WP / 4;
+  const long long n = (long long)tiles * TH * q4;
+  for (long long q = (long long)blockIdx.x * blockDim.x + threadIdx.x; q < n;
+       q += (long long)gridDim.x * blockDim.x) {
+    const int i = (int)(q / q4), x = (int)(q % q4) * 4;
+    const int xn = x + 4 == WP ? 0 : x + 4;
+    float4 o = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      const float* r = sums + (size_t)(i + dy) * WP;
+      const float4 a = __ldcg(reinterpret_cast<const float4*>(r + x));
+      const float2 b = __ldcg(reinterpret_cast<const float2*>(r + xn));
+      o.x += a.x + a.y + a.z;
+      o.y += a.y + a.z + a.w;
+      o.z += a.z + a.w + b.x;
+      o.w += a.w + b.x + b.y;
     }
-  } else {
-    for (int q = tid; q < lines * nlane; q += kWinThreads) {
-      const int line = q / nlane, j = q % nlane;
-      int x = x0 + j;
-      if (x >= WP) x -= WP;
-      cp_async4(win + line * kLine + j, base + (size_t)line * WP + x);
-    }
+    *reinterpret_cast<float4*>(out + (size_t)i * WP + x) = o;
   }
-  cp_async_commit();
-  cp_async_wait<0>();
+}
+
+// src (1, tiles * TH + 2, C, WP) as the map's (rows * C, WP) array.
+// kBuild: sums (rows, WP) scratch, out (tiles * TH, WP); else out (tiles,
+// TH + 2, WP).  One block an SM; kBuild launches cooperatively.
+template <bool kBuild, int L>
+__global__ void __launch_bounds__(kWinThreads, 1)
+    window_kernel(const __grid_constant__ CUtensorMap src_map, float* __restrict__ out,
+                  float* sums, int TH, int C, int WP, int tiles) {
+  constexpr int kCols = L / 4, kParts = 32 / kCols;  // a warp over a stage
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* ring = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
+  const int stage = window_stage_bytes(C, L);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kWinStages * stage);
+  uint64_t* empty = full + kWinStages;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int warp = __shfl_sync(0xffffffffu, tid >> 5, 0);
+  const int blk = (int)blockIdx.x, nblk = (int)gridDim.x;
+  const int rows = tiles * TH + 2, nch = (WP + L - 1) / L;
+  const int units = rows * nch;
+  const int mine = (units - blk + nblk - 1) / nblk;  // units blk, blk + nblk, ...
+
+  // the producer lane: the barriers, the first kWinStages loads before the
+  // block's barrier (which makes the barriers' initialisation visible to
+  // the consumers), then each later one as its stage is handed back
+  const bool producer = warp == kWinConsumers && lane == 0;
+  const auto load = [&](int i) {
+    const int s = i % kWinStages, u = blk + i * nblk;
+    if (i >= kWinStages) sm90::mbar_wait(&empty[s], (i / kWinStages - 1) & 1);
+    sm90::mbar_expect_tx(&full[s], C * L * 4);
+    sm90::tma_load_2d(ring + s * stage, &src_map, (u % nch) * L, (u / nch) * C,
+                      &full[s]);
+  };
+  int i0 = 0;
+  if (producer) {
+    for (int s = 0; s < kWinStages; ++s) {
+      sm90::mbar_init(&full[s], 1);   // the producer's arrival and the bytes
+      sm90::mbar_init(&empty[s], 1);  // the consumer warp's lane 0
+    }
+    sm90::fence_mbar_init();
+    for (; i0 < mine && i0 < kWinStages; ++i0) load(i0);
+  }
   __syncthreads();
 
-  if (!kBuild) {  // o[t, row, x] = sum_c window[row, c, x]
-    for (int q = tid; q < (TH + 2) * nout; q += kWinThreads) {
-      const int row = q / nout, x = q % nout;
-      float s = 0.f;
-      for (int c = 0; c < C; ++c) s += win[(row * C + c) * kLine + x];
-      out[((size_t)t * (TH + 2) + row) * WP + x0 + x] = s;
-    }
-    return;
-  }
-
-  __nv_bfloat16* op = reinterpret_cast<__nv_bfloat16*>(win + lines * kLine);
-  float* red = reinterpret_cast<float*>(op + 9 * C * kSW);
-  const int K = 9 * C;
-  const int x = tid % kSW, part = tid / kSW;  // a lane and one of 16 parts
-  for (int r = 0; r < TH; ++r) {
-    // the (9C x 16) operand of output row r: row k = (dy * 3 + dx) * C + c
-    // holds window row r + dy, channel c, lanes shifted by dx; a thread
-    // builds lane x of the channels part, part + 16, ...
+  if (warp == kWinConsumers) {  // the producer lane keeps the ring full
+    if (producer)
+      for (int i = i0; i < mine; ++i) load(i);
+  } else {
+    // consumer `warp` takes the block's units warp, warp + 4, ...: lane
+    // (col, part) sums float4 column col of channels part, part + kParts,
+    // ..., then the parts meet by shuffles
+    const int col = lane % kCols, part = lane / kCols;
+    for (int i = warp; i < mine; i += kWinConsumers) {
+      const int s = i % kWinStages, u = blk + i * nblk;
+      sm90::mbar_wait(&full[s], (i / kWinStages) & 1);
+      const float4* st = reinterpret_cast<const float4*>(ring + s * stage);
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 4
+      for (int c = part; c < C; c += kParts) {
+        const float4 v = st[c * kCols + col];
+        add4(acc, kBuild ? bf16_rounded(v) : v);
+      }
+      __syncwarp();
+      sm90::mbar_arrive(&empty[s], lane == 0);  // the stage is read
 #pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const float* wl = win + (r + tap / 3) * C * kLine + x + tap % 3;
-      __nv_bfloat16* ol = op + tap * C * kSW + x;
-      for (int c = part; c < C; c += 16)
-        ol[c * kSW] = __float2bfloat16_rn(x < nout ? wl[c * kLine] : 0.f);
+      for (int o = kCols; o < 32; o <<= 1) {
+        acc.x += __shfl_xor_sync(0xffffffffu, acc.x, o);
+        acc.y += __shfl_xor_sync(0xffffffffu, acc.y, o);
+        acc.z += __shfl_xor_sync(0xffffffffu, acc.z, o);
+        acc.w += __shfl_xor_sync(0xffffffffu, acc.w, o);
+      }
+      const int row = u / nch, x = (u % nch) * L + 4 * col;
+      if (part != 0 || x >= WP) continue;  // WP % 4 == 0: a float4 is in or out
+      if (kBuild) {
+        __stcg(reinterpret_cast<float4*>(sums + (size_t)row * WP + x), acc);
+      } else {
+        // the tiles whose window holds the row: t TH <= row < t TH + TH + 2
+        for (int t = min(row / TH, tiles - 1); t >= 0 && row - t * TH < TH + 2; --t)
+          *reinterpret_cast<float4*>(out + ((size_t)t * (TH + 2) + row - t * TH) * WP +
+                                     x) = acc;
+      }
     }
-    __syncthreads();
-    // its sum over k: 16 parts of every 16th row, then the parts in order
-    float s = 0.f;
-    for (int k = part; k < K; k += 16) s += __bfloat162float(op[k * kSW + x]);
-    red[tid] = s;
-    __syncthreads();
-    if (tid < nout) {
-      float v = 0.f;
-      for (int i = 0; i < 16; ++i) v += red[i * kSW + tid];
-      out[((size_t)t * TH + r) * WP + x0 + tid] = v;
-    }
-    __syncthreads();  // op and red are free for the next row
+  }
+  if constexpr (kBuild) {
+    cooperative_groups::this_grid().sync();  // every row's sums, in L2
+    window_box(out, sums, TH, WP, tiles);
   }
 }
 
-template <bool kBuild>
-cudaError_t launch_window(const float* src, float* out, int TH, int C, int WP,
-                          int tiles, cudaStream_t stream) {
-  const size_t smem = window_smem(TH, C, kBuild);
-  cudaError_t err = allow_smem<window_kernel<kBuild>>(smem);
+template <bool kBuild, int L>
+cudaError_t launch_window(const CUtensorMap& map, float* out, float* sums, int TH,
+                          int C, int WP, int tiles, cudaStream_t stream) {
+  const auto kernel = window_kernel<kBuild, L>;
+  const size_t smem = window_smem(C, L);
+  cudaError_t err = allow_smem<window_kernel<kBuild, L>>(smem);
   if (err != cudaSuccess) return err;
-  const int vec = WP % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0;
-  const dim3 grid((WP + kSW - 1) / kSW, tiles);
-  window_kernel<kBuild><<<grid, kWinThreads, smem, stream>>>(src, out, TH, C, WP,
-                                                             vec);
+  int sms = 0, per_sm = 0;
+  if ((err = sm_count(&sms)) != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kWinThreads,
+                                                      smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  // one block an SM, no more than the units
+  const long long units = (long long)(tiles * TH + 2) * ((WP + L - 1) / L);
+  int grid = (int)(units < sms ? units : sms);
+  if (!kBuild) {
+    kernel<<<grid, kWinThreads, smem, stream>>>(map, out, sums, TH, C, WP, tiles);
+    return cudaGetLastError();
+  }
+  void* args[] = {const_cast<CUtensorMap*>(&map), &out, &sums, &TH, &C, &WP, &tiles};
+  err = cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(kernel), dim3(grid),
+                                    dim3(kWinThreads), args, smem, stream);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+template <bool kBuild>
+cudaError_t window_dispatch(const CUtensorMap& map, float* out, float* sums, int TH,
+                            int C, int WP, int tiles, cudaStream_t stream) {
+  switch (window_lanes(C)) {
+    case 64:
+      return launch_window<kBuild, 64>(map, out, sums, TH, C, WP, tiles, stream);
+    case 32:
+      return launch_window<kBuild, 32>(map, out, sums, TH, C, WP, tiles, stream);
+    default:
+      return launch_window<kBuild, 16>(map, out, sums, TH, C, WP, tiles, stream);
+  }
 }
 
 }  // namespace
@@ -551,15 +641,24 @@ extern "C" int fcvsr_mb_mm_stream(const void* rhs, const float* w, float* out,
   return (int)cudaGetLastError();
 }
 
-// src (1, tiles * TH + 2, C, WP) f32.  build 1: im2col, out (tiles, TH, WP);
-// build 0: the window's channel sums, out (tiles, TH + 2, WP).
-extern "C" int fcvsr_mb_window(const float* src, float* out, int TH, int C, int WP,
-                               int tiles, int build, void* stream) {
-  if (TH < 1 || C < 1 || WP < 3 || tiles < 1) return (int)cudaErrorInvalidValue;
-  return (int)(build ? launch_window<true>(src, out, TH, C, WP, tiles,
-                                           (cudaStream_t)stream)
-                     : launch_window<false>(src, out, TH, C, WP, tiles,
-                                            (cudaStream_t)stream));
+// src (1, tiles * TH + 2, C, WP) f32, 16-byte aligned, WP a multiple of
+// 4 and C <= 256 (TMA's row stride and box).  build 1: im2col, out
+// (tiles, TH, WP), sums a (tiles * TH + 2, WP) f32 scratch; build 0: the
+// window's channel sums, out (tiles, TH + 2, WP), sums unused.
+extern "C" int fcvsr_mb_window(const float* src, float* out, float* sums, int TH,
+                               int C, int WP, int tiles, int build, void* stream) {
+  if (TH < 1 || C < 1 || C > kWinMaxC || WP < 4 || WP % 4 || tiles < 1 ||
+      reinterpret_cast<uintptr_t>(src) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      (build && (sums == nullptr || reinterpret_cast<uintptr_t>(sums) % 16)))
+    return (int)cudaErrorInvalidValue;
+  // a map holds the pointer, so each call encodes its own
+  CUtensorMap map;
+  cudaError_t err = sm90::encode_f32_2d(&map, src, (uint64_t)(tiles * TH + 2) * C, WP,
+                                        C, window_lanes(C));
+  if (err != cudaSuccess) return (int)err;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(build ? window_dispatch<true>(map, out, sums, TH, C, WP, tiles, s)
+                     : window_dispatch<false>(map, out, sums, TH, C, WP, tiles, s));
 }
 
 extern "C" const char* fcvsr_mb_error_string(int code) {

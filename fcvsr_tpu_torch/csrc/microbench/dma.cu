@@ -18,24 +18,37 @@
 // 3.35 TB/s) and 18.0 MB in bf16 (0.0054 ms); the slabs overlap by 2 rows,
 // which the bound does not count.  Design: the 1-D bulk form of TMA,
 // cp.async.bulk global -> shared completing on an mbarrier, issued by one
-// thread a block; the copy engine computes no addresses in the SM's
-// threads.  A bulk copy needs 16-byte aligned addresses and a size that is a
-// multiple of 16, and one mbarrier phase takes at most 2^20 - 1 bytes.  A
-// block cannot hold the source (the card has 132 x 227 KB, the float32
-// source 35.9 MB), so:
-//   one_shot   as many blocks as the source takes at one bulk copy of up to
-//              227 KB each, in no order among them;
-//   serial     one block an SM, each copying its share of slab t into its
-//              buffer and waiting before it issues slab t + 1: one copy in
-//              flight a block;
-//   dbuf       the same with two buffers and two mbarriers, slab t + 1
-//              issued before slab t is waited on.
-// The blocks' shares are multiples of kFold bytes, so a segment lies in one
-// block, whose warps fold it with 16-byte loads and a warp reduction and
-// write its word; no atomics, and the output needs no zeroing.  After each
-// slab (after the copy in one_shot) the blocks that hold the wanted row
-// write it to the output, which the last slab overwrites last, as the TPU
-// kernels overwrite their output block at every grid step.
+// producer lane a block; the copy engine computes no addresses in the SM's
+// threads.  A bulk copy needs 16-byte aligned addresses and a size that is
+// a multiple of 16, and one mbarrier phase takes at most 2^20 - 1 bytes.
+//
+// One persistent block an SM, so that no SM idles and none runs a second
+// wave.  Each range (the source, or a slab) is dealt in whole segments,
+// block b taking a share of S / G segments of its S (one more for the
+// first S % G blocks): a slab of 2,304 KB is 17 or 18 KB on 132 SMs.  A
+// block cuts its share of each range into copies that land in a ring of
+// `nbuf` buffers, each with a full mbarrier (the producer's arrival and
+// the bytes) and an empty one (one arrival from each folding warp).  The
+// producer lane issues the first copies before the block's barrier, and
+// copy j into buffer j % nbuf as soon as the warps have folded copy j -
+// nbuf there.  No block-wide barrier runs a step.  The plans:
+//   one_shot   the share (266 KB in float32, 133 KB in bf16) in the fewest
+//              copies that two buffers hold two of, at least two: a bf16
+//              share's 2 copies of 66-67 KB issued at once; a float32
+//              one's 3 of 88-89 KB through 2 buffers, the third issued as
+//              the first is folded ("as far as shared memory allows");
+//   serial     a copy a slab, one buffer: one copy in flight a block;
+//   dbuf       the same in two buffers: slab t + 1's copy in flight while
+//              slab t's is folded.
+// Few large copies an SM stream faster than many small ones: PR 13's
+// single 136-226 KB copy a block drew 21-31 GB/s an SM at the margin,
+// rings of 16 KB copies 15-19 (PERF.md §6, PR 14).  A warp
+// folds a segment (two 16-byte loads a lane, one warp reduction) and
+// writes its word: no atomics, and the output needs no zeroing.  The
+// folding warps are as many as a slab share's segments (18 in float32, 9
+// in bf16), so that a serial step's fold is one segment's; 31 for the
+// one-shot copies.  The warp that folds a segment of the last range also
+// writes the row's elements that lie in it.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -47,142 +60,165 @@
 namespace {
 
 using fcvsr::allow_smem;
-using fcvsr::sm90::fence_mbar_init;
-using fcvsr::sm90::fence_proxy_async;
-using fcvsr::sm90::mbar_expect_tx;
-using fcvsr::sm90::mbar_init;
-using fcvsr::sm90::mbar_wait;
-using fcvsr::sm90::smem_u32;
+namespace sm90 = fcvsr::sm90;
 
-constexpr int kDmaThreads = 1024;  // 32 warps to fold; one thread copies
-constexpr int kHeader = 128;  // bytes before the buffers: the mbarriers
+constexpr int kHeader = 256;        // bytes before the buffers: the mbarriers
+constexpr int kMaxBufs = kHeader / 16;  // a full and an empty mbarrier each
 constexpr long long kMaxTx = (1 << 20) - 1;
-constexpr int kFold = 1024;  // bytes a folded word
+constexpr int kFold = 1024;         // bytes a folded word
+constexpr int kMaxFolders = 31;     // warps: 1024 threads with the producer
 
-// one thread: arrive and expect `bytes` of transactions on the phase, then
-// issue the bulk copy that completes them.  The proxy fence orders the
-// block's earlier reads of the buffer (generic proxy, before the caller's
-// barrier) before the copy's writes (async proxy).
+// the one thread's bulk copy of `bytes` into `dst`, completing on `bar`
+// (whose phase it arrives on, expecting the bytes)
 __device__ __forceinline__ void bulk_load(void* dst, const void* src,
                                           unsigned bytes, uint64_t* bar) {
-  fence_proxy_async();
-  mbar_expect_tx(bar, bytes);
+  sm90::mbar_expect_tx(bar, bytes);
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      "[%0], [%1], %2, [%3];\n" ::"r"(sm90::smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(sm90::smem_u32(bar))
       : "memory");
 }
 
-// out[i] for the elements i < WP that fall in this block's bytes [lo, lo +
-// bytes) of the copied range, from its buffer
-__device__ __forceinline__ void store_row(float* out, const unsigned char* buf,
-                                          long long lo, long long bytes, int WP,
-                                          int bf16) {
+// the wrapping sum of the 32-bit words of a segment's `bytes` (a multiple
+// of 16, at most kFold) at p, in every lane of the warp
+__device__ __forceinline__ unsigned fold_segment(const unsigned char* p, int bytes,
+                                                 int lane) {
+  static_assert(kFold / 16 == 64, "two 16-byte loads a lane");
+  const uint4* v = reinterpret_cast<const uint4*>(p);
+  const int n = bytes / 16;
+  unsigned acc = 0;
+  if (lane < n) {
+    const uint4 q = v[lane];
+    acc = q.x + q.y + q.z + q.w;
+  }
+  if (lane + 32 < n) {
+    const uint4 q = v[lane + 32];
+    acc += q.x + q.y + q.z + q.w;
+  }
+  return __reduce_add_sync(0xffffffffu, acc);
+}
+
+// `ranges` ranges of `range` bytes, `stride` bytes apart in src.  Each
+// range's S segments are cut into grid * cuts pieces, `base` segments each
+// and one more in the first `extra`, and block b copies pieces b cuts to
+// b cuts + cuts - 1 of every range (its share); copy j lands in buffer j %
+// nbuf.  folds (ranges, S); out (WP,) the last range's first WP elements
+// (bf16 or float32 in the source), as float32.  Threads: 32 a folding
+// warp, then the producer's warp.  A block's walk over its copies takes no
+// division.
+struct Cursor {
+  int r = 0, c = 0, p, cuts, extra;
+  long long base;
+
+  __device__ Cursor(long long base_, int extra_, int cuts_)
+      : p((int)blockIdx.x * cuts_), cuts(cuts_), extra(extra_), base(base_) {}
+  __device__ void next() {
+    ++p;
+    if (++c == cuts) {
+      c = 0;
+      p -= cuts;
+      ++r;
+    }
+  }
+  __device__ long long s0() const { return p * base + min(p, extra); }
+  __device__ int nseg() const { return (int)base + (p < extra); }
+};
+
+__global__ void __launch_bounds__(1024)
+    copy_kernel(const unsigned char* __restrict__ src, float* __restrict__ out,
+                unsigned* __restrict__ folds, int ranges, long long stride,
+                long long range, long long base, int extra, int cuts, int piece,
+                int nbuf, int WP, int bf16) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + nbuf;
+  unsigned char* bufs = smem + kHeader;
+  const int lane = threadIdx.x & 31;
+  const int warp = __shfl_sync(0xffffffffu, (int)threadIdx.x >> 5, 0);
+  const int folders = (int)blockDim.x / 32 - 1;
+  const long long segs = (range + kFold - 1) / kFold;
+  const int n = ranges * cuts;  // copies
+  Cursor pc(base, extra, cuts);
+
+  // the producer lane: the barriers, then the first nbuf copies before the
+  // block's barrier (which makes the barriers' initialisation visible to
+  // the folding warps), then each later copy as its buffer is folded
+  const bool producer = warp == folders && lane == 0;
+  const auto issue = [&](int j) {
+    const int b = j % nbuf;
+    const long long b0 = pc.s0() * kFold;
+    const long long b1 = b0 + (long long)pc.nseg() * kFold;
+    if (j >= nbuf) sm90::mbar_wait(&empty[b], (j / nbuf - 1) & 1);
+    bulk_load(bufs + (size_t)b * piece * kFold, src + pc.r * stride + b0,
+              (unsigned)((b1 < range ? b1 : range) - b0), &full[b]);
+  };
+  int j0 = 0;
+  if (producer) {
+    for (int b = 0; b < nbuf; ++b) {
+      sm90::mbar_init(&full[b], 1);
+      sm90::mbar_init(&empty[b], folders);
+    }
+    sm90::fence_mbar_init();
+    for (; j0 < n && j0 < nbuf; ++j0, pc.next()) issue(j0);
+  }
+  __syncthreads();
+  if (warp == folders) {
+    if (producer)
+      for (int j = j0; j < n; ++j, pc.next()) issue(j);
+    return;
+  }
+
   const int es = bf16 ? 2 : 4;
-  const long long e0 = lo / es, e1 = (lo + bytes) / es;
-  for (long long i = e0 + threadIdx.x; i < e1 && i < WP; i += kDmaThreads) {
-    const long long j = i - e0;
-    out[i] = bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(buf)[j])
-                  : reinterpret_cast<const float*>(buf)[j];
+  for (int j = 0; j < n; ++j, pc.next()) {
+    const int b = j % nbuf;
+    const long long s0 = pc.s0();
+    const int nseg = pc.nseg();
+    const unsigned char* buf = bufs + (size_t)b * piece * kFold;
+    sm90::mbar_wait(&full[b], (j / nbuf) & 1);
+    for (int g = warp; g < nseg; g += folders) {
+      const long long at = (s0 + g) * kFold;  // the segment's first byte
+      const int bytes = (int)(range - at < kFold ? range - at : kFold);
+      const unsigned word = fold_segment(buf + g * kFold, bytes, lane);
+      if (lane == 0) folds[pc.r * segs + s0 + g] = word;
+      if (pc.r == ranges - 1 && at < (long long)WP * es) {
+        const int e0 = (int)at / es, e1 = min(WP, ((int)at + bytes) / es);
+        const unsigned char* seg = buf + g * kFold;
+        for (int e = e0 + lane; e < e1; e += 32)
+          out[e] = bf16 ? __bfloat162float(reinterpret_cast<const __nv_bfloat16*>(
+                              seg)[e - e0])
+                        : reinterpret_cast<const float*>(seg)[e - e0];
+      }
+    }
+    __syncwarp();
+    sm90::mbar_arrive(&empty[b], lane == 0);  // the warp is done with buffer b
   }
 }
 
-// folds[s] for the kFold-byte segments s of this block's bytes [lo, lo +
-// bytes) of the copied range (lo a multiple of kFold, bytes of 16): the
-// wrapping sum of the segment's 32-bit words, from its buffer
-// (a warp a segment, two 16-byte loads a lane, one warp reduction)
-__device__ __forceinline__ void fold(unsigned* folds, const unsigned char* buf,
-                                     long long lo, long long bytes) {
-  constexpr int kVecs = kFold / 16;  // 16-byte words a segment
-  static_assert(kVecs == 64, "two 16-byte loads a lane");
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const uint4* v = reinterpret_cast<const uint4*>(buf);
-  const int n = (int)(bytes / 16), segs = (int)((bytes + kFold - 1) / kFold);
-  unsigned* dst = folds + lo / kFold;
-  for (int s = warp; s < segs; s += kDmaThreads / 32) {
-    const int i0 = s * kVecs + lane, i1 = i0 + 32;
-    unsigned acc = 0;
-    if (i0 < n) {
-      const uint4 q = v[i0];
-      acc = q.x + q.y + q.z + q.w;
-    }
-    if (i1 < n) {
-      const uint4 q = v[i1];
-      acc += q.x + q.y + q.z + q.w;
-    }
-    acc = __reduce_add_sync(0xffffffffu, acc);
-    if (lane == 0) dst[s] = acc;
-  }
-}
-
-__global__ void __launch_bounds__(kDmaThreads)
-    one_shot_kernel(const unsigned char* __restrict__ src, float* __restrict__ out,
-                    unsigned* __restrict__ folds, long long total, int chunk,
-                    int WP, int bf16) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* buf = smem + kHeader;
-  const long long lo = (long long)blockIdx.x * chunk;
-  const long long bytes = total - lo < chunk ? total - lo : chunk;
-  if (threadIdx.x == 0) {
-    mbar_init(bar, 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) bulk_load(buf, src + lo, (unsigned)bytes, bar);
-  mbar_wait(bar, 0);
-  store_row(out, buf, lo, bytes, WP, bf16);
-  fold(folds, buf, lo, bytes);
-}
-
-template <bool kDbuf>
-__global__ void __launch_bounds__(kDmaThreads)
-    slabs_kernel(const unsigned char* __restrict__ src, float* __restrict__ out,
-                 unsigned* __restrict__ folds, int tiles, long long stride,
-                 long long slab, int share, int WP, int bf16) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  uint64_t* bar = reinterpret_cast<uint64_t*>(smem);
-  unsigned char* buf[2] = {smem + kHeader, smem + kHeader + share};
-  const long long lo = (long long)blockIdx.x * share;
-  const long long bytes = slab - lo < share ? slab - lo : share;
-  if (threadIdx.x == 0) {
-    mbar_init(&bar[0], 1);
-    mbar_init(&bar[1], 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-  const unsigned char* part = src + lo;  // this block's share of slab 0
-  const long long segs = (slab + kFold - 1) / kFold;  // folded words a slab
-  if (kDbuf) {
-    if (threadIdx.x == 0) bulk_load(buf[0], part, (unsigned)bytes, &bar[0]);
-    for (int t = 0; t < tiles; ++t) {
-      // buffer (t + 1) % 2 held slab t - 1, read before the last barrier
-      if (threadIdx.x == 0 && t + 1 < tiles)
-        bulk_load(buf[(t + 1) & 1], part + (t + 1) * stride, (unsigned)bytes,
-                  &bar[(t + 1) & 1]);
-      mbar_wait(&bar[t & 1], (t >> 1) & 1);
-      store_row(out, buf[t & 1], lo, bytes, WP, bf16);
-      fold(folds + t * segs, buf[t & 1], lo, bytes);
-      __syncthreads();
-    }
-  } else {
-    for (int t = 0; t < tiles; ++t) {
-      if (threadIdx.x == 0)
-        bulk_load(buf[0], part + t * stride, (unsigned)bytes, &bar[0]);
-      mbar_wait(&bar[0], t & 1);
-      store_row(out, buf[0], lo, bytes, WP, bf16);
-      fold(folds + t * segs, buf[0], lo, bytes);
-      __syncthreads();  // the buffer is free for slab t + 1
-    }
-  }
-}
-
-cudaError_t max_smem(int* bytes) {
+cudaError_t device_ints(int* optin, int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+// each range cut into grid * cuts pieces, `cuts` a block, through `nbuf`
+// buffers a block
+cudaError_t launch_copy(const void* src, float* out, unsigned* folds, int ranges,
+                        long long stride, long long range, int grid, int cuts,
+                        int nbuf, int folders, int WP, int bf16, cudaStream_t stream) {
+  const long long segs = (range + kFold - 1) / kFold;
+  const long long pieces = (long long)grid * cuts;
+  const int piece = (int)((segs + pieces - 1) / pieces);  // segments at most
+  const size_t smem = kHeader + (size_t)nbuf * piece * kFold;
+  cudaError_t err = allow_smem<copy_kernel>(smem);
+  if (err != cudaSuccess) return err;
+  copy_kernel<<<grid, 32 * (folders + 1), smem, stream>>>(
+      static_cast<const unsigned char*>(src), out, folds, ranges, stride, range,
+      segs / pieces, (int)(segs % pieces), cuts, piece, nbuf, WP, bf16);
+  return cudaGetLastError();
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
@@ -196,19 +232,23 @@ extern "C" int fcvsr_mb_one_shot(const void* src, float* out, unsigned* folds,
   if (total < 16 || total % 16 || !aligned16(src) || WP < 1 ||
       (long long)WP * (bf16 ? 2 : 4) > total)
     return (int)cudaErrorInvalidValue;
-  int optin = 0;
-  cudaError_t err = max_smem(&optin);
+  int optin = 0, sms = 0;
+  cudaError_t err = device_ints(&optin, &sms);
   if (err != cudaSuccess) return (int)err;
-  long long chunk = ((long long)(optin - kHeader) / kFold) * kFold;
-  if (chunk > kMaxTx / kFold * kFold) chunk = kMaxTx / kFold * kFold;
-  if (chunk > total) chunk = total;
-  const size_t smem = kHeader + (size_t)chunk;
-  if ((err = allow_smem<one_shot_kernel>(smem)) != cudaSuccess) return (int)err;
-  const long long blocks = (total + chunk - 1) / chunk;
-  one_shot_kernel<<<(unsigned)blocks, kDmaThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const unsigned char*>(src), out, folds, total, (int)chunk, WP,
-      bf16);
-  return (int)cudaGetLastError();
+  // a block an SM (no more than the segments), its share in the fewest
+  // copies of near-equal sizes that two buffers hold two of, and at least
+  // two where each gets a segment, so that the first one's fold overlaps
+  // the second one's landing (one copy of a bf16 share ran 5% slower)
+  const long long segs = (total + kFold - 1) / kFold;
+  const int grid = (int)(segs < sms ? segs : sms);
+  const int share = (int)((segs + grid - 1) / grid);
+  const int cap = (optin - kHeader) / kFold;  // segments the buffers hold
+  int cuts = segs >= 2LL * grid ? 2 : 1;
+  while (2 * ((share + cuts - 1) / cuts) > cap) ++cuts;
+  const int fit = cap / ((share + cuts - 1) / cuts);
+  const int nbuf = min(min(cuts, fit), kMaxBufs);
+  return (int)launch_copy(src, out, folds, 1, 0, total, grid, cuts, nbuf,
+                          kMaxFolders, WP, bf16, (cudaStream_t)stream);
 }
 
 // src (1, tiles * TH + 2, rows of `row` bytes, a multiple of 16); slab t is
@@ -221,27 +261,21 @@ extern "C" int fcvsr_mb_slabs(const void* src, float* out, unsigned* folds,
   if (tiles < 1 || TH < 1 || row < 16 || row % 16 || !aligned16(src) || WP < 1 ||
       (long long)WP * (bf16 ? 2 : 4) > row * (TH + 2))
     return (int)cudaErrorInvalidValue;
-  int optin = 0, sms = 0, dev = 0;
-  cudaError_t err = max_smem(&optin);
+  int optin = 0, sms = 0;
+  cudaError_t err = device_ints(&optin, &sms);
   if (err != cudaSuccess) return (int)err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
-      cudaSuccess)
-    return (int)err;
   const long long slab = row * (TH + 2);
-  // one block an SM, each a kFold-byte multiple share; more blocks only
-  // when two shares would not fit a block's shared memory
-  long long share = ((slab + sms - 1) / sms + kFold - 1) / kFold * kFold;
-  const long long cap = ((long long)(optin - kHeader) / 2 / kFold) * kFold;
-  if (share > cap) share = cap;
-  const size_t smem = kHeader + (size_t)(dbuf ? 2 : 1) * share;
-  err = dbuf ? allow_smem<slabs_kernel<true>>(smem)
-             : allow_smem<slabs_kernel<false>>(smem);
-  if (err != cudaSuccess) return (int)err;
-  const long long blocks = (slab + share - 1) / share;
-  auto kernel = dbuf ? slabs_kernel<true> : slabs_kernel<false>;
-  kernel<<<(unsigned)blocks, kDmaThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const unsigned char*>(src), out, folds, tiles, row * TH, slab,
-      (int)share, WP, bf16);
-  return (int)cudaGetLastError();
+  const long long segs = (slab + kFold - 1) / kFold;
+  const int nbuf = dbuf ? 2 : 1;
+  // a block an SM, each a share of whole segments; more blocks only where
+  // a share would not fit nbuf buffers or one copy's bytes
+  long long cap = (optin - kHeader) / nbuf / kFold;
+  if (cap > kMaxTx / kFold) cap = kMaxTx / kFold;
+  long long grid = segs < sms ? segs : sms;
+  if ((segs + grid - 1) / grid > cap) grid = (segs + cap - 1) / cap;
+  // a copy a block a slab: its share
+  const int piece = (int)((segs + grid - 1) / grid);
+  const int folders = piece < kMaxFolders ? piece : kMaxFolders;
+  return (int)launch_copy(src, out, folds, tiles, row * TH, slab, (int)grid, 1, nbuf,
+                          folders, WP, bf16, (cudaStream_t)stream);
 }

@@ -1073,8 +1073,8 @@ def test_kernels_launch_on_the_current_stream(cuda):
 
 # K9 and K10, the probes' kernels (csrc/microbench/), against their plain
 # versions: at the probes' real shape, at 3 tiles of 200 lanes, where the
-# mm kernel's last 128-lane chunk and the window kernel's last 16-lane
-# strip are cut, and at 2 tiles of 3 rows and 136 lanes, where the mm
+# mm kernel's last 128-lane chunk and the window kernel's last 64-lane
+# unit are cut, and at 2 tiles of 3 rows and 136 lanes, where the mm
 # kernel's last chunk holds 8 lanes (its second TMA box lies wholly past
 # WP) and a tile is short of rows: a wrong wgmma descriptor offset or
 # accumulator layout shows there.  The mm and window probes sum up to 576
@@ -1084,6 +1084,21 @@ MB_SHAPES = [dict(th=16, c=64, wp=512, tiles=17),
              dict(th=16, c=64, wp=200, tiles=3),
              dict(th=3, c=64, wp=136, tiles=2)]
 MB_IDS = ["real", "odd", "short"]
+# the window kernel's units (a source row x 64 lanes, fewer for wider C):
+# one tile of 5 rows, 100 lanes (a last unit of 36) and C 24, where the
+# lane wrap of im2col's box and the last unit show; C 96 and 160 (32- and
+# 16-lane units), a row in three windows (TH 1) and in two (TH 2)
+WIN_SHAPES = MB_SHAPES + [dict(th=5, c=24, wp=100, tiles=1),
+                          dict(th=1, c=96, wp=40, tiles=4),
+                          dict(th=2, c=160, wp=20, tiles=3)]
+WIN_IDS = MB_IDS + ["wrap", "c96", "c160"]
+# the copies' plans: 17 tiles of 400 lanes, where a one-shot share of 206
+# to 208 KB in float32 is 2 copies of 103 or 104 KB, not a whole number of
+# equal copies (102 to 104 KB in bf16: 2 of 51 or 52); at the real shape
+# the float32 share is 3 copies of 88 or 89 KB through the 2 buffers, the
+# third issued as the first is folded
+COPY_SHAPES = MB_SHAPES + [dict(th=16, c=64, wp=400, tiles=17)]
+COPY_IDS = MB_IDS + ["ring"]
 
 
 @pytest.mark.parametrize("shape", MB_SHAPES, ids=MB_IDS)
@@ -1109,7 +1124,7 @@ def test_mm_probe_kernel_matches_plain(cuda, probe, shape):
     assert float((sums.double() - ref_sums.double()).abs().max()) <= tol
 
 
-@pytest.mark.parametrize("shape", MB_SHAPES, ids=MB_IDS)
+@pytest.mark.parametrize("shape", WIN_SHAPES, ids=WIN_IDS)
 @pytest.mark.parametrize("probe", ["im2col", "dma_window"])
 def test_window_probe_kernel_matches_plain(cuda, probe, shape):
     from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
@@ -1126,7 +1141,7 @@ def test_window_probe_kernel_matches_plain(cuda, probe, shape):
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
-@pytest.mark.parametrize("shape", MB_SHAPES, ids=MB_IDS)
+@pytest.mark.parametrize("shape", COPY_SHAPES, ids=COPY_IDS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("probe", ["dma_one_shot", "dma_serial", "dma_dbuf"])
 def test_copy_probe_kernel_matches_plain(cuda, probe, dtype, shape):
@@ -1147,9 +1162,10 @@ def test_copy_probe_kernel_matches_plain(cuda, probe, dtype, shape):
 
 def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     """C other than 64 and WP not a multiple of 8 (TMA's 16-byte row
-    stride) for the mm kernel (the wrapper), a window larger than a block's
-    shared memory and rows that are not a multiple of 16 bytes for the bulk
-    copies (the launch refuses them)."""
+    stride) for the mm kernel, WP not a multiple of 4 (the same stride in
+    float32) and C over 256 (a TMA box's rows) for the window kernel (the
+    wrappers, launching nothing), and rows that are not a multiple of 16
+    bytes for the bulk copies (the launch refuses them)."""
     from fcvsr_tpu_torch.benchmarks import microbench_conv2 as conv2
     from fcvsr_tpu_torch.benchmarks import microbench_dma as dma
 
@@ -1163,7 +1179,11 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="multiple of 8"):
         conv2.mm_stream3(rhs, w, 1)
     assert conv2.mm_stream3.launches == n0
-    with pytest.raises(RuntimeError, match="invalid argument"):
-        conv2.im2col(torch.zeros(1, 130, 256, 16, device=cuda), 128)
+    n0 = conv2.im2col.launches, conv2.dma_window.launches
+    with pytest.raises(ValueError, match="multiple of 4"):
+        conv2.im2col(torch.zeros(1, 18, 8, 6, device=cuda), 16)
+    with pytest.raises(ValueError, match="C <= 256"):
+        conv2.dma_window(torch.zeros(1, 18, 300, 16, device=cuda), 16)
+    assert (conv2.im2col.launches, conv2.dma_window.launches) == n0
     with pytest.raises(RuntimeError, match="invalid argument"):
         dma.dma_serial(torch.zeros(1, 18, 3, 5, device=cuda), 16)

@@ -368,18 +368,22 @@ def test_mm_l2_bytes_at_the_real_shape():
 
 
 def test_mm_sass_counts_the_mm_kernels_instructions(tmp_path, monkeypatch):
-    """cuobjdump's SASS split by function: only the mm kernel is kept,
-    with its wgmma (HGMMA), TMA (UTMALDG), mma.sync (HMMA) and ldmatrix
-    (LDSM) instructions counted."""
+    """cuobjdump's SASS split by function, each probe kernel under its
+    name (the window kernel's instantiations by their template arguments),
+    with its wgmma (HGMMA), TMA (UTMALDG, UBLKCP), cp.async (LDGSTS),
+    mma.sync (HMMA) and ldmatrix (LDSM) instructions counted; the check
+    names what is missing or should not be there."""
     sass = "\n".join([
         "\tcode for sm_90a",
         "\t\tFunction : _ZN12_GLOBAL__N_116mm_stream_kernelE14CUtensorMap_st",
         "  /*0450*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], R24, gsb0 ;",
         "  /*0460*/  HGMMA.64x128x16.F32.BF16 R24, gdesc[UR8], R24, gsb0 ;",
         "  /*0470*/  UTMALDG.2D [UR8], [UR4] ;",
-        "\t\tFunction : _ZN12_GLOBAL__N_113window_kernelILb1EEEvPKfPfiiii",
+        "\t\tFunction : _ZN12_GLOBAL__N_113window_kernelILb1ELi64EEEv14CUtensorMap_stPfS1_iiii",
         "  /*0450*/  HMMA.16816.F32.BF16 R24, R4, R8, R24 ;",
-        "  /*0460*/  LDSM.16.M88.4 R4, [R2] ;"])
+        "  /*0460*/  LDGSTS.E.BYPASS.128 [R2], desc[UR4][R4.64] ;",
+        "\t\tFunction : _ZN12_GLOBAL__N_111copy_kernelEPKhPfPjixxiiii",
+        "  /*0470*/  UBLKCP.S.G [UR8], [UR4], UR6 ;"])
     tool = tmp_path / "cuobjdump"
     tool.write_text("")
     # the parsing lives in _native.sass_ops, which the K2 check shares
@@ -391,9 +395,20 @@ def test_mm_sass_counts_the_mm_kernels_instructions(tmp_path, monkeypatch):
         return type("Done", (), {"stdout": sass})()
 
     monkeypatch.setattr(_native.subprocess, "run", fake_run)
-    assert conv2.mm_sass("lib.so") == {"mm_stream_kernel": dict(
-        HGMMA=2, UTMALDG=1, HMMA=0, LDSM=0)}
+    zero = dict.fromkeys(common.SASS_OPS, 0)
+    got = common.sass("lib.so")
+    assert got == {"mm_stream_kernel": dict(zero, HGMMA=2, UTMALDG=1),
+                   "window_kernel<im2col, 64>": dict(zero, HMMA=1, LDGSTS=1),
+                   "copy_kernel": dict(zero, UBLKCP=1)}
     assert calls == [[str(tool), "-sass", "lib.so"]]
+    faults = common.sass_faults(got)
+    assert "window_kernel<im2col, 64>: no UTMALDG" in faults
+    assert "window_kernel<im2col, 64>: 1 LDGSTS" in faults
+    assert "window_kernel<dma_window, 16>: not found" in faults
+    assert not [f for f in faults if f.startswith(("mm_", "copy_"))]
+    full = {k: dict(zero, **dict.fromkeys(need, 1))
+            for k, (need, _) in common.SASS_WANTS.items()}
+    assert common.sass_faults(full) == [] and len(full) == 8
 
 
 def test_mm_ab_edits_the_kernel_sources_or_refuses():
