@@ -25,7 +25,8 @@ Phases, one line or more each:
      modes, B 1 and 2, also warm: 20 launches an event pair) and the
      conv kernels (K2, K3) at the serving shape, in float32 and bf16
      storage, K3 (64->64 with its residual, also warm) at SCNet's three
-     levels and at conv_last0's 1088x1920, its bound its bytes and the
+     levels and at conv_last0's 1088x1920 (also on bf16 maps, as
+     tail_dtype='bf16' runs it), its bound its bytes and the
      function's flops at the bf16 tensor-core rate, the float32 pipes'
      beside, K2 at SCNet's three levels (both pair shapes, each timed,
      its bound, the function's flops at the bf16 tensor-core rate,
@@ -60,13 +61,22 @@ Phases, one line or more each:
      own floor, with the K7 and K8 launches;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
-     SSIM), with the kernel launch counts per frame checked, then ``--fps``
-     at 1 x 7 x 1 x 272 x 480;
-  4b. fast serving: the same with ``--fast``, then with ``--fast
-     --iac-chain resident --scnet-fuse quad``: the clip with the launches
-     per frame checked, ``--fps`` with the peak memory, then the exact
-     path, ``k_fused``, ``--fast`` and ``--fast`` + resident + quad timed
-     in turns on one model (``profiling.serving_compare``);
+     SSIM; ``--no-tof``), with the kernel launch counts per frame checked,
+     then ``--fps`` at 1 x 7 x 1 x 272 x 480;
+  4b. fast serving: the same with ``--fast`` (the JAX package's set), then
+     with ``--fast --iac-chain resident --scnet-fuse quad``: the clip with
+     the launches per frame checked, ``--fps`` with the peak memory, then
+     the exact path, each serving flag alone (the bf16 head, MFFR and tail
+     and the phase-blocked fold among them), ``--fast`` and ``--fast`` +
+     resident + quad timed in turns on one model
+     (``profiling.serving_compare``), each held to the --fast bars against
+     the exact path with its launches a forward;
+  4c. serving modes, exact and ``--fast``: ETC (``fcvsr_etc_forward``, a
+     13-frame 272x480 clip, the 7 windows one batch with one frame's
+     launches, each output against its window's single forward) and tiled
+     serving (``tiled_sr``, a smooth 7 x 540 x 960 window in 15 tiles of
+     272, overlap 32, one batched forward, against the whole-frame
+     forward), with ms, peak memory and launches;
   5. zoo serving: ``apis.restoration_video_inference`` restores a synthetic
      10-frame RGB clip with EDVR-M (180x320, 5-frame windows) and BasicVSR++
      (192x320, the whole clip in one recurrent forward); shapes, finite
@@ -84,6 +94,9 @@ Phases, one line or more each:
      6, 128x128 LR patches from the clip, Adam, Charbonnier-sum) for one
      warm-up step, then resumes from its checkpoint for 5 timed steps; the
      losses, ms per step, peak memory and launch counts per step, checked;
+     then ``cli --checkpoint`` serves that checkpoint directory on the
+     clip: frame 0's SR the loaded model's forward, not the seed's, PSNR,
+     SSIM and tOF finite, tOF's host seconds printed;
   7b. the BlockRCB A/B (``python -m
      fcvsr_tpu_torch.benchmarks.microbench_blockrcb_kernel``) at 272x480x64
      with C1 64 and 128: K11 against the unfused path, both timed, their
@@ -141,23 +154,47 @@ FUSED_PER_FRAME = dict(PER_FRAME, iac=0, iac_chain=4, conv3x3_pair=0,
 FAST_RUNS = {"fast": ["--fast"],
              "fast_resident_quad": ["--fast", "--iac-chain", "resident",
                                     "--scnet-fuse", "quad"]}
+# the JAX package's --fast (test.py:183-187), cli.FAST
+FAST_FLAGS = dict(batch_mgaa=True, k_fused=True, tail_impl="folded",
+                  iac_dtype="bf16", scnet_dtype="bf16", head_dtype="bf16",
+                  mffr_dtype="bf16")
 # each serving flag alone over the exact path, the two fast sets, the two
 # flags that won alone on the H100 (PERF.md), and the JAX --fast set
-# without its folded tail (the one flag of it that loses on the H100),
-# timed in turns on one model
+# without its folded tail, timed in turns on one model; each held to the
+# --fast bars against the exact path
 FLAG_VARIANTS = {
     "exact": {}, "batch_mgaa": dict(batch_mgaa=True),
-    "folded": dict(tail_impl="folded"), "k_fused": dict(k_fused=True),
+    "folded": dict(tail_impl="folded"), "folded_pb": dict(tail_impl="folded_pb"),
+    "k_fused": dict(k_fused=True),
     "iac_bf16": dict(iac_dtype="bf16"), "scnet_bf16": dict(scnet_dtype="bf16"),
+    "head_bf16": dict(head_dtype="bf16"), "mffr_bf16": dict(mffr_dtype="bf16"),
+    "tail_bf16": dict(tail_dtype="bf16"),
     "resident": dict(iac_chain="resident"), "quad": dict(scnet_fuse="quad"),
-    "fast": dict(batch_mgaa=True, k_fused=True, tail_impl="folded",
-                 iac_dtype="bf16", scnet_dtype="bf16"),
-    "fast_resident_quad": dict(batch_mgaa=True, tail_impl="folded",
-                               iac_chain="resident", scnet_fuse="quad",
-                               iac_dtype="bf16", scnet_dtype="bf16"),
+    "fast": FAST_FLAGS,
+    "fast_resident_quad": dict(FAST_FLAGS, k_fused=False,
+                               iac_chain="resident", scnet_fuse="quad"),
     "batch_mgaa_scnet_bf16": dict(batch_mgaa=True, scnet_dtype="bf16"),
-    "fast_unfolded": dict(batch_mgaa=True, k_fused=True, iac_dtype="bf16",
-                          scnet_dtype="bf16")}
+    "fast_unfolded": dict(FAST_FLAGS, tail_impl="xla")}
+# the serving modes (phase modes): ETC's 13-frame clip at the FPS shape,
+# and a 540x960 window in tiles of 272 with an overlap of 32 (15 tiles, a
+# 2160x3840 output)
+ETC_SHAPE = (1, 13, 1, 272, 480)
+TILE_SHAPE = (7, 1, 540, 960)
+TILE, OVERLAP = 272, 32
+# tiled serving against the whole frame: the JAX package's tiled_sr (which
+# the port follows) pads the frame by edge replication to its tile grid,
+# where the whole frame's convs pad its border with zeros, so SR pixels
+# within OVERLAP LR pixels of a padded side (the bottom and right of a
+# 540x960 window) see other context; the --fast bars hold the seams, every
+# pixel with at least OVERLAP pixels of the whole frame's context, and the
+# whole frame's mean; the whole frame's max, in that band, is printed
+TILE_BORDER_BAND = 4 * OVERLAP  # SR pixels
+# ETC's windows against single forwards under the same flags: the exact
+# path at 1e-4 (f32 sums in another order as the batch changes); under
+# --fast that noise moves values across bf16 rounding boundaries at the
+# storage handoffs (each bf16 type alone does it, on the CPU too), so
+# --fast is held to its own bars, FAST_MAX and FAST_MEAN
+ETC_ATOL = 1e-4
 # per training step: the forward's launches; the IAC adjoint is one
 # launch an iteration; each pair's backward rebuilds its intermediate
 # with one conv3x3 launch
@@ -647,7 +684,14 @@ def phase_kernels(torch, dev):
           lambda: fused_conv.conv3x3_plain(x, wl, bl), CONV_RTOL,
           work=(*conv_work(1088 * 1920, 64, 1), BF16_FLOP_S),
           notes={"route": "bf16x3, N padded to 8"}, warm=True)
-    del x
+    # and on bf16 maps, as conv_last0 runs under tail_dtype='bf16'
+    xb = x.bfloat16()
+    check("conv3x3", "bf16 64->1 conv_last0 1088x1920",
+          lambda: fused_conv.conv3x3(xb, wl, bl),
+          lambda: fused_conv.conv3x3_plain(xb, wl, bl), BF16_RTOL,
+          work=(*conv_work(1088 * 1920, 64, 1, storage=2), BF16_FLOP_S),
+          notes={"route": "bf16 x (w_hi + w_lo), N padded to 8"}, warm=True)
+    del x, xb
 
     # the IAC adjoint (K5) at the training shape: B=6, 128x128, C=64, its
     # dk written into one buffer as the chain does; the cotangent masked by
@@ -1302,7 +1346,7 @@ def phase_slice(torch, card):
         summary = cli.main(["--preset", PRESET, "--seed", "0",
                             "--lr-root", os.path.join(tmp, "lr"),
                             "--gt-root", os.path.join(tmp, "gt"),
-                            "--save-dir", out_dir])
+                            "--save-dir", out_dir, "--no-tof"])
         counts = launch_counts()
         r = summary["per_sequence"]["clip"]
         sr = np.asarray(Image.open(os.path.join(out_dir, "clip",
@@ -1349,7 +1393,7 @@ def phase_fast(torch, card):
             summary = cli.main(["--preset", PRESET, "--seed", "0",
                                 "--lr-root", os.path.join(tmp, "lr"),
                                 "--gt-root", os.path.join(tmp, "gt"),
-                                "--save-dir", out_dir] + extra)
+                                "--save-dir", out_dir, "--no-tof"] + extra)
             counts[name] = launch_counts()
             r = summary["per_sequence"]["clip"]
             sr = np.asarray(Image.open(os.path.join(out_dir, "clip",
@@ -1382,6 +1426,24 @@ def phase_fast(torch, card):
                                      variants=FLAG_VARIANTS)
     say("serving_compare", shape=[1, 7, 1, 272, 480], reps=5, card=card,
         **runs)
+    # each variant against the exact path at the --fast bars, with its
+    # launches a forward
+    with torch.no_grad():
+        model.set_serving_flags(**cli.EXACT)
+        exact = model(x)
+        for name, flags in FLAG_VARIANTS.items():
+            model.set_serving_flags(**{**cli.EXACT, **flags})
+            reset_launch_counts()
+            d = (model(x) - exact).abs()
+            dev = (float(d.max()), float(d.mean()))
+            say("flag_bars", variant=name, max_abs_dev=dev[0],
+                mean_abs_dev=dev[1], tol=[FAST_MAX, FAST_MEAN],
+                launches=launch_counts())
+            if not (dev[0] < FAST_MAX and dev[1] < FAST_MEAN):
+                fail(f"serving flags {name} against the exact path: max "
+                     f"{dev[0]}, mean {dev[1]}")
+        del exact, d
+    model.set_serving_flags(**cli.EXACT)
     for name in FAST_RUNS:
         model.set_serving_flags(**{**cli.EXACT, **FLAG_VARIANTS[name]})
         say("stages", run=name, shape=[1, 7, 1, 272, 480], card=card,
@@ -1409,6 +1471,8 @@ def phase_train(torch, card):
         timed = train_cli.main(args + ["--total-iters", "6"])
         counts = launch_counts()
         peak = torch.cuda.max_memory_allocated()
+        serve_trained(torch, card, tmp, os.path.join(timed["work_dir"],
+                                                     "ckpt"))
     steps = warm["step"] + timed["step"] - timed["start"]
     per_step = {k: v / steps for k, v in counts.items()}
     losses = warm["losses"] + timed["losses"]
@@ -1426,6 +1490,190 @@ def phase_train(torch, card):
     if per_step != {k: float(v) for k, v in PER_STEP.items()}:
         fail(f"launches per step {per_step}, expected {PER_STEP}")
     return counts
+
+
+def serve_trained(torch, card, root, ckpt_dir):
+    """Serve the checkpoint the training phase wrote through ``cli.main``
+    (``--checkpoint`` its directory) on the clip under ``root``: frame 0's
+    SR must be a forward of the model given ``load_weights`` of the newest
+    checkpoint (its PNG, and its PSNR within 1e-4 dB), unlike the seed-0
+    model's; PSNR, SSIM and tOF finite; tOF's host seconds printed."""
+    from PIL import Image
+
+    from fcvsr_tpu_torch import cli
+    from fcvsr_tpu_torch.data import ClipFolderDataset
+    from fcvsr_tpu_torch.metrics import calculate_psnr
+    from fcvsr_tpu_torch.utils.checkpoint import (latest_checkpoint,
+                                                  load_weights)
+    from fcvsr_tpu_torch.utils.config import preset
+
+    lr, gt = os.path.join(root, "lr"), os.path.join(root, "gt")
+    out_dir = os.path.join(root, "served")
+    t0 = time.perf_counter()
+    summary = cli.main(["--preset", PRESET, "--checkpoint", ckpt_dir,
+                        "--lr-root", lr, "--gt-root", gt,
+                        "--save-dir", out_dir])
+    wall = time.perf_counter() - t0
+    r = summary["per_sequence"]["clip"]
+    ckpt = latest_checkpoint(ckpt_dir)
+
+    _, window, gt0 = next(ClipFolderDataset(lr, gt, grayscale=True)
+                          .iter_test_windows("clip"))
+    window, (h, w) = cli.pad_to_multiple(window)
+    x = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        window.astype(np.float32) / 255.0, (0, 3, 1, 2))[None])).to("cuda")
+    model = cli.build_model(preset(PRESET), 0, "cuda")
+
+    def sr255():
+        with torch.no_grad():
+            y = model(x)[0].permute(1, 2, 0).cpu().numpy()
+        return np.clip(y[:4 * h, :4 * w] * 255.0, 0, 255)
+
+    seeded = sr255()
+    load_weights(ckpt, model)
+    own = sr255()
+    png = np.asarray(Image.open(os.path.join(out_dir, "clip",
+                                             "00000000.png")))
+    png_dev = np.abs(png.astype(np.float64)
+                     - own[..., 0].astype(np.uint8).astype(np.float64))
+    psnr0 = calculate_psnr(own, gt0.astype(np.float32), 0, None, "rgb")
+    moved = float(np.abs(own - seeded).max())
+    say("serve_trained", preset=PRESET, weights=summary["weights"],
+        frames=r["frames"], psnr=r["psnr"], ssim=r["ssim"], tof=r["tof"],
+        tof_seconds=r["tof_seconds"], tof_wall_seconds=r["tof_wall_seconds"],
+        ms_per_frame=r["ms_per_frame"], wall_s=wall,
+        frame0_psnr=r["psnr_frames"][0], frame0_psnr_own_forward=psnr0,
+        png_pixels_off=int((png_dev > 0).sum()),
+        png_max_dev=float(png_dev.max()), seed_to_trained_max_dev=moved,
+        card=card)
+    if summary["weights"] != {"checkpoint": os.path.abspath(ckpt)} or \
+            not ckpt.endswith("iter_6.pt"):
+        fail(f"served {summary['weights']}, expected {ckpt} (iter_6.pt)")
+    if not all(math.isfinite(r[k]) for k in ("psnr", "ssim", "tof")):
+        fail(f"served checkpoint: non-finite PSNR/SSIM/tOF {r}")
+    if r["frames"] != 10 or png.shape != (1080, 1920):
+        fail(f"served {r['frames']} frames of {png.shape}")
+    if abs(r["psnr_frames"][0] - psnr0) > 1e-4 or png_dev.max() > 1 or \
+            (png_dev > 0).mean() > 1e-4:
+        fail(f"frame 0 is not the loaded model's forward: PSNR "
+             f"{r['psnr_frames'][0]} against {psnr0}, PNG off by up to "
+             f"{png_dev.max()} at {(png_dev > 0).sum()} pixels")
+    if not moved > 1e-3:
+        fail(f"the served SR equals the seed-0 model's (max dev {moved})")
+
+
+def phase_modes(torch, card):
+    """ETC and tiled serving on the card, exact and ``--fast``: a 13-frame
+    272x480 clip through ``fcvsr_etc_forward`` (its 7 windows one batch,
+    so a frame's launches), each output within ETC_ATOL of its window's
+    single forward under the same flags (the --fast bars under --fast);
+    a smooth 7 x 540 x 960 window
+    through ``tiled_sr`` (15 tiles of 272, overlap 32, one batched forward)
+    within the --fast bars of the whole-frame forward, its max outside the
+    band of the padded sides (see the note at TILE_BORDER_BAND).  ms (CUDA events;
+    the tiles' wall time, stitching included), peak memory and launches of
+    each."""
+    from fcvsr_tpu_torch import cli
+    from fcvsr_tpu_torch.models import fcvsr_etc_forward, tiled_sr
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.utils.config import preset
+
+    dev = torch.device("cuda", 0)
+    model = cli.build_model(preset(PRESET), 0, "cuda")
+    n, c, h, w = ETC_SHAPE[1:]
+    clip = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        smooth_clip(torch, 12, n, h, w)[..., :c], (0, 3, 1, 2))[None])).to(dev)
+    t, tc, th, tw = TILE_SHAPE
+    window = np.ascontiguousarray(np.transpose(
+        smooth_clip(torch, 13, t, th, tw)[..., :tc], (0, 3, 1, 2)))
+    want = {"exact": PER_FRAME, "fast": FAST_PER_FRAME}
+
+    def events_ms(fn, reps=3):
+        fn()
+        times = []
+        for _ in range(reps):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            fn()
+            b.record()
+            torch.cuda.synchronize()
+            times.append(a.elapsed_time(b))
+        return float(np.median(times)), times
+
+    for name, flags in (("exact", {}), ("fast", FAST_FLAGS)):
+        model.set_serving_flags(**{**cli.EXACT, **flags})
+        with torch.no_grad():
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            out, base = fcvsr_etc_forward(model, clip)
+            torch.cuda.synchronize()
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            diffs = [(out[:, i] - model(clip[:, i:i + 7])).abs()
+                     for i in range(n - 6)]
+            devs = [float(d.max()) for d in diffs]
+            means = [float(d.mean()) for d in diffs]
+            del diffs
+            ms, times = events_ms(lambda: fcvsr_etc_forward(model, clip))
+            say("etc", flags=name, clip=list(clip.shape),
+                out_shape=list(out.shape), ms=ms, ms_per_frame=ms / (n - 6),
+                ms_runs=times, max_memory_allocated=peak, launches=launches,
+                window_max_abs_dev=devs, window_mean_abs_dev=means,
+                tol=ETC_ATOL if name == "exact" else [FAST_MAX, FAST_MEAN],
+                card=card)
+            if out.shape != (1, n - 6, c, 4 * h, 4 * w) or \
+                    base.shape != out.shape or not torch.isfinite(out).all():
+                fail(f"ETC {name}: output {tuple(out.shape)} or non-finite")
+            if launches != {k: v for k, v in want[name].items()}:
+                fail(f"ETC {name}: launches {launches}, expected a frame's "
+                     f"{want[name]} (the windows one batch)")
+            if not (max(devs) <= ETC_ATOL if name == "exact" else
+                    max(devs) < FAST_MAX and max(means) < FAST_MEAN):
+                fail(f"ETC {name}: windows off their single forwards by "
+                     f"{devs} (mean {means})")
+            del out, base
+
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            full = model(torch.from_numpy(window[None]).to(dev)).cpu().numpy()
+            full_peak = torch.cuda.max_memory_allocated()
+            full_ms, _ = events_ms(
+                lambda: model(torch.from_numpy(window[None]).to(dev)))
+            tiled_sr(model, window, TILE, OVERLAP)  # warm-up at B 15
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sr = tiled_sr(model, window, TILE, OVERLAP)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+            launches = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            d = np.abs(sr - full)[0]
+            step = TILE - 2 * OVERLAP
+            band = TILE_BORDER_BAND
+            seams = d[:, :4 * th - band if (th - 2 * OVERLAP) % step else None,
+                      :4 * tw - band if (tw - 2 * OVERLAP) % step else None]
+            say("tiles", flags=name, window=list(window.shape), tile=TILE,
+                overlap=OVERLAP, out_shape=list(sr.shape), wall_ms=wall_ms,
+                max_memory_allocated=peak, launches=launches,
+                whole_frame_ms=full_ms, whole_frame_max_memory_allocated=
+                full_peak, max_abs_dev=float(seams.max()),
+                mean_abs_dev=float(d.mean()),
+                whole_frame_max_abs_dev=float(d.max()),
+                tol=[FAST_MAX, FAST_MEAN], card=card)
+            if sr.shape != (1, tc, 4 * th, 4 * tw) or \
+                    not np.isfinite(sr).all():
+                fail(f"tiles {name}: output {sr.shape} or non-finite")
+            if launches != {k: v for k, v in want[name].items()}:
+                fail(f"tiles {name}: launches {launches}, expected one "
+                     f"forward's {want[name]}")
+            if not (seams.max() < FAST_MAX and d.mean() < FAST_MEAN):
+                fail(f"tiles {name} against the whole frame: max "
+                     f"{seams.max()} off the padded border, mean "
+                     f"{d.mean()}")
+            del full, sr
+    del model, clip
 
 
 def phase_probe(torch):
@@ -1621,6 +1869,8 @@ def main() -> None:
     phase_slice(torch, card)
     torch.cuda.empty_cache()
     fast_counts = phase_fast(torch, card)
+    torch.cuda.empty_cache()
+    phase_modes(torch, card)
     torch.cuda.empty_cache()
     phase_zoo(torch, card)
     torch.cuda.empty_cache()

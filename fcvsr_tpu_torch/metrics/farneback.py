@@ -47,34 +47,34 @@ def _sep_filter_reflect101(img: np.ndarray, k: np.ndarray) -> np.ndarray:
     return res
 
 
-def _linear_weight_matrix(in_size: int, out_size: int) -> np.ndarray:
-    """Row-stochastic (out_size, in_size) matrix of half-pixel bilinear
-    resizing, as ``F.interpolate(mode='bilinear', align_corners=False)``
-    computes it with ``size=``: src = (dst + 0.5) * in / out - 0.5,
-    clamped (the JAX package's ``ops.resize._linear_weight_matrix``)."""
-    w = np.zeros((out_size, in_size), dtype=np.float64)
+def _resize_axis(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """Half-pixel bilinear resize of one axis, as
+    ``F.interpolate(mode='bilinear', align_corners=False)`` computes it
+    with ``size=``: src = (dst + 0.5) * in / out - 0.5, clamped; each
+    output the two-tap sum of its neighbours, the weights rounded to
+    float32 (the JAX package's copy builds the same weights into dense
+    float32 matrices, O(N^2) a row where this is O(1))."""
+    in_size = img.shape[axis]
+    if in_size == out_size:
+        return img
     if in_size == 1:
-        w[:, 0] = 1.0
-        return w.astype(np.float32)
+        return np.repeat(img, out_size, axis)
     scale = in_size / out_size
-    dst = np.arange(out_size, dtype=np.float64)
-    src = np.clip((dst + 0.5) * scale - 0.5, 0.0, in_size - 1)
+    src = np.clip((np.arange(out_size) + 0.5) * scale - 0.5, 0.0, in_size - 1)
     lo = np.floor(src).astype(np.int64)
     hi = np.minimum(lo + 1, in_size - 1)
     frac = src - lo
-    w[dst.astype(np.int64), lo] += 1.0 - frac
-    w[dst.astype(np.int64), hi] += frac
-    return w.astype(np.float32)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    w_lo = (1.0 - frac).astype(np.float32).astype(np.float64).reshape(shape)
+    w_hi = frac.astype(np.float32).astype(np.float64).reshape(shape)
+    return np.take(img, lo, axis) * w_lo + np.take(img, hi, axis) * w_hi
 
 
 def _resize_bilinear_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     """Half-pixel bilinear resize (OpenCV INTER_LINEAR convention)."""
-    ah = _linear_weight_matrix(img.shape[0], out_h).astype(np.float64)
-    aw = _linear_weight_matrix(img.shape[1], out_w).astype(np.float64)
-    if img.ndim == 2:
-        return ah @ img @ aw.T
-    out = np.einsum("oh,hwc->owc", ah, img)
-    return np.einsum("pw,owc->opc", aw, out)
+    return _resize_axis(_resize_axis(np.asarray(img, np.float64), out_h, 0),
+                        out_w, 1)
 
 
 def _poly_exp(img: np.ndarray, n: int, sigma: float):
@@ -152,11 +152,14 @@ def _update_matrices(R0, R1, flow):
     a01 = tx * (1 - ty)
     a10 = (1 - tx) * ty
     a11 = tx * ty
+    # the four corners, gathered from the flattened rows of R1
+    r1 = R1.reshape(h * w, -1)
+    i00 = y1c * w + x1c
     R1i = (
-        a00[..., None] * R1[y1c, x1c]
-        + a01[..., None] * R1[y1c, x1c + 1]
-        + a10[..., None] * R1[y1c + 1, x1c]
-        + a11[..., None] * R1[y1c + 1, x1c + 1]
+        a00[..., None] * np.take(r1, i00, 0)
+        + a01[..., None] * np.take(r1, i00 + 1, 0)
+        + a10[..., None] * np.take(r1, i00 + w, 0)
+        + a11[..., None] * np.take(r1, i00 + w + 1, 0)
     )
     # outside the frame: no constraint from frame 1 — reuse frame-0 quadratic,
     # zero first-order difference (OpenCV-style fallback)

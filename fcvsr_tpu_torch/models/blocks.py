@@ -3,6 +3,13 @@
 Modules take and return channels-last (B, H, W, C) tensors; convs run as
 ``F.conv2d`` on the NCHW view (a channels-last layout, no copy).  Parameter
 names follow the reference checkpoints (``conv_du.0``, ``body.3.gcnet...``).
+
+``compute_dtype`` (``Conv2d``, ``CALayer``, ``ConvBlk``, ``DivEnh``), the
+JAX blocks' ``dtype``: None computes in the input's type; ``torch.bfloat16``
+casts each conv's input, weight and bias to bf16 and stores its output in
+bf16 (the serving flags ``head_dtype``, ``mffr_dtype`` and ``tail_dtype``).
+Parameters stay float32, so the ``state_dict`` does not change.
+:func:`set_compute_dtype` switches it on every conv of a module tree.
 """
 
 from __future__ import annotations
@@ -14,52 +21,74 @@ import torch.nn.functional as F
 from .scnet_rows import scnet_apply
 
 __all__ = ["Conv2d", "PReLU", "CALayer", "ConvBlk", "ContextBlock", "RCB",
-           "BlockRCB", "SCGroup", "SCNet", "DivEnh", "pixel_shuffle"]
+           "BlockRCB", "SCGroup", "SCNet", "DivEnh", "pixel_shuffle",
+           "set_compute_dtype"]
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with symmetric ``k // 2`` padding on NHWC tensors."""
+    """``nn.Conv2d`` with symmetric ``k // 2`` padding on NHWC tensors, in
+    ``compute_dtype`` (None: the input's type)."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
-                 bias: bool = True):
+                 bias: bool = True, compute_dtype=None):
         super().__init__(cin, cout, k, stride=stride, padding=k // 2,
                          bias=bias)
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
-        y = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+        dt = self.compute_dtype or x.dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
                      self.stride, self.padding)
         return y.permute(0, 2, 3, 1)
 
 
-# parametric ReLU with one shared slope; elementwise, so any layout
-PReLU = nn.PReLU
+def set_compute_dtype(module: nn.Module, dtype) -> None:
+    """Set ``compute_dtype`` on every :class:`Conv2d` under ``module``."""
+    for m in module.modules():
+        if isinstance(m, Conv2d):
+            m.compute_dtype = dtype
+
+
+class PReLU(nn.PReLU):
+    """Parametric ReLU with one shared slope, in its input's type;
+    elementwise, so any layout."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
 
 
 class CALayer(nn.Module):
-    """Squeeze-and-excite channel attention."""
+    """Squeeze-and-excite channel attention; the spatial mean sums in
+    float32."""
 
-    def __init__(self, channel: int, reduction: int = 16):
+    def __init__(self, channel: int, reduction: int = 16, compute_dtype=None):
         super().__init__()
         self.conv_du = nn.Sequential(
-            Conv2d(channel, channel // reduction, 1, bias=False), nn.ReLU(),
-            Conv2d(channel // reduction, channel, 1, bias=False),
+            Conv2d(channel, channel // reduction, 1, bias=False,
+                   compute_dtype=compute_dtype), nn.ReLU(),
+            Conv2d(channel // reduction, channel, 1, bias=False,
+                   compute_dtype=compute_dtype),
             nn.Sigmoid())
 
     def forward(self, x):
-        return x * self.conv_du(x.mean((1, 2), keepdim=True))
+        y = x.float().mean((1, 2), keepdim=True).to(x.dtype)
+        return x * self.conv_du(y)
 
 
 class ConvBlk(nn.Module):
     """conv - PReLU - conv, plus (not around) channel attention; kernel size
     2 * index + 1."""
 
-    def __init__(self, dim: int, index: int):
+    def __init__(self, dim: int, index: int, compute_dtype=None):
         super().__init__()
         k = 2 * index + 1
-        self.conv1 = Conv2d(dim, dim, k, bias=False)
-        self.conv2 = Conv2d(dim, dim, k, bias=False)
+        self.conv1 = Conv2d(dim, dim, k, bias=False,
+                            compute_dtype=compute_dtype)
+        self.conv2 = Conv2d(dim, dim, k, bias=False,
+                            compute_dtype=compute_dtype)
         self.relu = PReLU()
-        self.CA = CALayer(dim, 1)
+        self.CA = CALayer(dim, 1, compute_dtype)
 
     def forward(self, x):
         out = self.conv2(self.relu(self.conv1(x)))
@@ -135,18 +164,19 @@ class SCNet(nn.Module):
 
 
 class DivEnh(nn.Module):
-    """Per-band detail enhancement.  ``Conv`` is defined but never called by
-    the reference forward; it is kept so reference checkpoints load."""
+    """Per-band detail enhancement, in its input's type (a and b cast to
+    it).  ``Conv`` is defined but never called by the reference forward; it
+    is kept so reference checkpoints load."""
 
-    def __init__(self, c: int):
+    def __init__(self, c: int, compute_dtype=None):
         super().__init__()
         self.Conv = Conv2d(c, c, 3)
         self.a = nn.Parameter(torch.zeros(c, 1, 1))
         self.b = nn.Parameter(torch.ones(c, 1, 1))
-        self.ca = CALayer(c)
+        self.ca = CALayer(c, compute_dtype=compute_dtype)
 
     def forward(self, x, x_before_sum=None, ex_before_sum=None):
-        a, b = self.a.reshape(-1), self.b.reshape(-1)
+        a, b = self.a.reshape(-1).to(x.dtype), self.b.reshape(-1).to(x.dtype)
         if x_before_sum is None:
             out = x - x.mean((1, 2), keepdim=True)
             return self.ca(0.2 * a * out * x + b * x)

@@ -21,15 +21,39 @@ from ..ops import _native
 from ..ops.corr import corr_lookup
 from ..ops.freq import irfft_features, rfft_features, split_freq
 from ..ops.fused_conv import conv3x3
-from ..ops.psfold import fold_ps_bias, fold_ps_conv
+from ..ops.psfold import (block_to_interleaved_perm,
+                          conv_folded_phase2_blocked, conv_folded_tapmajor,
+                          fold_ps_bias, fold_ps_conv)
 from ..ops.resize import resize_bilinear
 from ..ops.sac import iac
 from .basicvsr import MMResidualBlock, ModulatedDeformConv2d
 from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, PReLU, RCB,
-                     SCNet, pixel_shuffle)
+                     SCNet, pixel_shuffle, set_compute_dtype)
 from .scnet_rows import STORAGE, conv_bias, hwio
 
-__all__ = ["MGAA", "MFFR", "FCVSRNet", "init_weights"]
+__all__ = ["MGAA", "MFFR", "FCVSRNet", "init_weights", "fcvsr_etc_forward"]
+
+
+def _check_dtype(name, value):
+    if value not in STORAGE:
+        raise ValueError(f"{name} is 'f32' or 'bf16', not {value!r}")
+
+
+def _compute_dtype(value):
+    """A dtype flag's compute dtype for ``blocks``: None for 'f32' (the
+    input's, float32), torch.bfloat16 for 'bf16'."""
+    return None if value == "f32" else STORAGE[value]
+
+
+def _inference_only(what, flags, *tensors):
+    """Raise when autograd records a forward with a serving flag set;
+    ``flags``: (name, value, plain value) triples."""
+    serving = [f"{k}={v!r}" for k, v, plain in flags if v != plain]
+    if serving and _native.records(*tensors):
+        raise RuntimeError(
+            f"{what}({', '.join(serving)}) is inference only: it has no "
+            "backward.  Train without it, or run the forward under "
+            "torch.no_grad()")
 
 
 def _check_iac(k_fused, iac_chain, iac_dtype):
@@ -39,8 +63,7 @@ def _check_iac(k_fused, iac_chain, iac_dtype):
     if iac_chain == "resident" and k_fused:
         raise ValueError("iac_chain='resident' takes materialised kernels: "
                          "it does not combine with k_fused")
-    if iac_dtype not in STORAGE:
-        raise ValueError(f"iac_dtype is 'f32' or 'bf16', not {iac_dtype!r}")
+    _check_dtype("iac_dtype", iac_dtype)
 
 
 class MGAA(nn.Module):
@@ -60,19 +83,26 @@ class MGAA(nn.Module):
       ``set_iac_chain``.
     * ``iac_dtype``: 'f32' or 'bf16', the storage of the IAC chain's maps
       (its inputs, kernels or F.0's output, and every iteration's output);
-      the aligned maps return to float32 for conv3.
+      the aligned maps return to float32 for conv3 (or go to a bf16 conv3
+      under ``head_dtype``).
+    * ``head_dtype``: 'f32' or 'bf16', the spectral head's storage and
+      compute type: the rfft's packed spectra (a float32 transform, bf16
+      storage), ``convfuse``, ``convcrt``, ``convcorr``, the ``MConvB``
+      ConvBlks and ``conv3``.  The gated spectra go back to float32 for the
+      irfft, so the warp offsets stay float32, as in the JAX package.
 
-    ``k_fused``, ``iac_chain='resident'`` and ``iac_dtype='bf16'`` are
-    inference only: a forward that autograd records raises."""
+    ``k_fused``, ``iac_chain='resident'`` and the bf16 types are inference
+    only: a forward that autograd records raises."""
 
     def __init__(self, dim: int, ac_ks: int = 3, ac_num: int = 6,
                  corr_radius: int = 4, k_fused: bool = False,
                  batch_fb: bool = False, iac_chain: str = "periter",
-                 iac_dtype: str = "f32"):
+                 iac_dtype: str = "f32", head_dtype: str = "f32"):
         super().__init__()
         if ac_ks != 3:
             raise ValueError(f"the IAC kernel has 3 taps, not ac_ks={ac_ks}")
         _check_iac(k_fused, iac_chain, iac_dtype)
+        _check_dtype("head_dtype", head_dtype)
         d = dim
         self.dim, self.ac_ks, self.ac_num = d, ac_ks, ac_num
         self.corr_radius, self.k_fused = corr_radius, k_fused
@@ -95,12 +125,25 @@ class MGAA(nn.Module):
         self.F = nn.Sequential(Conv2d(d, d, 3),
                                Conv2d(d, ac_num * d * ac_ks * 2, 1))
         self.conv3 = Conv2d(2 * d, d, 3, bias=False)
+        self.head_dtype = head_dtype
         # F.1 output channels of the kernel1 halves, tap-major per iteration:
         # the kernel2 halves are dead under the kernel1-both reference bug
         half = d * ac_ks
         self.register_buffer("sel", torch.tensor(
             [i * 2 * half + c * ac_ks + t for i in range(ac_num)
              for t in range(ac_ks) for c in range(d)]), persistent=False)
+
+    @property
+    def head_dtype(self) -> str:
+        return self._head_dtype
+
+    @head_dtype.setter
+    def head_dtype(self, value: str) -> None:
+        _check_dtype("head_dtype", value)
+        self._head_dtype = value
+        for m in (self.convfuse, self.convcorr, self.MConvB, self.convcrt,
+                  self.conv3):
+            set_compute_dtype(m, _compute_dtype(value))
 
     def sel_weights(self):
         """F.1's weight, its (C0, n*3C) transpose for ``k_fused``, and its
@@ -126,7 +169,8 @@ class MGAA(nn.Module):
         b, h, w, _ = x.shape
         x1, x2, x3 = x[..., :d], x[..., d:2 * d], x[..., 2 * d:]
 
-        xf = rfft_features(x, groups=3)  # [imag_g, real_g] per group
+        hd = _compute_dtype(self.head_dtype)
+        xf = rfft_features(x, 3, hd)  # [imag_g, real_g] per group
         x1f, x2f, x3f = xf[..., :2 * d], xf[..., 2 * d:4 * d], xf[..., 4 * d:]
         off_f = (x1f - x2f) + self.convfuse(torch.cat([x1f, x2f], -1))
         off_b = (x3f - x2f) + self.convfuse(torch.cat([x3f, x2f], -1))
@@ -150,7 +194,7 @@ class MGAA(nn.Module):
             for blk in self.MConvB:
                 gated += [blk(off_f) * sim, blk(off_b) * sim]
         packed = torch.cat([g[..., :2] for g in gated]
-                           + [g[..., 2:] for g in gated], -1)
+                           + [g[..., 2:] for g in gated], -1).float()
         fields = irfft_features(packed, h, w)      # (B, H, W, 4 * ac_num)
         offsets_f = torch.stack([fields[..., 4 * i:4 * i + 2]
                                  for i in range(self.ac_num)])
@@ -159,16 +203,11 @@ class MGAA(nn.Module):
 
         f0 = self.F[0](self.conv_KP(x2))
         wsel, wsel_t, bsel = self.sel_weights()
-        serving = [f"{k}={v!r}" for k, v, plain in (
-            ("k_fused", self.k_fused, False),
-            ("iac_chain", self.iac_chain, "periter"),
-            ("iac_dtype", self.iac_dtype, "f32")) if v != plain]
-        if serving and (f0.requires_grad or wsel.requires_grad):
-            raise RuntimeError(
-                f"MGAA({', '.join(serving)}) is inference only: the fused "
-                "kernel prediction, the resident chain and bf16 storage "
-                "have no backward.  Train without them, or run the forward "
-                "under torch.no_grad()")
+        _inference_only("MGAA", (("k_fused", self.k_fused, False),
+                                 ("iac_chain", self.iac_chain, "periter"),
+                                 ("iac_dtype", self.iac_dtype, "f32"),
+                                 ("head_dtype", self.head_dtype, "f32")),
+                        f0, wsel)
         st = STORAGE[self.iac_dtype]
         if self.k_fused:
             k_parts = (f0.to(st).contiguous(), wsel_t, bsel)
@@ -178,29 +217,47 @@ class MGAA(nn.Module):
             pred_k = F.conv2d(f0.permute(0, 3, 1, 2), wsel, bsel) \
                 .permute(0, 2, 3, 1).to(st)
         aligned = [iac(feat.to(st), pred_k, offs, self.ac_num, d,
-                       k_parts=k_parts, chain=self.iac_chain).float()
+                       k_parts=k_parts, chain=self.iac_chain)
                    for feat, offs in ((x1, offsets_f), (x3, offsets_b))]
-        return self.conv3(torch.cat(aligned, -1)) + x2
+        return self.conv3(torch.cat(aligned, -1).to(hd or x2.dtype)) \
+            .to(x2.dtype) + x2
 
 
 class MFFR(nn.Module):
-    """Multi-frequency feature refinement."""
+    """Multi-frequency feature refinement.  ``dtype``: 'f32' or 'bf16', the
+    storage and compute type of the band split (a float32 transform, bf16
+    bands) and of the DivEnh chain and its channel attention; the residual
+    add is float32.  bf16 is inference only."""
 
-    def __init__(self, dim: int, freq_inv: int = 8):
+    def __init__(self, dim: int, freq_inv: int = 8, dtype: str = "f32"):
         super().__init__()
         self.freq_inv = freq_inv
         self.DivEnh_block = nn.ModuleList([DivEnh(dim) for _ in range(freq_inv)])
         self.ca = CALayer(dim)
+        self.dtype = dtype
+
+    @property
+    def dtype(self) -> str:
+        return self._dtype
+
+    @dtype.setter
+    def dtype(self, value: str) -> None:
+        _check_dtype("mffr_dtype", value)
+        self._dtype = value
+        set_compute_dtype(self, _compute_dtype(value))
 
     def forward(self, x):
-        freq = split_freq(x, self.freq_inv).flip(0)  # low-to-high band order
+        _inference_only("MFFR", (("dtype", self.dtype, "f32"),), x,
+                        self.ca.conv_du[0].weight)
+        freq = split_freq(x, self.freq_inv, _compute_dtype(self.dtype)) \
+            .flip(0)  # low-to-high band order
         enhanced_sum = raw_sum = out_sum = None
         for i, de in enumerate(self.DivEnh_block):
             fo = de(freq[i]) if i == 0 else de(freq[i], raw_sum, enhanced_sum)
             raw_sum = freq[i] if raw_sum is None else raw_sum + freq[i]
             enhanced_sum = fo if enhanced_sum is None else enhanced_sum + fo
             out_sum = fo if out_sum is None else out_sum + fo
-        return self.ca(out_sum) + x
+        return self.ca(out_sum).to(x.dtype) + x
 
 
 class FCVSRNet(nn.Module):
@@ -215,18 +272,26 @@ class FCVSRNet(nn.Module):
 
     * ``batch_mgaa``: MGAA(f1) and MGAA(f3) run as one call at batch 2B,
       with MGAA's ``batch_fb`` (exact);
-    * ``tail_impl``: 'xla' or 'folded', the upsampling tail with upconv2
-      and conv_last0 folded over the pixel shuffles (``ops.psfold``), all
-      at (H, W) (exact up to summation order);
-    * ``k_fused``, ``iac_chain`` ('periter' or 'resident') and
-      ``iac_dtype`` ('f32' or 'bf16'): MGAA's;
+    * ``tail_impl``: 'xla', 'folded' (the upsampling tail with upconv2
+      and conv_last0 folded over the pixel shuffles, ``ops.psfold``, all
+      at (H, W)) or 'folded_pb' (the fold with upconv2 as four per-phase
+      2x2 convs in phase-blocked channels and conv_last0 tap-major, where
+      the folded upconv2 kernel is 3x3, the full topology; elsewhere the
+      dense fold); all exact up to summation order;
+    * ``k_fused``, ``iac_chain`` ('periter' or 'resident'), ``iac_dtype``
+      and ``head_dtype`` ('f32' or 'bf16'): MGAA's;
+    * ``mffr_dtype`` ('f32' or 'bf16'): MFFR's ``dtype``;
+    * ``tail_dtype`` ('f32' or 'bf16'): SCNet's outputs and every map of
+      the upsampling tail through ``conv_last0`` stored and computed in
+      bf16 (weights float32, cast where used); ``conv_last0`` then runs
+      K3 on bf16 maps, the folded convs in bf16;
     * ``scnet_dtype`` ('f32' or 'bf16', the storage of SCNet's maps; it
       stands for the JAX package's ``scnet_impl='rows_bf16'``, since the
       port has no rows layout) and ``scnet_fuse`` ('pair' or 'quad'):
       SCNet's ``dtype`` and ``fuse`` (``models.scnet_rows``).
 
-    ``k_fused``, ``iac_chain='resident'``, ``scnet_fuse='quad'`` and bf16
-    storage are serving flags: they raise under autograd."""
+    ``k_fused``, ``iac_chain='resident'``, ``scnet_fuse='quad'`` and the
+    bf16 types are serving flags: they raise under autograd."""
 
     def __init__(self, n_feats: int = 64, in_channels: int = 1, ac_ks: int = 3,
                  ac_num: int = 6, freq_inv: int = 8, sc_groups: int = 10,
@@ -234,7 +299,8 @@ class FCVSRNet(nn.Module):
                  batch_mgaa: bool = False, tail_impl: str = "xla",
                  iac_chain: str = "periter", iac_dtype: str = "f32",
                  scnet_dtype: str = "f32", scnet_fuse: str = "pair",
-                 device=None):
+                 head_dtype: str = "f32", mffr_dtype: str = "f32",
+                 tail_dtype: str = "f32", device=None):
         super().__init__()
         _check_tail_scnet(tail_impl, scnet_dtype, scnet_fuse)
         nf = n_feats
@@ -245,7 +311,7 @@ class FCVSRNet(nn.Module):
         self.lrelu = PReLU()
         self.MGAA = MGAA(nf, ac_ks, ac_num, k_fused=k_fused,
                          batch_fb=batch_mgaa, iac_chain=iac_chain,
-                         iac_dtype=iac_dtype)
+                         iac_dtype=iac_dtype, head_dtype=head_dtype)
         self.rconcat1 = Conv2d(nf, nf, 3, stride=2)
         self.rconcat2 = Conv2d(nf, nf, 3, stride=2)
         self.recorb1 = SCNet(nf, sc_groups, fuse=scnet_fuse,
@@ -258,10 +324,27 @@ class FCVSRNet(nn.Module):
         self.upconv1 = Conv2d(nf, nf * 4, ks)
         self.upconv2 = Conv2d(nf, nf * 4, ks)
         self.conv_last0 = Conv2d(nf, in_channels, 3)
-        self.MFFRblock = MFFR(nf, freq_inv)
+        self.MFFRblock = MFFR(nf, freq_inv, mffr_dtype)
         self.upconv_fuse = Conv2d(nf + nf // 4 + nf // 16, nf, 3)
+        self.tail_dtype = tail_dtype
         if device is not None:
             self.to(device)
+
+    # the tail's convs, which ``tail_dtype`` sets (conv_last0 runs K3 on
+    # its input's storage, or is folded)
+    _TAIL = ("upconv1_L3", "upconv1_L2", "upconv1_L2_2", "upconv_fuse",
+             "recorb0", "upconv1", "upconv2")
+
+    @property
+    def tail_dtype(self) -> str:
+        return self._tail_dtype
+
+    @tail_dtype.setter
+    def tail_dtype(self, value: str) -> None:
+        _check_dtype("tail_dtype", value)
+        self._tail_dtype = value
+        for name in self._TAIL:
+            set_compute_dtype(getattr(self, name), _compute_dtype(value))
 
     @classmethod
     def small(cls, in_channels: int = 1, **kw):
@@ -289,6 +372,11 @@ class FCVSRNet(nn.Module):
         dec1 = self.rconcat1(dec)
         dec2 = self.rconcat2(dec1)
         l1, l2, l3 = self.recorb1([dec, dec1, dec2])
+        _inference_only("FCVSRNet", (("tail_dtype", self.tail_dtype, "f32"),),
+                        l1, self.upconv1.weight)
+        td = _compute_dtype(self.tail_dtype)
+        if td is not None:
+            l1, l2, l3 = l1.to(td), l2.to(td), l3.to(td)
 
         lrelu = self.lrelu
         out_l3 = lrelu(self.upconv1_L3(l3))
@@ -299,19 +387,28 @@ class FCVSRNet(nn.Module):
             out_l2 + self.upconv1_L2_2(torch.cat([out_l2, out_l3_1], -1)))
         fuse = torch.cat([l1, out_l2, out_l3_2], -1)
         fuse = self.recorb0(self.upconv_fuse(fuse))
-        if self.tail_impl == "folded":
+        if self.tail_impl in ("folded", "folded_pb"):
             # upconv1 -> lrelu -> folded upconv2 -> lrelu -> doubly folded
             # conv_last0, all at (H, W), then both shuffles (the PReLU has
             # one slope, so it commutes with a shuffle)
             w2, b2, wl, bl = self.folded_tail()
-            up = lrelu(_conv_nhwc(lrelu(self.upconv1(fuse)), w2, b2))
-            out = pixel_shuffle(pixel_shuffle(_conv_nhwc(up, wl, bl)))
+            a = lrelu(self.upconv1(fuse))
+            if self.tail_impl == "folded_pb" and w2.shape[0] == 3:
+                # phase-blocked: four 2x2 convs, their block layout taken
+                # by conv_last0's weight, which runs tap-major
+                up = lrelu(conv_folded_phase2_blocked(a, w2, b2))
+                perm = torch.from_numpy(block_to_interleaved_perm(
+                    w2.shape[3])).to(wl.device)
+                y16 = conv_folded_tapmajor(up, wl[:, :, perm], bl)
+            else:
+                y16 = _conv_nhwc(lrelu(_conv_nhwc(a, w2, b2)), wl, bl)
+            out = pixel_shuffle(pixel_shuffle(y16))
         else:
             up = lrelu(pixel_shuffle(self.upconv1(fuse)))
             up = lrelu(pixel_shuffle(self.upconv2(up)))
             last = self.conv_last0
             out = conv3x3(up.contiguous(), hwio(last), conv_bias(last))
-        out = out + resize_bilinear(center, 4 * h, 4 * w)
+        out = out.float() + resize_bilinear(center, 4 * h, 4 * w)
         return out.permute(0, 3, 1, 2)
 
     def serving_flags(self) -> dict:
@@ -320,7 +417,9 @@ class FCVSRNet(nn.Module):
         return dict(batch_mgaa=self.batch_mgaa, k_fused=m.k_fused,
                     tail_impl=self.tail_impl, iac_chain=m.iac_chain,
                     iac_dtype=m.iac_dtype, scnet_dtype=sc.dtype,
-                    scnet_fuse=sc.fuse)
+                    scnet_fuse=sc.fuse, head_dtype=m.head_dtype,
+                    mffr_dtype=self.MFFRblock.dtype,
+                    tail_dtype=self.tail_dtype)
 
     def set_serving_flags(self, **flags) -> dict:
         """Set serving flags in place, checked as the constructor checks
@@ -333,11 +432,16 @@ class FCVSRNet(nn.Module):
         _check_tail_scnet(new["tail_impl"], new["scnet_dtype"],
                           new["scnet_fuse"])
         _check_iac(new["k_fused"], new["iac_chain"], new["iac_dtype"])
+        for name in ("head_dtype", "mffr_dtype", "tail_dtype"):
+            _check_dtype(name, new[name])
         m, sc = self.MGAA, self.recorb1
         self.batch_mgaa, self.tail_impl = new["batch_mgaa"], new["tail_impl"]
         m.batch_fb, m.k_fused = new["batch_mgaa"], new["k_fused"]
         m.iac_chain, m.iac_dtype = new["iac_chain"], new["iac_dtype"]
         sc.dtype, sc.fuse = new["scnet_dtype"], new["scnet_fuse"]
+        m.head_dtype, self.MFFRblock.dtype = new["head_dtype"], \
+            new["mffr_dtype"]
+        self.tail_dtype = new["tail_dtype"]
         return old
 
     def folded_tail(self):
@@ -358,8 +462,9 @@ class FCVSRNet(nn.Module):
 
 
 def _check_tail_scnet(tail_impl, scnet_dtype, scnet_fuse):
-    if tail_impl not in ("xla", "folded"):
-        raise ValueError(f"tail_impl is 'xla' or 'folded', not {tail_impl!r}")
+    if tail_impl not in ("xla", "folded", "folded_pb"):
+        raise ValueError(f"tail_impl is 'xla', 'folded' or 'folded_pb', not "
+                         f"{tail_impl!r}")
     if scnet_dtype not in STORAGE or scnet_fuse not in ("pair", "quad"):
         raise ValueError(f"scnet_dtype is 'f32' or 'bf16' and scnet_fuse "
                          f"'pair' or 'quad', not {scnet_dtype!r} and "
@@ -376,10 +481,31 @@ def _fold_tail(w2, b2, wl, bl):
 
 
 def _conv_nhwc(x, w_hwio, bias):
-    """SAME, stride-1 conv of an NHWC map with an HWIO weight."""
-    y = F.conv2d(x.permute(0, 3, 1, 2), w_hwio.permute(3, 2, 0, 1), bias,
+    """SAME, stride-1 conv of an NHWC map with an HWIO weight, in x's
+    type."""
+    y = F.conv2d(x.permute(0, 3, 1, 2),
+                 w_hwio.permute(3, 2, 0, 1).to(x.dtype), bias.to(x.dtype),
                  padding=w_hwio.shape[0] // 2)
     return y.permute(0, 2, 3, 1)
+
+
+def fcvsr_etc_forward(model: FCVSRNet, clip: torch.Tensor):
+    """Temporal-consistency mode (the JAX package's ``fcvsr_etc_forward``,
+    reference ``GShiftNet_ETC``): a (B, 13, C, H, W) clip -> (out, base),
+    each (B, 7, C, 4H, 4W).  The 7 overlapping windows of the model's 7
+    frames go through the model as one batch (window-major on the batch
+    axis, where the JAX package vmaps them); ``base`` is the bilinear x4
+    resize of each window's centre frame."""
+    b, frames, c, h, w = clip.shape
+    t = model.num_frames
+    n = frames - t + 1
+    if n < 1:
+        raise ValueError(f"a clip of {frames} frames holds no window of {t}")
+    windows = torch.cat([clip[:, i:i + t] for i in range(n)])
+    out = model(windows).reshape(n, b, c, 4 * h, 4 * w).transpose(0, 1)
+    centre = clip[:, t // 2:t // 2 + n].reshape(b * n, c, h, w)
+    base = resize_bilinear(centre.permute(0, 2, 3, 1), 4 * h, 4 * w)
+    return out, base.permute(0, 3, 1, 2).reshape(b, n, c, 4 * h, 4 * w)
 
 
 @torch.no_grad()

@@ -9,7 +9,11 @@
   concentric Gaussian rings built on a 1024 x 1024 grid, bicubic-resized to
   (H, W) with torch, applied to the 2-D spectrum.
 
-All transforms are ``torch.fft`` in float32 / complex64.
+All transforms are ``torch.fft`` in float32 / complex64.  ``compute_dtype``
+(:func:`rfft_features`, :func:`split_freq`; the serving flags
+``head_dtype`` and ``mffr_dtype``) stores the packed spectra or the bands
+in that type: ``torch.fft`` has no bf16 transform, so bf16 is storage only
+(the JAX package's bf16 DFT matmuls are a TPU choice).
 """
 
 from __future__ import annotations
@@ -25,9 +29,10 @@ __all__ = ["rfft_features", "irfft_features", "gaussian_band_masks",
            "split_freq"]
 
 
-def rfft_features(x: torch.Tensor, groups: int = 1) -> torch.Tensor:
+def rfft_features(x: torch.Tensor, groups: int = 1,
+                  compute_dtype=None) -> torch.Tensor:
     """(B, H, W, C) real -> (B, H, W//2+1, 2C), channels [imag, real] per
-    group of C/groups channels."""
+    group of C/groups channels, in ``compute_dtype`` (None: x's type)."""
     c = x.shape[-1]
     if c % groups:
         raise ValueError(f"C={c} is not a multiple of groups={groups}")
@@ -37,7 +42,7 @@ def rfft_features(x: torch.Tensor, groups: int = 1) -> torch.Tensor:
     parts = []
     for i in range(groups):
         parts += [im[..., i * g:(i + 1) * g], re[..., i * g:(i + 1) * g]]
-    return torch.cat(parts, dim=-1).to(x.dtype)
+    return torch.cat(parts, dim=-1).to(compute_dtype or x.dtype)
 
 
 def irfft_features(xf: torch.Tensor, h: int, w: int) -> torch.Tensor:
@@ -87,11 +92,13 @@ def _masks_on(num_bands: int, h: int, w: int, device: torch.device):
     return shifted.to(device)
 
 
-def split_freq(x: torch.Tensor, num_bands: int) -> torch.Tensor:
+def split_freq(x: torch.Tensor, num_bands: int,
+               compute_dtype=None) -> torch.Tensor:
     """Split (B, H, W, C) into (K, B, H, W, C) Gaussian frequency bands:
-    band k = real(ifft2(fft2(x) * mask_k))."""
+    band k = real(ifft2(fft2(x) * mask_k)), in ``compute_dtype`` (None: x's
+    type)."""
     b, h, w, c = x.shape
     m = _masks_on(num_bands, h, w, x.device)
     xf = torch.fft.fft2(x.float(), dim=(1, 2))
     prod = xf.unsqueeze(0) * m[:, None, :, :, None]
-    return torch.fft.ifft2(prod, dim=(2, 3)).real.to(x.dtype)
+    return torch.fft.ifft2(prod, dim=(2, 3)).real.to(compute_dtype or x.dtype)

@@ -9,9 +9,14 @@ run that is cut leaves no half-written checkpoint.  Loading uses
 
 Three ways to start a run, as the JAX CLI has them (train.py:473-493):
 auto-resume from the work dir's newest checkpoint; ``--resume-from`` a
-checkpoint (file or directory), full state; ``--load-from`` weights only,
-from a port ``.pt`` (a state_dict or a checkpoint) or a reference-keyed
-``.npz`` state_dict, with a fresh optimizer at step 0.
+checkpoint (file or directory), full state; ``--load-from`` weights only
+(:func:`load_weights`), with a fresh optimizer at step 0.  The serving CLI
+loads weights the same way (``cli.py --checkpoint`` / ``--torch-checkpoint``).
+
+Weights cross to the JAX package under the reference key names, which are
+the port's own: :func:`export_npz` writes them as the ``.npz`` that
+``fcvsr_tpu.utils.torch_import.convert_torch_state_dict`` (and ``test.py
+--torch-checkpoint``) reads.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "latest_checkpoint", "restore_checkpoint",
-           "load_weights"]
+           "load_weights", "read_weights", "export_npz"]
 
 _CKPT = re.compile(r"^iter_(\d+)\.pt$")
 
@@ -64,21 +69,63 @@ def restore_checkpoint(path: str, state, required: bool = False) -> int:
     return state.step
 
 
-def load_weights(path: str, model: torch.nn.Module) -> None:
-    """Weights only, strict: a port ``.pt`` (a state_dict or a checkpoint's
-    ``model``) or a reference-keyed ``.npz`` state_dict (mmedit's
-    ``generator.`` and DataParallel's ``module.`` prefixes dropped)."""
+def _strip(name: str) -> str:
+    """A reference key without DataParallel's ``module.`` and mmedit's
+    ``generator.`` prefixes (in that order, as
+    ``tools/export_torch_ckpt.py`` strips them)."""
+    for prefix in ("module.", "generator."):
+        if name.startswith(prefix):
+            name = name[len(prefix):]
+    return name
+
+
+def read_weights(path: str) -> dict:
+    """The state_dict in ``path``, on the CPU, under the port's (the
+    reference's) key names.
+
+    * ``.npz``: a reference-keyed state_dict (``tools/export_torch_ckpt.py``
+      or :func:`export_npz`).
+    * Anything else goes through ``torch.load(weights_only=True)``: a port
+      checkpoint (its ``model``), a port or reference state_dict, mmcv's
+      ``{"state_dict": ..., "meta": ...}`` with the ``generator.`` prefix,
+      or DataParallel's ``module.`` prefix.  Entries that are not tensors
+      are dropped.  A file that needs more than ``weights_only`` (pickled
+      objects) is refused: it is not loaded again without it."""
     if path.endswith(".npz"):
-        sd = {}
         with np.load(path) as arrays:
-            for key in arrays.files:
-                name = key
-                for prefix in ("generator.", "module."):
-                    if name.startswith(prefix):
-                        name = name[len(prefix):]
-                sd[name] = torch.from_numpy(np.asarray(arrays[key], np.float32))
-    else:
-        sd = torch.load(path, map_location="cpu", weights_only=True)
-        if "model" in sd and "step" in sd:
-            sd = sd["model"]
-    model.load_state_dict(sd, strict=True)
+            return {_strip(k): torch.from_numpy(np.asarray(arrays[k],
+                                                           np.float32))
+                    for k in arrays.files}
+    try:
+        raw = torch.load(path, map_location="cpu", weights_only=True)
+    except Exception as e:
+        raise ValueError(
+            f"{path} does not load with torch.load(weights_only=True), the "
+            f"only way this reads a checkpoint ({type(e).__name__}: "
+            f"{str(e).splitlines()[0] if str(e) else ''})") from e
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path} holds a {type(raw).__name__}, not a "
+                         "state_dict")
+    if "model" in raw and "step" in raw:
+        raw = raw["model"]
+    elif isinstance(raw.get("state_dict"), dict):
+        raw = raw["state_dict"]
+    sd = {_strip(k): v for k, v in raw.items() if isinstance(v, torch.Tensor)}
+    if not sd:
+        raise ValueError(f"no tensors found in {path}")
+    return sd
+
+
+def load_weights(path: str, model: torch.nn.Module) -> None:
+    """Weights only, strict: :func:`read_weights` of ``path`` into
+    ``model``."""
+    model.load_state_dict(read_weights(path), strict=True)
+
+
+def export_npz(model: torch.nn.Module, path: str) -> str:
+    """Write ``model``'s state_dict as a float32 ``.npz`` under its
+    (reference) key names, the form ``convert_torch_state_dict`` reads.
+    Returns the path."""
+    np.savez(path, **{k: v.detach().float().cpu().numpy()
+                      for k, v in model.state_dict().items()})
+    return path if path.endswith(".npz") else path + ".npz"

@@ -3,7 +3,11 @@ CPU (the kernels themselves run only on a GPU:
 tests/test_torch_kernels_gpu.py).
 
 * ``ops.psfold``: the folds against the JAX ones, 1x1 and 3x3, bit for bit
-  (they only move values) and at 1e-6.
+  (they only move values) and at 1e-6; the phase-split convs, the block
+  permutation and the tap-major conv against the JAX ones at 1e-5 (convs
+  that sum in other orders), and ``tail_impl='folded_pb'`` on the full
+  topology (3x3 upsampling convs) against the JAX model's unfolded tail at
+  1e-4.
 * The resident IAC chain's plain version against the JAX resident chain in
   interpret mode, with |flow| <= 1 px where its radius-2 window is exact:
   1e-4 in float32, as tests/test_torch_kernels.py holds the per-iteration
@@ -19,7 +23,9 @@ tests/test_torch_kernels_gpu.py).
   ``batch_mgaa`` and the folded tail (exact paths) at 1e-4, the bar of
   tests/test_parity_torch.py; the bf16 flags within the JAX package's
   --fast bars (max 0.02, mean 2e-3; tests/test_inference_precision.py) of
-  the port's float32 path and of the JAX model.
+  the port's float32 path and of the JAX model: each bf16 type alone
+  (``head_dtype``, ``mffr_dtype``, ``tail_dtype``) and the whole
+  ``cli.FAST``, the JAX ``--fast`` set.
 * Every flag leaves the state_dict as it is; the serving flags raise under
   autograd, and the resident chain with k_fused raises.
 """
@@ -34,6 +40,7 @@ from fcvsr_tpu.models import FCVSRNet as JFCVSRNet
 from fcvsr_tpu.ops.pallas_conv import (conv3x3_quad_rows, pad_to_rows,
                                        prep_weight, rows_to_nhwc)
 from fcvsr_tpu.ops.pallas_iac import iac_fused_resident as j_resident
+from fcvsr_tpu.ops import psfold as j_psfold
 from fcvsr_tpu.ops.psfold import fold_ps_bias as j_fold_bias
 from fcvsr_tpu.ops.psfold import fold_ps_conv as j_fold_conv
 from fcvsr_tpu.ops.sac import iac as j_iac
@@ -41,6 +48,7 @@ from fcvsr_tpu.utils.torch_import import convert_torch_state_dict
 from fcvsr_tpu_torch import cli
 from fcvsr_tpu_torch.models import FCVSRNet, init_weights
 from fcvsr_tpu_torch.ops import fused_conv, fused_iac, launch_counts
+from fcvsr_tpu_torch.ops import psfold
 from fcvsr_tpu_torch.ops.psfold import fold_ps_bias, fold_ps_conv
 from fcvsr_tpu_torch.ops.sac import iac
 
@@ -57,9 +65,22 @@ EXACT_FLAGS = {
                 scnet_fuse="quad"),
 }
 BF16_FLAGS = {
+    "head_dtype": dict(head_dtype="bf16"),
+    "mffr_dtype": dict(mffr_dtype="bf16"),
+    "tail_dtype": dict(tail_dtype="bf16"),
     "fast": cli.FAST,
     "fast resident quad": cli.serving_flags(True, "resident", "quad"),
 }
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """Torch on one thread: under the suite's workers its thread pools
+    oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _t(a):
@@ -79,6 +100,71 @@ def test_fold_ps_matches_jax(k, cin, cout):
                                rtol=0, atol=1e-6)
     np.testing.assert_allclose(fold_ps_bias(_t(b), 2).numpy(),
                                np.asarray(j_fold_bias(b, 2)), rtol=0, atol=1e-6)
+
+
+def test_fast_is_the_jax_fast_set():
+    """test.py:183-187's flags, under the port's names (its scnet_dtype
+    stands for scnet_impl='rows_bf16'; warp_impl='pallas' is the port's
+    kernels, always on)."""
+    assert cli.FAST == dict(batch_mgaa=True, k_fused=True, tail_impl="folded",
+                            iac_dtype="bf16", scnet_dtype="bf16",
+                            head_dtype="bf16", mffr_dtype="bf16")
+
+
+@pytest.mark.parametrize("cin,cout", [(8, 12), (5, 4)])
+def test_phase_split_convs_match_jax(cin, cout):
+    rng = np.random.default_rng(cin)
+    # a fold reads the pre-shuffle map: 4 Cin channels
+    x = rng.standard_normal((2, 7, 9, 4 * cin)).astype(np.float32)
+    w3 = rng.standard_normal((3, 3, cin, cout)).astype(np.float32) * 0.2
+    b3 = rng.standard_normal(cout).astype(np.float32)
+    fk, fb = j_fold_conv(w3, 2), j_fold_bias(b3, 2)
+    fk_t, fb_t = _t(fk), _t(fb)
+    for name in ("conv_folded_phase2", "conv_folded_phase2_blocked"):
+        ref = np.asarray(getattr(j_psfold, name)(jnp.asarray(x), fk, fb))
+        got = getattr(psfold, name)(_t(x), fk_t, fb_t).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5, err_msg=name)
+    perm = psfold.block_to_interleaved_perm(4 * cout)
+    np.testing.assert_array_equal(perm, j_psfold.block_to_interleaved_perm(
+        4 * cout))
+    # the blocked layout read through the permutation is the interleaved
+    inter = psfold.conv_folded_phase2(_t(x), fk_t, fb_t)
+    blocked = psfold.conv_folded_phase2_blocked(_t(x), fk_t, fb_t)
+    np.testing.assert_array_equal(blocked.numpy(), inter[..., perm].numpy())
+    # tap-major: the doubly folded last conv (S 3) and a 1x1 fold (S 1)
+    for k in (3, 1):
+        wl = rng.standard_normal((k, k, 4 * cin, 3)).astype(np.float32) * 0.2
+        bl = rng.standard_normal(3).astype(np.float32)
+        ref = np.asarray(j_psfold.conv_folded_tapmajor(
+            jnp.asarray(x), jnp.asarray(wl), jnp.asarray(bl)))
+        got = psfold.conv_folded_tapmajor(_t(x), _t(wl), _t(bl)).numpy()
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_phase_blocked_tail_matches_jax_unfolded():
+    """The full topology at a reduced width (3x3 upsampling convs, so
+    folded_pb takes the phase split) against the JAX model's xla tail, and
+    the port's own three tails against each other."""
+    reduced = dict(n_feats=16, ac_num=2, freq_inv=2, sc_groups=1)
+    x = np.random.default_rng(15).uniform(0, 1, (1, 7, 1, 12, 16))
+    x = x.astype(np.float32)
+    model = init_weights(FCVSRNet(in_channels=1, **reduced),
+                         torch.Generator().manual_seed(15)).eval()
+    jm = JFCVSRNet(in_channels=1, **reduced)
+    params = convert_torch_state_dict(
+        {k: v.numpy() for k, v in model.state_dict().items()},
+        jax.eval_shape(jm.init, jax.random.PRNGKey(0), jnp.asarray(x)))
+    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    outs = {}
+    with torch.no_grad():
+        for impl in ("folded_pb", "folded", "xla"):
+            model.set_serving_flags(tail_impl=impl)
+            outs[impl] = model(torch.from_numpy(x)).numpy()
+    assert model.folded_tail()[0].shape[0] == 3
+    np.testing.assert_allclose(outs["folded_pb"], ref, rtol=0, atol=ATOL)
+    for impl in ("folded", "xla"):
+        np.testing.assert_allclose(outs["folded_pb"], outs[impl], rtol=0,
+                                   atol=1e-5, err_msg=impl)
 
 
 def _chain_inputs(seed, b, h, w, c, ac, flow):
@@ -219,6 +305,9 @@ def test_serving_flags_raise_under_autograd_and_resident_kf_raises():
         0, 1, (1, 7, 1, 8, 8)).astype(np.float32))
     for flags, what in ((dict(iac_chain="resident"), "MGAA"),
                         (dict(iac_dtype="bf16"), "MGAA"),
+                        (dict(head_dtype="bf16"), "MGAA"),
+                        (dict(mffr_dtype="bf16"), "MFFR"),
+                        (dict(tail_dtype="bf16"), "FCVSRNet"),
                         (dict(scnet_fuse="quad"), "SCNet"),
                         (dict(scnet_dtype="bf16"), "SCNet")):
         model = FCVSRNet.small(n_feats=16, **flags)

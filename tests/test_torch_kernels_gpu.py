@@ -66,7 +66,9 @@ import numpy as np
 import pytest
 import torch
 
-from fcvsr_tpu_torch.models import BACKBONES, FCVSRNet, build, init_weights
+from fcvsr_tpu_torch import cli
+from fcvsr_tpu_torch.models import (BACKBONES, FCVSRNet, build,
+                                    fcvsr_etc_forward, init_weights, tiled_sr)
 from fcvsr_tpu_torch.models.basicvsr import ModulatedDeformConv2d
 from fcvsr_tpu_torch.ops import fused_conv, fused_dcn, fused_iac, launch_counts
 from fcvsr_tpu_torch.ops.dcn import (modulated_deform_conv2d,
@@ -868,11 +870,10 @@ def test_serving_kernels_raise_under_autograd(cuda):
 FAST_SETS = {
     "exact flags": dict(batch_mgaa=True, tail_impl="folded",
                         iac_chain="resident", scnet_fuse="quad"),
-    "fast": dict(batch_mgaa=True, k_fused=True, tail_impl="folded",
-                 iac_dtype="bf16", scnet_dtype="bf16"),
-    "fast resident quad": dict(batch_mgaa=True, tail_impl="folded",
-                               iac_chain="resident", scnet_fuse="quad",
-                               iac_dtype="bf16", scnet_dtype="bf16"),
+    "fast": cli.FAST,
+    "fast resident quad": cli.serving_flags(True, "resident", "quad"),
+    "tail bf16": dict(tail_dtype="bf16"),
+    "tail bf16 folded_pb": dict(tail_dtype="bf16", tail_impl="folded_pb"),
 }
 
 
@@ -881,9 +882,10 @@ def test_small_model_serving_flags_gpu_match_cpu(cuda, name):
     """FCVSR-S under each serving flag set on the card against the same
     model on the CPU: 1e-4 for the exact flags (as the flagless model),
     the JAX package's --fast bars for bf16 (max 0.02, mean 2e-3); the
-    launches of a forward: 2 MGAA calls x 2 directions x 3 iterations (or
-    4 chains), 2 x 3 x 3 pairs a group (or half as many quads), 3 group
-    convs a group, conv_last0 folded into the tail."""
+    launches of a forward: 3 MGAA calls (2 with batch_mgaa) x 2 directions
+    x 3 iterations (or 4 chains), 2 x 3 x 3 pairs a group (or half as many
+    quads), 3 group convs a group, and conv_last0 (on bf16 maps under
+    tail_dtype) unless it is folded into the tail."""
     flags = FAST_SETS[name]
     model = init_weights(FCVSRNet.small(in_channels=1, **flags),
                          torch.Generator().manual_seed(0)).eval()
@@ -898,10 +900,13 @@ def test_small_model_serving_flags_gpu_match_cpu(cuda, name):
     n = {k: after[k] - before[k] for k in after}
     resident = flags.get("iac_chain") == "resident"
     quad = flags.get("scnet_fuse") == "quad"
+    calls = 2 if flags.get("batch_mgaa") else 3
+    folded = flags.get("tail_impl", "xla") != "xla"
     want = dict.fromkeys(n, 0)
-    want.update(iac=0 if resident else 12, iac_chain=4 if resident else 0,
+    want.update(iac=0 if resident else calls * 6,
+                iac_chain=4 if resident else 0,
                 conv3x3_pair=0 if quad else 72, conv3x3_quad=36 if quad else 0,
-                conv3x3=12)
+                conv3x3=12 if folded else 13)
     assert n == want, n
     d = (got - ref).abs()
     if "bf16" in flags.values():
@@ -1187,3 +1192,83 @@ def test_probe_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     assert (conv2.im2col.launches, conv2.dma_window.launches) == n0
     with pytest.raises(RuntimeError, match="invalid argument"):
         dma.dma_serial(torch.zeros(1, 18, 3, 5, device=cuda), 16)
+
+
+# the batches the serving modes put through the kernels: ETC's 7 windows
+# and tiled serving's 15 tiles of a 540x960 frame (K1 and K4 take twice as
+# many under batch_mgaa)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [7, 15])
+def test_kernels_at_serving_batches(cuda, b, dtype):
+    """K1 (both modes), K2, K3, K4 and K6 at batch 7 and 15 against their
+    plain versions, at a small odd shape (tiles cut at both edges, an
+    8-channel block cut short)."""
+    h, w, c, ac = 11, 23, 20, 2
+    x = _rand(cuda, 140, b, h, w, c).to(dtype)
+    fin = _rand(cuda, 141, b, h, w, c).to(dtype)
+    k = _rand(cuda, 142, b, h, w, ac * 3 * c, scale=0.3).to(dtype)
+    offs = torch.stack([_flows(cuda, 143 + i, b, h, w, 1.5)
+                        for i in range(ac)])
+    f0 = _rand(cuda, 146, b, h, w, 24).to(dtype)
+    wsel = _rand(cuda, 147, 24, ac * 3 * c, scale=0.2)
+    bsel = _rand(cuda, 148, ac * 3 * c, scale=0.1)
+    _assert_close_as(fused_iac.warp_sac_fused(x, offs[1], k, fin, True, 1),
+                     fused_iac.warp_sac_plain(x, offs[1], k, fin, True, 1),
+                     2e-5)
+    _assert_close_as(
+        fused_iac.warp_sac_fused_kf(x, offs[0], f0, wsel, bsel, fin, False, 1),
+        fused_iac.warp_sac_plain(x, offs[0], fused_iac.predict_kernels(
+            f0, wsel, bsel, 1, c), fin, False), 2e-5)
+    _assert_close_as(fused_iac.iac_fused_resident(fin, k, offs, ac),
+                     fused_iac.iac_chain_plain(fin, k, offs, ac), CHAIN_RTOL)
+    chans = (c, 40, c, c, c)
+    ws = [_rand(cuda, 150 + i, 3, 3, ci, co, scale=0.1)
+          for i, (ci, co) in enumerate(zip(chans, chans[1:]))]
+    bs = [_rand(cuda, 155 + i, co, scale=0.1) for i, co in
+          enumerate(chans[1:])]
+    args = [t for pair in zip(ws, bs) for t in pair]
+    _assert_close_as(fused_conv.conv3x3_pair(x, *args[:4], 0.1),
+                     fused_conv.conv3x3_pair_plain(x, *args[:4], 0.1), 1e-4)
+    for got, ref in zip(fused_conv.conv3x3_quad(x, *args),
+                        fused_conv.conv3x3_quad_plain(x, *args)):
+        _assert_close_as(got, ref, 1e-4)
+    _assert_close_as(fused_conv.conv3x3(x, ws[2], bs[2], res=fin),
+                     fused_conv.conv3x3_plain(x, ws[2], bs[2], res=fin), 1e-4)
+
+
+@pytest.mark.parametrize("cout", [1, 3])
+def test_conv_last0_narrow_kernel_on_bf16_maps(cuda, cout):
+    """K3's narrow variant (Cout <= 8) as conv_last0 runs it under
+    tail_dtype='bf16': 64 bf16 channels in, Y or RGB out in bf16, at an
+    upsampled shape (4 x an odd LR size)."""
+    x = _bf16(_rand(cuda, 160, 1, 4 * 9, 4 * 13, 64))
+    wt = _rand(cuda, 161, 3, 3, 64, cout, scale=0.05)
+    bias = _rand(cuda, 162, cout, scale=0.1)
+    n0 = fused_conv.conv3x3.launches
+    got = fused_conv.conv3x3(x, wt, bias)
+    assert fused_conv.conv3x3.launches == n0 + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 36, 52, cout)
+    _assert_close_as(got, fused_conv.conv3x3_plain(x, wt, bias), 1e-4)
+
+
+def test_serving_modes_gpu_match_cpu(cuda):
+    """fcvsr_etc_forward (13 frames, the 7 windows as one batch) and
+    tiled_sr (4 tiles of 32, overlap 8) of FCVSR-S on the card against the
+    same calls on the CPU, at 1e-3, as chip_smoke.py holds the model."""
+    model = init_weights(FCVSRNet.small(in_channels=1),
+                         torch.Generator().manual_seed(6)).eval()
+    rng = np.random.default_rng(23)
+    clip = torch.from_numpy(rng.uniform(0, 1, (1, 13, 1, 12, 20))
+                            .astype(np.float32))
+    win = rng.uniform(0, 1, (7, 1, 48, 44)).astype(np.float32)
+    with torch.no_grad():
+        ref = fcvsr_etc_forward(model, clip)
+        ref_tiles = tiled_sr(model, win, tile=32, overlap=8, device="cpu")
+        model.to(cuda)
+        got = fcvsr_etc_forward(model, clip.to(cuda))
+        got_tiles = tiled_sr(model, win, tile=32, overlap=8)
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape == (1, 7, 1, 48, 80)
+        assert float((g.cpu() - r).abs().max()) <= 1e-3
+    assert got_tiles.shape == ref_tiles.shape == (1, 1, 192, 176)
+    assert float(np.abs(got_tiles - ref_tiles).max()) <= 1e-3
