@@ -54,11 +54,13 @@ Phases, one line or more each:
      (1, 7, 1, 64, 96) (also under each serving flag set: the exact flags,
      ``--fast``, ``--fast`` with the resident chain and the quad) and
      ``loss.backward()``'s gradients at (1, 7, 1, 32,
-     48), per parameter tensor; EDVR-M and BasicVSR++ at full width, with
-     their offset convs seeded non-zero, the output at (1, 5, 3, 64, 96) and
-     the DCN launches per forward; and ``VideoRestorer.loss_fn``'s
-     gradients at (1, 5, 3, 64, 64) per parameter tensor, beside the CPU's
-     own floor, with the K7 and K8 launches;
+     48), per parameter tensor; the zoo (EDVR-M, BasicVSR++, BasicVSR,
+     IconVSR, TDAN) at full width, with their offset convs seeded
+     non-zero, the output at (1, 5, 3, 64, 96) (TDAN's aligned frames
+     too) and the DCN launches per forward; and the DCN models' training
+     loss gradients (``VideoRestorer.loss_fn``; TDAN's SR centre frame) at
+     (1, 5, 3, 64, 64) per parameter tensor, beside the CPU's own floor,
+     with the K7 and K8 launches;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM; ``--no-tof``), with the kernel launch counts per frame checked,
@@ -78,16 +80,20 @@ Phases, one line or more each:
      272, overlap 32, one batched forward, against the whole-frame
      forward), with ms, peak memory and launches;
   5. zoo serving: ``apis.restoration_video_inference`` restores a synthetic
-     10-frame RGB clip with EDVR-M (180x320, 5-frame windows) and BasicVSR++
-     (192x320, the whole clip in one recurrent forward); shapes, finite
-     values and DCN launches per forward, checked; ms per restored frame
-     (``cli.fps_benchmark``) and peak memory;
-  6. zoo training: ``VideoRestorer`` trains EDVR-M (4 windows of 5 frames)
-     and BasicVSR++ (1 sequence of 30 frames, SPyNet frozen by fix_iter)
-     on 64x64 LR patches that ``ClipFolderDataset`` samples from a
-     synthetic RGB clip, Adam (0.9, 0.999), Charbonnier-mean: 1 warm-up and
-     5 timed steps, the losses, ms per step, peak memory and K7 / K8
-     launches per step, checked, SPyNet unmoved and every other tensor
+     10-frame RGB clip with EDVR-M (180x320, 5-frame windows), BasicVSR++,
+     BasicVSR and IconVSR (192x320, the whole clip in one recurrent
+     forward; IconVSR's keyframes 0, 5 and 9), and TDAN its forward a
+     5-frame window (180x320); shapes, finite values and DCN launches per
+     forward, checked; ms per restored frame (``cli.fps_benchmark``) and
+     peak memory;
+  6. zoo training: ``VideoRestorer`` trains EDVR-M (4 windows of 5 frames),
+     BasicVSR++ (1 sequence of 30 frames), BasicVSR and IconVSR (1
+     sequence of 15 frames), SPyNet and IconVSR's refill extractor frozen
+     by fix_iter, and TDAN its own step (4 windows of 5 frames), on 64x64
+     LR patches that ``ClipFolderDataset`` samples from a synthetic RGB
+     clip, Adam (0.9, 0.999), Charbonnier-mean: 1 warm-up and 5 timed
+     steps, the losses, ms per step, peak memory and K7 / K8 launches per
+     step, checked, the frozen tensors unmoved and every other tensor
      moved; then one ``torch.profiler`` step each (device time by kernel,
      idle share);
   7. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
@@ -96,7 +102,16 @@ Phases, one line or more each:
      losses, ms per step, peak memory and launch counts per step, checked;
      then ``cli --checkpoint`` serves that checkpoint directory on the
      clip: frame 0's SR the loaded model's forward, not the seed's, PSNR,
-     SSIM and tOF finite, tOF's host seconds printed;
+     SSIM and tOF finite, tOF's host seconds printed; then the Vimeo
+     recipe (preset fcvsr_vimeoLD_QP22, RGB, batch 2, 64x64 LR patches)
+     through the same CLI on a synthetic Vimeo-90K tree with its meta
+     file, 5 steps, ``--val-lr-root`` / ``--val-gt-root`` with
+     eval_interval 2, ``--tensorboard`` and ``--fast``: losses, ms per
+     step, the eval PSNRs and CSV rows, the event file, and the launches
+     of the steps and the eval forwards, checked; then the whole model in
+     bf16 (``utils.precision.bf16_apply``) at 1 x 7 x 1 x 272 x 480
+     against the exact path at the --fast bars, its launches (K1, K2, K3
+     on bf16 maps) checked, both timed in turns with their peaks;
   7b. the BlockRCB A/B (``python -m
      fcvsr_tpu_torch.benchmarks.microbench_blockrcb_kernel``) at 272x480x64
      with C1 64 and 128: K11 against the unfused path, both timed, their
@@ -115,8 +130,9 @@ Phases, one line or more each:
      hold wgmma (HGMMA) and TMA tensor loads (UTMALDG) and no mma.sync or
      ldmatrix, the window kernel's six instantiations TMA tensor loads,
      the copy kernel TMA bulk copies (UBLKCP), and none cp.async (LDGSTS);
-  8. a JSON line of the kernels (launches from the run of the path that
-     launches each: FCVSR training for FCVSR's, fast serving with the
+  8. the seconds each phase took, a JSON line of the kernels (launches
+     from the run of the path that launches each: FCVSR training for
+     FCVSR's, fast serving with the
      resident chain and the quad for K4 and K6, zoo training for K7 and K8,
      the BlockRCB A/B for K11, the probe for K12, the probes' entry points
      for K9 and K10; each kernel's least time on the card from its bytes
@@ -205,8 +221,22 @@ ZOO_T = 10  # frames of the zoo's serving clip
 def dcn_per_forward(model: str, t: int) -> int:
     """DCN launches a forward of t frames: EDVR's levels 3, 2, 1 and the
     cascade, once each (T folded into the batch); BasicVSR++'s 4 branches
-    at every frame but the first of each."""
-    return 4 if model == "EDVRNet" else 4 * (t - 1)
+    at every frame but the first of each; BasicVSR none; IconVSR the 4 of
+    its refill's PCD (EDVR's) at each keyframe, every ICON_STRIDE frames
+    and the last; TDAN its 4 DCNv1s, the 4 neighbours one batch."""
+    if model == "EDVRNet" or model == "TDANNet":
+        return 4
+    if model == "BasicVSRNet":
+        return 0
+    if model == "IconVSR":
+        keys = set(range(0, t, ICON_STRIDE)) | {t - 1}
+        return 4 * len(keys)
+    return 4 * (t - 1)
+
+
+ICON_STRIDE = 5  # IconVSR's keyframe stride (mmedit's iconvsr_reds4)
+# the zoo the smoke serves and trains: the DCN models, then BasicVSR
+ZOO = ("EDVRNet", "BasicVSRPlusPlus", "BasicVSRNet", "IconVSR", "TDANNet")
 
 
 KERNELS = {
@@ -738,34 +768,37 @@ def phase_kernels(torch, dev):
     # window, 64 -> 64, 8 deform groups) and its training batch (4 windows
     # of 5 frames at 64x64), BasicVSR++'s alignment (128 -> 64, 16 groups),
     # serving 192x320 and training 64x64 (the shape of its 116 launches a
-    # step), offsets mixed as the flows above; without a mask; at small odd
-    # shapes (a group width of 3 reads scalars).  Work: x, offsets, mask and
+    # step), offsets mixed as the flows above; without a mask; TDAN's DCNv1
+    # (64 -> 64, 8 groups, no mask, no bias) at its serving batch (the 4
+    # neighbours of a 180x320 window); at small odd shapes (a group width
+    # of 3 reads scalars).  Work: x, offsets, mask and
     # weights read, out written; 2 flops a multiply-add of the 9 * Cin *
     # Cout contraction and 8 a sampled value (4 corner products and their
     # sum, the weights), at the bf16 tensor cores' rate (the contraction's),
     # the float32 pipes' beside.  The yardstick beside it is cuDNN's conv of
     # the same shapes, the zero-offset special case
-    for (b, h, w, cin, cout, dg, with_mask, timed) in (
-            (5, 180, 320, 64, 64, 8, True, True),
-            (1, 192, 320, 128, 64, 16, True, True),
-            (1, 64, 64, 128, 64, 16, True, True),
-            (20, 64, 64, 64, 64, 8, True, True),
-            (2, 64, 96, 64, 64, 8, False, False),
-            (2, 13, 29, 24, 40, 3, True, False),
-            (1, 5, 7, 8, 70, 1, True, False),
-            (2, 9, 11, 6, 20, 2, True, False)):
+    for (b, h, w, cin, cout, dg, with_mask, timed, bias) in (
+            (5, 180, 320, 64, 64, 8, True, True, True),
+            (1, 192, 320, 128, 64, 16, True, True, True),
+            (1, 64, 64, 128, 64, 16, True, True, True),
+            (20, 64, 64, 64, 64, 8, True, True, True),
+            (4, 180, 320, 64, 64, 8, False, True, False),
+            (2, 64, 96, 64, 64, 8, False, False, True),
+            (2, 13, 29, 24, 40, 3, True, False, True),
+            (1, 5, 7, 8, 70, 1, True, False, True),
+            (2, 9, 11, 6, 20, 2, True, False, True)):
         x = t(rng.standard_normal((b, h, w, cin)))
         off = t(mixed_flows(rng, b, h, w, dg * 18))
         mask = t(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg * 9))))) \
             if with_mask else None
         wd = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
-        bd = t(rng.standard_normal(cout) * 0.1)
+        bd = t(rng.standard_normal(cout) * 0.1) if bias else None
         px = b * h * w
         work = (4 * (px * (cin + dg * 18 + (dg * 9 if with_mask else 0)
-                           + cout) + 9 * cin * cout + cout),
+                           + cout) + 9 * cin * cout + (cout if bias else 0)),
                 px * 9 * cin * (2 * cout + 8), BF16_FLOP_S)
         check("dcn", f"{b}x{h}x{w} {cin}->{cout} dg{dg} "
-              f"{'v2' if with_mask else 'v1'}",
+              f"{'v2' if with_mask else 'v1'}{'' if bias else ' no bias'}",
               lambda: fused_dcn.modulated_deform_conv2d_fused(
                   x, off, mask, wd, bd, deform_groups=dg),
               lambda: modulated_deform_conv2d(x, off, mask, wd, bd,
@@ -808,6 +841,7 @@ def phase_dcn_bwd(torch, dev):
             ("BasicVSR++ serving", 1, 192, 320, 128, 64, 16, True, True),
             ("EDVR-M l1 training", 20, 64, 64, 64, 64, 8, True, True),
             ("BasicVSR++ training", 1, 64, 64, 128, 64, 16, True, True),
+            ("TDAN training, no bias", 16, 64, 64, 64, 64, 8, False, True),
             ("v1", 2, 64, 96, 64, 64, 8, False, False),
             ("odd", 2, 13, 29, 24, 40, 3, True, False),
             ("odd", 1, 5, 7, 8, 70, 1, True, False),
@@ -817,7 +851,8 @@ def phase_dcn_bwd(torch, dev):
         mask = t(1 / (1 + np.exp(-rng.standard_normal((b, h, w, dg * 9))))) \
             if with_mask else None
         wd = t(rng.standard_normal((3, 3, cin, cout)) / np.sqrt(9 * cin))
-        bd = t(rng.standard_normal(cout) * 0.1)
+        bd = None if label.startswith("TDAN") else \
+            t(rng.standard_normal(cout) * 0.1)
         g = t(rng.standard_normal((b, h, w, cout)))
 
         def kern():
@@ -1038,14 +1073,16 @@ def phase_model(torch, dev):
 
 
 def zoo_model(torch, name: str):
-    """EDVR-M or BasicVSR++ at mmedit's published widths, seeded weights,
-    every DCN's last offset conv drawn non-zero (it is zero-initialised,
-    which would leave the DCN a plain conv): EDVR's offsets +-3 px about
-    zero, BasicVSR++'s residues 10 * tanh(+-1.5) about the flows."""
+    """A zoo model at mmedit's published widths, seeded weights, every DCN's
+    last offset conv drawn non-zero (it is zero-initialised, which would
+    leave the DCN a plain conv): offsets +-3 px about zero (EDVR, IconVSR's
+    refill, TDAN), BasicVSR++'s residues 10 * tanh(+-1.5) about the
+    flows.  IconVSR's keyframes every ICON_STRIDE frames."""
     from fcvsr_tpu_torch.models import BACKBONES, build, init_weights
     from fcvsr_tpu_torch.models.basicvsr import ModulatedDeformConv2d
 
-    model = init_weights(build(BACKBONES, dict(type=name)),
+    kw = dict(keyframe_stride=ICON_STRIDE) if name == "IconVSR" else {}
+    model = init_weights(build(BACKBONES, dict(type=name, **kw)),
                          torch.Generator().manual_seed(0)).eval()
     gen = torch.Generator().manual_seed(1)
     with torch.no_grad():
@@ -1055,31 +1092,41 @@ def zoo_model(torch, name: str):
                         if isinstance(m, torch.nn.Conv2d)][-1]
                 last.weight.normal_(0, 0.3 / math.sqrt(last.weight[0].numel()),
                                     generator=gen)
-                last.bias.normal_(0, 3.0 if name == "EDVRNet" else 1.5,
-                                  generator=gen)
+                last.bias.normal_(0, 1.5 if name == "BasicVSRPlusPlus"
+                                  else 3.0, generator=gen)
     return model
 
 
+def zoo_sr(out):
+    """The SR of a zoo forward: TDAN returns (SR centre, aligned LRs)."""
+    return out[0] if isinstance(out, tuple) else out
+
+
 def phase_zoo_models(torch, dev):
-    """EDVR-M and BasicVSR++, the GPU (the DCN kernel) against the same
-    model on the CPU (the plain DCN), with the launches per forward."""
+    """The zoo at full width, the GPU (the DCN kernel) against the same
+    model on the CPU (the plain DCN), with the launches per forward (TDAN:
+    both of its outputs)."""
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
 
     x = np.random.default_rng(5).uniform(0, 1, (1, 5, 3, 64, 96))
     x = torch.from_numpy(x.astype(np.float32))
-    for name in ("EDVRNet", "BasicVSRPlusPlus"):
+    for name in ZOO:
         model = zoo_model(torch, name)
         with torch.no_grad():
             ref = model(x)
             model.to(dev)
             reset_launch_counts()
-            got = model(x.to(dev)).cpu()
+            got = model(x.to(dev))
             launches = launch_counts()["dcn"]
-        err = float((got - ref).abs().max())
-        say("model", model=name, shape=list(got.shape), max_abs_err=err,
+        pairs = list(zip(got, ref)) if isinstance(ref, tuple) \
+            else [(got, ref)]
+        err = max(float((g.cpu() - r).abs().max()) for g, r in pairs)
+        shape = list(zoo_sr(got).shape)
+        say("model", model=name, shape=shape, max_abs_err=err,
             tol=MODEL_ATOL, dcn_launches=launches)
-        if not (torch.isfinite(got).all() and got.shape == ref.shape):
-            fail(f"{name}: output shape {got.shape} or non-finite values")
+        if not all(torch.isfinite(g).all() and g.shape == r.shape
+                   for g, r in pairs):
+            fail(f"{name}: output shape {shape} or non-finite values")
         if not err <= MODEL_ATOL:
             fail(f"{name}: GPU vs CPU model error {err} > {MODEL_ATOL}")
         if launches != dcn_per_forward(name, 5):
@@ -1103,32 +1150,62 @@ def smooth_clip(torch, seed: int, n: int, h: int, w: int) -> np.ndarray:
     return np.stack(frames).astype(np.float32)
 
 
+# the zoo's serving shapes: (h, w) and the window (0: the whole clip in
+# one recurrent forward)
+ZOO_SERVE = {"EDVRNet": ((180, 320), 5), "BasicVSRPlusPlus": ((192, 320), 0),
+             "BasicVSRNet": ((192, 320), 0), "IconVSR": ((192, 320), 0),
+             "TDANNet": ((180, 320), 5)}
+
+
+def serve_windows(torch, model, frames: np.ndarray, window: int):
+    """TDAN's serving: each frame the SR centre of its ``window`` frames
+    (replicate-padded at the clip's ends), one forward a frame; its
+    forward's pair is what ``apis.restoration_video_inference`` does not
+    take."""
+    from fcvsr_tpu_torch.data.pipelines import padded_window_indices
+
+    t = frames.shape[0]
+    outs = []
+    with torch.no_grad():
+        for i in range(t):
+            idx = padded_window_indices(i, t, window)
+            x = torch.from_numpy(np.ascontiguousarray(np.transpose(
+                frames[idx], (0, 3, 1, 2))[None])).to("cuda")
+            outs.append(zoo_sr(model(x))[0].permute(1, 2, 0).cpu().numpy())
+    return np.stack(outs)
+
+
 def phase_zoo(torch, card):
-    """Zoo serving: a synthetic 10-frame RGB clip restored through
-    ``apis.restoration_video_inference`` by EDVR-M (5-frame windows) and
-    BasicVSR++ (the whole clip), then ms per restored frame."""
+    """Zoo serving: a synthetic 10-frame RGB clip restored by each zoo
+    model, through ``apis.restoration_video_inference`` (EDVR-M in 5-frame
+    windows; BasicVSR++, BasicVSR and IconVSR the whole clip) or its own
+    forward a window (TDAN), then ms per restored frame."""
     from fcvsr_tpu_torch import apis, cli
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
 
     counts = {}
-    for name, (h, w), window in (("EDVRNet", (180, 320), 5),
-                                 ("BasicVSRPlusPlus", (192, 320), 0)):
+    for name in ZOO:
+        (h, w), window = ZOO_SERVE[name]
         model = zoo_model(torch, name).to("cuda")
         frames = smooth_clip(torch, 6, ZOO_T, h, w)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
-        out = apis.restoration_video_inference(model, frames,
-                                               window_size=window)
+        if name == "TDANNet":
+            out = serve_windows(torch, model, frames, window)
+        else:
+            out = apis.restoration_video_inference(model, frames,
+                                                   window_size=window)
         torch.cuda.synchronize()
         counts[name] = launch_counts()
         peak = torch.cuda.max_memory_allocated()
         forwards = ZOO_T if window else 1
         t = window or ZOO_T
         per_forward = counts[name]["dcn"] / forwards
-        fps = cli.fps_benchmark(model, h, w, c=3, t=t,
-                                frames_per_forward=1 if window else t,
-                                n_iter=10 if window else 5)
+        with torch.no_grad():
+            fps = cli.fps_benchmark(model, h, w, c=3, t=t,
+                                    frames_per_forward=1 if window else t,
+                                    n_iter=10 if window else 5)
         fps["fps_max_memory_allocated"] = fps.pop("max_memory_allocated")
         say("zoo", model=name, clip=[ZOO_T, h, w, 3], window=window,
             out_shape=list(out.shape), forwards=forwards,
@@ -1148,12 +1225,26 @@ def phase_zoo(torch, card):
     return {k: sum(c[k] for c in counts.values()) for k in counts["EDVRNet"]}
 
 
-def phase_zoo_grads(torch, dev):
-    """EDVR-M and BasicVSR++ at full width, ``VideoRestorer.loss_fn``'s
-    gradients (Charbonnier-mean) on the card (K7 forward, K8 backward)
-    against the CPU (plain versions), per parameter tensor, beside the CPU's
-    own floor (the same step with the input moved by 1e-6 of itself)."""
+def zoo_loss(torch, model, name: str, lq, gt):
+    """The zoo's training loss, Charbonnier-mean: ``VideoRestorer.loss_fn``
+    (EDVR on the centre frame of a 5-D GT), or for TDAN, which the
+    restorer does not take, its SR centre frame against the GT's."""
     from fcvsr_tpu_torch.models import VideoRestorer
+    from fcvsr_tpu_torch.train.losses import LOSSES
+
+    if name == "TDANNet":
+        if gt.ndim == 5:
+            gt = gt[:, gt.shape[1] // 2]
+        return LOSSES["charbonnier_mean"](zoo_sr(model(lq)), gt)
+    return VideoRestorer(model, center_frame_only=name == "EDVRNet") \
+        .loss_fn(lq, gt)[0]
+
+
+def phase_zoo_grads(torch, dev):
+    """The DCN models of the zoo at full width, their training loss's
+    gradients on the card (K7 forward, K8 backward) against the CPU (plain
+    versions), per parameter tensor, beside the CPU's own floor (the same
+    step with the input moved by 1e-6 of itself)."""
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
 
     rng = np.random.default_rng(8)
@@ -1163,14 +1254,14 @@ def phase_zoo_grads(torch, dev):
                           .astype(np.float32))
     moved = x * (1 + 1e-6 * torch.from_numpy(
         rng.standard_normal(x.shape).astype(np.float32)))
-    for name in ("EDVRNet", "BasicVSRPlusPlus"):
+    for name in ("EDVRNet", "BasicVSRPlusPlus", "IconVSR", "TDANNet"):
         model = zoo_model(torch, name).train()
-        restorer = VideoRestorer(model, center_frame_only=name == "EDVRNet")
 
         def grads(inp, device):
             model.zero_grad(set_to_none=True)
             model.to(device)
-            restorer.loss_fn(inp.to(device), gt.to(device))[0].backward()
+            zoo_loss(torch, model, name, inp.to(device),
+                     gt.to(device)).backward()
             return {k: None if p.grad is None else p.grad.cpu()
                     for k, p in model.named_parameters()}
 
@@ -1216,20 +1307,42 @@ def write_rgb_clip(torch, root: str, n: int, h: int, w: int):
 
 # the recipes' per-GPU batches: mmedit's edvrm_x4_g8_600k_reds (4 windows
 # of 5 frames, centre GT) and basicvsr_plusplus_c64n7_8x1_600k_reds4 (1
-# sequence of 30 frames, per-frame GT, SPyNet frozen for 5000 steps); LR
-# patches of 64; Adam (0.9, 0.999), Charbonnier-mean
+# sequence of 30 frames, per-frame GT, SPyNet frozen for 5000 steps);
+# BasicVSR and IconVSR 1 sequence of 15 frames, their SPyNet (and
+# IconVSR's refill extractor) frozen for 5000 steps, as basicvsr_reds4 and
+# iconvsr_reds4 freeze them; TDAN 4 windows of 5 frames, centre GT, as
+# the JAX package's TDAN step trains it; LR patches of 64; Adam (0.9,
+# 0.999), Charbonnier-mean
 ZOO_TRAIN = {
     "EDVRNet": dict(batch=4, frames=5, lr=4e-4, fix_iter=0),
     "BasicVSRPlusPlus": dict(batch=1, frames=30, lr=1e-4, fix_iter=5000),
+    "BasicVSRNet": dict(batch=1, frames=15, lr=2e-4, fix_iter=5000),
+    "IconVSR": dict(batch=1, frames=15, lr=2e-4, fix_iter=5000),
+    "TDANNet": dict(batch=4, frames=5, lr=1e-4, fix_iter=0),
 }
 
 
+def tdan_train_step(torch, model, state):
+    """TDAN's step (``VideoRestorer`` does not take its output pair):
+    forward, the Charbonnier-mean loss of its SR centre frame, backward,
+    one Adam update."""
+
+    def step(lq, gt):
+        state.optimizer.zero_grad(set_to_none=True)
+        loss = zoo_loss(torch, model, "TDANNet", lq, gt)
+        loss.backward()
+        state.apply_gradients()
+        return {"loss": loss.detach()}
+    return step
+
+
 def phase_zoo_train(torch, card):
-    """Training of the zoo on the card through ``VideoRestorer``: batches
-    sampled from a synthetic RGB clip by ``ClipFolderDataset``, 1 warm-up
-    and 5 timed steps, the launches of all 6 checked, SPyNet frozen and
-    every other tensor moving; then one ``torch.profiler`` step.  Returns
-    the launch counts of the 6 steps of both models."""
+    """Training of the zoo on the card through ``VideoRestorer`` (TDAN
+    through its own step): batches sampled from a synthetic RGB clip by
+    ``ClipFolderDataset``, 1 warm-up and 5 timed steps, the launches of
+    all 6 checked, the ``spynet`` and ``edvr`` tensors frozen by fix_iter
+    and every other tensor moving; then one ``torch.profiler`` step.
+    Returns the launch counts of the 6 steps of every model."""
     from fcvsr_tpu_torch import profiling
     from fcvsr_tpu_torch.data import ClipFolderDataset
     from fcvsr_tpu_torch.models import VideoRestorer
@@ -1264,7 +1377,8 @@ def phase_zoo_train(torch, card):
                                      fix_iter=cfg["fix_iter"])
             state = TrainState(model, lambda s, lr=cfg["lr"]: lr,
                                betas=(0.9, 0.999))
-            step = restorer.make_train_step(state)
+            step = restorer.make_train_step(state) if name != "TDANNet" \
+                else tdan_train_step(torch, model, state)
             start = {k: p.detach().clone()
                      for k, p in model.named_parameters()}
             torch.cuda.synchronize()
@@ -1490,6 +1604,171 @@ def phase_train(torch, card):
     if per_step != {k: float(v) for k, v in PER_STEP.items()}:
         fail(f"launches per step {per_step}, expected {PER_STEP}")
     return counts
+
+
+def write_vimeo_tree(torch, root: str, keys: int = 4, h: int = 64,
+                     w: int = 112):
+    """A Vimeo-90K-style tree: ``keys`` septuplets ``lr/0000k/0001/im1..7``
+    of h x w RGB LR frames (the 4x4 block mean of the GT) and their 4h x 4w
+    GT, and a meta-info file listing them as ``meta_info_Vimeo90K_*.txt``
+    does."""
+    from PIL import Image
+
+    rng = np.random.default_rng(12)
+    names = []
+    for k in range(keys):
+        key = f"{k + 1:05d}/0001"
+        names.append(key)
+        for i, frame in enumerate(smooth_clip(torch, 20 + k, 7, 4 * h, 4 * w)):
+            gt = np.clip(frame * 255 + rng.normal(0, 4, frame.shape), 0, 255)
+            lr = gt.reshape(h, 4, w, 4, 3).mean((1, 3))
+            for sub, img in (("lr", lr), ("gt", gt)):
+                d = os.path.join(root, sub, key)
+                os.makedirs(d, exist_ok=True)
+                Image.fromarray(img.astype(np.uint8)).save(
+                    os.path.join(d, f"im{i + 1}.png"))
+    meta = os.path.join(root, "meta_info_Vimeo90K_train_GT.txt")
+    with open(meta, "w") as f:
+        f.write("".join(f"{k} ({4 * h},{4 * w},3)\n" for k in names))
+    return meta
+
+
+# the Vimeo recipe through the CLI (tools/train_FCVSR_Vimeo_LD22.py's
+# preset): FCVSR full, RGB, its batch of 2; LR patches of 64 (Vimeo's LR
+# frames are 64 high; the preset's 128 is REDS's), 5 steps, evaluation
+# every 2 on 8 windows of a 64 x 112 validation clip
+VIMEO_PRESET, VIMEO_STEPS, VIMEO_EVAL = "fcvsr_vimeoLD_QP22", 5, 2
+
+
+def phase_vimeo_train(torch, card):
+    """``train.cli.main`` on a synthetic Vimeo tree through a meta file,
+    with ``--val-lr-root`` / ``--val-gt-root`` (eval every VIMEO_EVAL
+    steps), ``--tensorboard`` and ``--fast``: the losses, ms per step, the
+    eval PSNRs and the CSV's eval rows, the event file (where
+    ``torch.utils.tensorboard`` imports), and the launches: each step's,
+    and each eval window's forward (K1, K2, K3, K5); then one step of the
+    same recipe under ``torch.profiler`` (device time by kernel, idle
+    share)."""
+    import importlib.util
+
+    from fcvsr_tpu_torch import cli, profiling
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.train import cli as train_cli
+    from fcvsr_tpu_torch.train.losses import LOSSES
+    from fcvsr_tpu_torch.train.lr_schedule import build_schedule
+    from fcvsr_tpu_torch.train.trainer import TrainState
+    from fcvsr_tpu_torch.utils.config import preset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = write_vimeo_tree(torch, tmp)
+        val = os.path.join(tmp, "val")
+        write_rgb_clip(torch, val, 10, 64, 112)
+        cfg = preset(VIMEO_PRESET)
+        cfg.train.eval_interval = VIMEO_EVAL
+        cfg.data.lr_patch = 64
+        cfg.work_dir = os.path.join(tmp, "work")
+        path = os.path.join(tmp, "config.json")
+        with open(path, "w") as f:
+            f.write(cfg.to_json())
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out = train_cli.main([
+            "--config", path, "--seed", "0",
+            "--lr-root", os.path.join(tmp, "lr"),
+            "--gt-root", os.path.join(tmp, "gt"), "--meta-file", meta,
+            "--total-iters", str(VIMEO_STEPS),
+            "--val-lr-root", os.path.join(val, "lr"),
+            "--val-gt-root", os.path.join(val, "gt"),
+            "--tensorboard", "--fast"])
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        with open(os.path.join(out["work_dir"], "train_log.csv")) as f:
+            rows = [r for r in f.read().split() if "eval_psnr" in r]
+        events = os.listdir(os.path.join(out["work_dir"], "tb")) \
+            if os.path.isdir(os.path.join(out["work_dir"], "tb")) else []
+        cfg.data.lr_root, cfg.data.gt_root = (os.path.join(tmp, "lr"),
+                                              os.path.join(tmp, "gt"))
+        cfg.data.meta_file = meta
+        lrs, gt = (torch.from_numpy(a).to("cuda") for a in
+                   train_cli.sample_batch(np.random.default_rng(0),
+                                          train_cli.build_dataset(cfg),
+                                          cfg.data.batch_size, 64))
+    model = cli.build_model(cfg, 0, "cuda").train()
+    state = TrainState(model, build_schedule(cfg.train), cfg.train.betas)
+    prof = profiling.train_profile(state, LOSSES[cfg.train.loss], lrs, gt, 1)
+    prof["kernels"] = prof["kernels"][:12]
+    del model, state
+    tb = importlib.util.find_spec("tensorboard") is not None
+    evals = VIMEO_STEPS // VIMEO_EVAL
+    want = {k: VIMEO_STEPS * PER_STEP[k] + 8 * evals * PER_FRAME[k]
+            for k in PER_STEP}
+    ms = out["ms_per_step"]
+    say("vimeo_train", preset=VIMEO_PRESET, batch=cfg.data.batch_size,
+        lr_patch=64, steps=out["step"], losses=out["losses"],
+        warmup_ms=ms[0], ms_per_step=ms, ms_median=float(np.median(ms[1:])),
+        eval_psnr=out["eval_psnr"], csv_eval_rows=rows,
+        tensorboard=tb, event_files=len(events),
+        max_memory_allocated=peak, launches=counts, expected=want,
+        card=card)
+    if out["step"] != VIMEO_STEPS or not all(math.isfinite(v)
+                                             for v in out["losses"]):
+        fail(f"vimeo training: step {out['step']}, losses {out['losses']}")
+    if [s for s, _ in out["eval_psnr"]] != [VIMEO_EVAL * (i + 1)
+                                           for i in range(evals)] or \
+            len(rows) != evals or not all(math.isfinite(v)
+                                          for _, v in out["eval_psnr"]):
+        fail(f"vimeo training: eval {out['eval_psnr']}, CSV rows {rows}")
+    if tb and len(events) != 1:
+        fail(f"vimeo training: {len(events)} TensorBoard event files")
+    if counts != want:
+        fail(f"vimeo training: launches {counts}, expected {want}")
+    say("vimeo_train_profile", preset=VIMEO_PRESET, card=card, **prof)
+    return counts
+
+
+def phase_bf16(torch, card):
+    """The whole model in bf16 (``utils.precision``) at the FPS shape, 1 x
+    7 x 1 x 272 x 480, FCVSR full Y: against the exact path at the --fast
+    bars, its launches a forward (K1, K2, K3 on bf16 maps), and the two
+    timed in turns (``cli.fps_benchmark``, twice each), with their
+    peaks."""
+    from fcvsr_tpu_torch import cli
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.utils.config import preset
+    from fcvsr_tpu_torch.utils.precision import bf16_apply, cast_params
+
+    model = cli.build_model(preset(PRESET), 0, "cuda")
+    m16 = cast_params(model)
+    x = torch.from_numpy(np.random.default_rng(13).uniform(
+        0, 1, (1, 7, 1, 272, 480)).astype(np.float32)).to("cuda")
+    with torch.no_grad():
+        ref = model(x)
+        reset_launch_counts()
+        got = bf16_apply(m16, x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        runs = {"exact": model, "bf16": lambda v: bf16_apply(m16, v)}
+        fps = {k: [] for k in runs}
+        for _ in range(2):
+            for name, fn in runs.items():
+                torch.cuda.empty_cache()
+                fps[name].append(cli.fps_benchmark(fn, n_iter=10))
+    d = (got - ref).abs()
+    dmax, dmean = float(d.max()), float(d.mean())
+    say("bf16", preset=PRESET, shape=list(x.shape), dtype=str(got.dtype),
+        max_abs_dev=dmax, mean_abs_dev=dmean, max_tol=FAST_MAX,
+        mean_tol=FAST_MEAN, launches=counts,
+        ms_per_frame={k: [r["ms_per_frame"] for r in v]
+                      for k, v in fps.items()},
+        max_memory_allocated={k: [r["max_memory_allocated"] for r in v]
+                              for k, v in fps.items()}, card=card)
+    if got.dtype != torch.float32 or not torch.isfinite(got).all():
+        fail(f"bf16: output {got.dtype} or non-finite values")
+    if not (dmax <= FAST_MAX and dmean <= FAST_MEAN):
+        fail(f"bf16: {dmax} max / {dmean} mean from the exact path")
+    if counts != PER_FRAME:
+        fail(f"bf16: launches {counts}, expected {PER_FRAME}")
 
 
 def serve_trained(torch, card, root, ckpt_dir):
@@ -1854,34 +2133,33 @@ def main() -> None:
         fail(f"the DCN kernels' SASS: {dcn_sass}, expected HGMMA and at most "
              f"{DCN_SASS_FFMA_MAX} FFMA in each of 3")
 
-    results = phase_kernels(torch, dev)
-    torch.cuda.empty_cache()
-    results["dcn_bwd"] = phase_dcn_bwd(torch, dev)
-    torch.cuda.empty_cache()
-    phase_conv_grads(torch, dev)
-    torch.cuda.empty_cache()
-    phase_model(torch, dev)
-    torch.cuda.empty_cache()
-    phase_zoo_models(torch, dev)
-    torch.cuda.empty_cache()
-    phase_zoo_grads(torch, dev)
-    torch.cuda.empty_cache()
-    phase_slice(torch, card)
-    torch.cuda.empty_cache()
-    fast_counts = phase_fast(torch, card)
-    torch.cuda.empty_cache()
-    phase_modes(torch, card)
-    torch.cuda.empty_cache()
-    phase_zoo(torch, card)
-    torch.cuda.empty_cache()
-    zoo_counts = phase_zoo_train(torch, card)
-    torch.cuda.empty_cache()
-    train_counts = phase_train(torch, card)
-    torch.cuda.empty_cache()
-    ab_counts = {"blockrcb": phase_blockrcb_ab(torch)}
-    torch.cuda.empty_cache()
-    mb_counts, mb_results = phase_microbench(torch)
+    seconds = {}
+
+    def run(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = time.perf_counter() - t
+        return out
+
+    results = run("kernels", phase_kernels, torch, dev)
+    results["dcn_bwd"] = run("dcn_bwd", phase_dcn_bwd, torch, dev)
+    run("conv_grads", phase_conv_grads, torch, dev)
+    run("model", phase_model, torch, dev)
+    run("zoo_models", phase_zoo_models, torch, dev)
+    run("zoo_grads", phase_zoo_grads, torch, dev)
+    run("slice", phase_slice, torch, card)
+    fast_counts = run("fast", phase_fast, torch, card)
+    run("modes", phase_modes, torch, card)
+    run("zoo", phase_zoo, torch, card)
+    zoo_counts = run("zoo_train", phase_zoo_train, torch, card)
+    train_counts = run("train", phase_train, torch, card)
+    run("vimeo_train", phase_vimeo_train, torch, card)
+    run("bf16", phase_bf16, torch, card)
+    ab_counts = {"blockrcb": run("blockrcb_ab", phase_blockrcb_ab, torch)}
+    mb_counts, mb_results = run("microbench", phase_microbench, torch)
     results.update(mb_results)
+    say("phase_seconds", **seconds)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():

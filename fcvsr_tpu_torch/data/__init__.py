@@ -1,5 +1,6 @@
-"""Data of the port: clip folders, windows, crops and flips (numpy)."""
+"""Data of the port: clip folders, Vimeo-90K septuplets, windows, crops
+and flips (numpy)."""
 
-from .datasets import ClipFolderDataset
+from .datasets import ClipFolderDataset, Vimeo90KDataset
 
-__all__ = ["ClipFolderDataset"]
+__all__ = ["ClipFolderDataset", "Vimeo90KDataset"]

@@ -1,7 +1,12 @@
-"""Paired LR / GT clip folders (the port's own copy of the parts of
-``fcvsr_tpu.data.datasets`` it uses): ``lr_root/{seq}/{frame}.png`` beside
-the same names under ``gt_root``, iterated as test windows or sampled as
-training windows or sequences.  Numpy and PIL only."""
+"""Training and test data (the port's own copy of the parts of
+``fcvsr_tpu.data.datasets`` it uses), numpy and PIL only:
+
+* ``ClipFolderDataset`` - paired LR / GT clip folders,
+  ``lr_root/{seq}/{frame}.png`` beside the same names under ``gt_root``,
+  iterated as test windows or sampled as training windows or sequences.
+* ``Vimeo90KDataset`` - Vimeo-90K septuplets listed by a meta-info file
+  (``meta_info_Vimeo90K_*.txt``, a key ``00001/0001`` a line), each key a
+  folder of 7 frames under both roots, sampled with centre-frame GT."""
 
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ import numpy as np
 from .pipelines import (padded_window_indices, paired_flip_rotate,
                         paired_random_crop, segment_indices, to_float)
 
-__all__ = ["load_image", "ClipFolderDataset"]
+__all__ = ["load_image", "ClipFolderDataset", "Vimeo90KDataset"]
 
 
 def load_image(path: str, grayscale: bool = False) -> np.ndarray:
@@ -101,3 +106,38 @@ class ClipFolderDataset:
         lr, gt = paired_random_crop(rng, lr, gt, lr_patch, self.scale)
         lr, gt = paired_flip_rotate(rng, lr, gt)
         return to_float(lr), to_float(gt)
+
+
+@dataclass
+class Vimeo90KDataset:
+    """Vimeo-90K septuplets through a meta-info list: the first word of
+    each non-blank line of ``meta_file`` is a key, ``lr_root/<key>/`` and
+    ``gt_root/<key>/`` hold its frames (RGB)."""
+
+    lr_root: str
+    gt_root: str
+    meta_file: str
+    scale: int = 4
+
+    def __post_init__(self):
+        with open(self.meta_file) as f:
+            self.keys = [ln.split()[0] for ln in f if ln.strip()]
+
+    def load(self, key: str):
+        """(lr (T, h, w, 3), gt (T, H, W, 3)) uint8 of one septuplet."""
+        lr = np.stack([load_image(p) for p in
+                       _list_frames(os.path.join(self.lr_root, key))])
+        gt = np.stack([load_image(p) for p in
+                       _list_frames(os.path.join(self.gt_root, key))])
+        return lr, gt
+
+    def sample_train(self, rng: np.random.Generator, lr_patch: int = 64):
+        """A random septuplet, an aligned crop and flips, drawn from ``rng``
+        in the JAX package's order.  Returns (lr (T,p,p,3) f32, gt_center
+        (P,P,3) f32) in [0, 1]."""
+        key = self.keys[int(rng.integers(len(self.keys)))]
+        lr, gt = self.load(key)
+        gtc = gt[lr.shape[0] // 2][None]
+        lr, gtc = paired_random_crop(rng, lr, gtc, lr_patch, self.scale)
+        lr, gtc = paired_flip_rotate(rng, lr, gtc)
+        return to_float(lr), to_float(gtc[0])

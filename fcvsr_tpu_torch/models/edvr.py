@@ -1,6 +1,8 @@
 """EDVR (counterpart of ``fcvsr_tpu.models.edvr``): pyramid cascading
 deformable alignment and temporal-spatial attention fusion, with mmedit's
-``EDVRNet`` parameter names.
+``EDVRNet`` parameter names.  ``EDVRFeatureExtractor`` is its trunk up to
+the fusion (IconVSR's refill, ``fcvsr_tpu.models.iconvsr``'s), which
+``EDVRNet`` extends with the reconstruction.
 
 The JAX package vmaps the alignment over the T frames of a window; here T is
 folded into the batch against the reference pyramid repeated T times, so
@@ -19,7 +21,8 @@ from .basicvsr import (ConvModule, MMPixelShufflePack, MMResidualBlock,
                        ModulatedDeformConv2d)
 from .blocks import Conv2d
 
-__all__ = ["EDVRNet", "PCDAlignment", "TSAFusion", "ModulatedDCNPack"]
+__all__ = ["EDVRNet", "EDVRFeatureExtractor", "PCDAlignment", "TSAFusion",
+           "ModulatedDCNPack"]
 
 
 def _lrelu(x):
@@ -150,16 +153,15 @@ class TSAFusion(nn.Module):
         return feat * torch.sigmoid(attn) * 2 + attn_add
 
 
-class EDVRNet(nn.Module):
-    """(B, T, C, H, W) in [0, 1] -> the x4 centre frame (B, C, 4H, 4W); H and
-    W multiples of 4.  The defaults are mmedit's EDVR-M
-    (edvrm_x4_g8_600k_reds); the fusion is always TSA, as there."""
+class EDVRFeatureExtractor(nn.Module):
+    """EDVR's trunk up to its TSA fusion (mmedit iconvsr.py:269-382, where
+    IconVSR refills from it): (B, T, H, W, C) channels-last -> the centre
+    frame's aligned and fused features (B, H, W, mid); H and W multiples
+    of 4."""
 
-    def __init__(self, in_channels: int = 3, out_channels: int = 3,
-                 mid_channels: int = 64, num_frames: int = 5,
+    def __init__(self, mid_channels: int = 64, num_frames: int = 5,
                  deform_groups: int = 8, num_blocks_extraction: int = 5,
-                 num_blocks_reconstruction: int = 10,
-                 center_frame_idx: int = 2):
+                 center_frame_idx: int = 2, in_channels: int = 3):
         super().__init__()
         mid = mid_channels
         self.mid_channels, self.center_frame_idx = mid, center_frame_idx
@@ -172,6 +174,35 @@ class EDVRNet(nn.Module):
         self.feat_l3_conv2 = ConvModule(mid, mid, 3)
         self.pcd_alignment = PCDAlignment(mid, deform_groups)
         self.fusion = TSAFusion(mid, num_frames, center_frame_idx)
+
+    def forward(self, x):
+        b, t, h, w, c = x.shape
+        ci = self.center_frame_idx
+        l1 = self.feature_extraction(_lrelu(self.conv_first(
+            x.reshape(b * t, h, w, c))))
+        l2 = self.feat_l2_conv2(self.feat_l2_conv1(l1))
+        l3 = self.feat_l3_conv2(self.feat_l3_conv1(l2))
+        nbr = [l1, l2, l3]
+        # each window's centre level, repeated for its T frames
+        refs = [f.reshape((b, t) + f.shape[1:])[:, ci:ci + 1]
+                .expand((b, t) + f.shape[1:]).reshape(f.shape) for f in nbr]
+        aligned = self.pcd_alignment(nbr, refs)
+        return self.fusion(aligned.reshape(b, t, h, w, self.mid_channels))
+
+
+class EDVRNet(EDVRFeatureExtractor):
+    """(B, T, C, H, W) in [0, 1] -> the x4 centre frame (B, C, 4H, 4W); H and
+    W multiples of 4.  The defaults are mmedit's EDVR-M
+    (edvrm_x4_g8_600k_reds); the fusion is always TSA, as there."""
+
+    def __init__(self, in_channels: int = 3, out_channels: int = 3,
+                 mid_channels: int = 64, num_frames: int = 5,
+                 deform_groups: int = 8, num_blocks_extraction: int = 5,
+                 num_blocks_reconstruction: int = 10,
+                 center_frame_idx: int = 2):
+        super().__init__(mid_channels, num_frames, deform_groups,
+                         num_blocks_extraction, center_frame_idx, in_channels)
+        mid = mid_channels
         self.reconstruction = nn.Sequential(
             *[MMResidualBlock(mid) for _ in range(num_blocks_reconstruction)])
         self.upsample1 = MMPixelShufflePack(mid, mid, 2, 3)
@@ -181,20 +212,10 @@ class EDVRNet(nn.Module):
 
     def forward(self, x):
         b, t, c, h, w = x.shape
-        mid, ci = self.mid_channels, self.center_frame_idx
-        xs = x.permute(0, 1, 3, 4, 2).reshape(b * t, h, w, c)
-        l1 = self.feature_extraction(_lrelu(self.conv_first(xs)))
-        l2 = self.feat_l2_conv2(self.feat_l2_conv1(l1))
-        l3 = self.feat_l3_conv2(self.feat_l3_conv1(l2))
-        nbr = [l1, l2, l3]
-        # each window's centre level, repeated for its T frames
-        refs = [f.reshape((b, t) + f.shape[1:])[:, ci:ci + 1]
-                .expand((b, t) + f.shape[1:]).reshape(f.shape) for f in nbr]
-        aligned = self.pcd_alignment(nbr, refs).reshape(b, t, h, w, mid)
-        out = self.reconstruction(self.fusion(aligned))
+        out = self.reconstruction(super().forward(x.permute(0, 1, 3, 4, 2)))
         out = _lrelu(self.upsample1(out))
         out = _lrelu(self.upsample2(out))
         out = self.conv_last(_lrelu(self.conv_hr(out)))
-        center = x[:, ci].permute(0, 2, 3, 1)
+        center = x[:, self.center_frame_idx].permute(0, 2, 3, 1)
         out = out + resize_bilinear(center, 4 * h, 4 * w)
         return out.permute(0, 3, 1, 2)

@@ -208,7 +208,10 @@ class MGAA(nn.Module):
                                  ("iac_dtype", self.iac_dtype, "f32"),
                                  ("head_dtype", self.head_dtype, "f32")),
                         f0, wsel)
-        st = STORAGE[self.iac_dtype]
+        # the chain's storage: iac_dtype's, or bf16 where the whole model
+        # runs in bf16 (utils.precision)
+        st = torch.bfloat16 if x.dtype == torch.bfloat16 \
+            else STORAGE[self.iac_dtype]
         if self.k_fused:
             k_parts = (f0.to(st).contiguous(), wsel_t, bsel)
             pred_k = None
@@ -516,8 +519,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     residual blocks the reference re-initialises (SCNet's BlockRCB and its
     RCB, mmedit's ResidualBlockNoBN) get kaiming-normal x 0.1 with zero
     bias, which keeps deep stacks stable; a deformable conv gets
-    U(+-1/sqrt(fan_in)), a zero bias and a zero last offset conv (zero
-    offsets, mask 0.5); PReLU slopes are 0.25 and DivEnh keeps a = 0,
+    U(+-1/sqrt(fan_in)), a zero bias (if it has one) and a zero last offset
+    conv (zero offsets, mask 0.5); PReLU slopes are 0.25 and DivEnh keeps a = 0,
     b = 1."""
     scaled, zeroed = set(), set()
     for mod in model.modules():
@@ -537,7 +540,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             elif isinstance(mod, ModulatedDeformConv2d):
                 wt.copy_((torch.rand(wt.shape, generator=generator) * 2 - 1)
                          * fan_in ** -0.5)
-                mod.bias.zero_()
+                if mod.bias is not None:
+                    mod.bias.zero_()
             elif id(mod) in scaled:
                 std = (2.0 / fan_in) ** 0.5 * 0.1
                 wt.copy_(torch.randn(wt.shape, generator=generator) * std)

@@ -11,9 +11,11 @@
   within a bound that ``overlap`` >= 32 keeps in the ``--fast`` class.
 
 Both take and return numpy arrays, move the inputs to ``device`` (the
-model's, CUDA by default; no fallback) and run without autograd.  Not
-ported: the JAX package's ``bf16=True`` (the whole model in bf16, its
-``utils.precision.bf16_apply``) and ``mesh=`` (tiles spread over devices).
+model's, CUDA by default; no fallback) and run without autograd.
+``sliding_window_sr(bf16=True)`` runs the whole model in bf16
+(``utils.precision.bf16_apply`` on a cast copy of the model), as the JAX
+package's does.  Not ported: ``tiled_sr``'s ``mesh=`` (tiles spread over
+devices).
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data.pipelines import padded_window_indices
+from ..utils.precision import bf16_apply, cast_params
 
 __all__ = ["sliding_window_sr", "tiled_sr"]
 
@@ -29,18 +32,20 @@ SCALE = 4
 
 
 @torch.no_grad()
-def _forward(model, x: np.ndarray, device) -> np.ndarray:
-    return model(torch.from_numpy(np.ascontiguousarray(x, np.float32))
-                 .to(device)).float().cpu().numpy()
+def _forward(model, x: np.ndarray, device, bf16: bool = False) -> np.ndarray:
+    x = torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    out = bf16_apply(model, x) if bf16 else model(x)
+    return out.float().cpu().numpy()
 
 
 def sliding_window_sr(model, clip: np.ndarray, window: int = 7,
                       batch_windows: int = 8, padding: str = "replicate",
-                      device="cuda") -> np.ndarray:
+                      device="cuda", bf16: bool = False) -> np.ndarray:
     """clip: (T, H, W, C) float32 in [0, 1] -> (T, 4H, 4W, C).  Each frame's
     window of ``window`` frames (edges ``padding``-padded), ``batch_windows``
     windows a forward; the last batch is filled by repeating its last
-    window, as the JAX package fills it."""
+    window, as the JAX package fills it.  ``bf16``: the whole model in
+    bf16, its weights cast once for the clip; the output float32."""
     t = clip.shape[0]
     idx = np.stack([padded_window_indices(i, t, window, padding)
                     for i in range(t)])
@@ -50,7 +55,9 @@ def sliding_window_sr(model, clip: np.ndarray, window: int = 7,
     if pad_to != t:
         windows = np.concatenate(
             [windows, np.repeat(windows[-1:], pad_to - t, axis=0)])
-    out = np.concatenate([_forward(model, windows[s:s + nb], device)
+    if bf16:
+        model = cast_params(model)
+    out = np.concatenate([_forward(model, windows[s:s + nb], device, bf16)
                           for s in range(0, pad_to, nb)])[:t]
     return np.transpose(out, (0, 2, 3, 1))
 

@@ -7,9 +7,11 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from .basicvsr import BasicVSRNet
 from .basicvsr_pp import BasicVSRPlusPlus
 from .edvr import EDVRNet
 from .fcvsr import FCVSRNet
+from .iconvsr import IconVSR, TDANNet
 from .spynet import SpyNet
 
 __all__ = ["Registry", "BACKBONES", "build"]
@@ -44,6 +46,7 @@ def build(registry: Registry, cfg: dict) -> Any:
 
 
 BACKBONES = Registry("backbones")
-for _cls in (FCVSRNet, EDVRNet, BasicVSRPlusPlus, SpyNet):
+for _cls in (FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
+             TDANNet, SpyNet):
     BACKBONES.register_obj(_cls.__name__, _cls)
 BACKBONES.register_obj("FCVSR_SNet", FCVSRNet.small)

@@ -18,7 +18,9 @@ the JAX package's ``scnet_impl='rows_bf16'``): the inputs, every kernel's
 output and each BlockRCB's output are rounded to bf16; the PyTorch ops
 between the kernels (the context block, the 1x1 convs, the bilinear
 exchange, the residual sums) compute in float32 on the widened maps; the
-outputs are float32.  ``fuse='quad'`` and bf16 are serving options: they
+outputs are float32.  bf16 inputs (the whole model in bf16,
+``utils.precision``) take bf16 storage whatever ``dtype`` says, and the
+outputs are bf16.  ``fuse='quad'`` and bf16 are serving options: they
 raise under autograd.
 """
 
@@ -97,7 +99,8 @@ STORAGE = {"f32": torch.float32, "bf16": torch.bfloat16}
 def scnet_apply(scnet, xs, fuse: str = "pair", dtype: str = "f32"):
     """SCNet forward over NHWC [L1, L2, L3] through the conv kernels:
     ``fuse`` 'pair' or 'quad' for the BlockRCB bodies, ``dtype`` 'f32' or
-    'bf16' for the maps between the kernels.  Returns float32 maps."""
+    'bf16' for the maps between the kernels (bf16 inputs: bf16).  Returns
+    maps of the inputs' type."""
     if fuse not in ("pair", "quad") or dtype not in STORAGE:
         raise ValueError(f"fuse is 'pair' or 'quad' and dtype 'f32' or "
                          f"'bf16', not {fuse!r} and {dtype!r}")
@@ -107,7 +110,8 @@ def scnet_apply(scnet, xs, fuse: str = "pair", dtype: str = "f32"):
             f"SCNet(fuse={fuse!r}, dtype={dtype!r}) is inference only: the "
             "quad kernel and bf16 storage have no backward.  Train with "
             "fuse='pair' and dtype='f32', or run under torch.no_grad()")
-    st = STORAGE[dtype]
+    out_dt = xs[0].dtype
+    st = torch.bfloat16 if out_dt == torch.bfloat16 else STORAGE[dtype]
     xs = [x.to(st).contiguous() for x in xs]
     res = list(xs)
     for group in scnet.body:
@@ -116,4 +120,4 @@ def scnet_apply(scnet, xs, fuse: str = "pair", dtype: str = "f32"):
             res = [r.to(st).contiguous() for r in _block_rcb(blk, res, fuse)]
         w, b = hwio(group.conv), conv_bias(group.conv)
         res = [conv3x3(r, w, b, res=x) for x, r in zip(gin, res)]
-    return [x.float() + r.float() for x, r in zip(xs, res)]
+    return [(x.float() + r.float()).to(out_dt) for x, r in zip(xs, res)]

@@ -387,6 +387,14 @@ def require(t, name: str, device: torch.device, shape=None,
             "autograd Functions, or run under torch.no_grad()")
 
 
+def weights_f32(*ts):
+    """The kernels' weights and biases in float32: a bf16 one (the whole
+    model in bf16, ``utils.precision``) cast up, which is exact; None and
+    the others as they are."""
+    return tuple(t.float() if t is not None and t.dtype == torch.bfloat16
+                 else t for t in ts)
+
+
 def storage(t) -> int:
     """The kernels' storage flag of a map: 0 for float32, 1 for bfloat16;
     any other type raises."""

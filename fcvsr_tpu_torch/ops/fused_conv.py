@@ -13,7 +13,8 @@ it runs the plain version, under ordinary autograd.  ``conv3x3.launches``,
 launches.
 
 Storage: the maps (x, res, the outputs, and the pair's intermediate) are
-float32 or bfloat16, weights and biases float32.  The kernels multiply on
+float32 or bfloat16, weights and biases float32 (bf16 ones, from a model
+cast whole to bf16, are cast up at the wrapper: exact).  The kernels multiply on
 the tensor cores, in bf16 parts with float32 sums, within 3 x 2^-16 of
 each product (:func:`conv3x3_emulated`, :func:`conv3x3_pair_emulated`; the
 quad is two pairs).  All round where they store; the plain versions
@@ -233,6 +234,7 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
     :data:`CONV_MAX_CIN` (larger raise).  On a CUDA tensor that autograd
     records it runs :class:`Conv3x3Fn`.  The kernel's products:
     :func:`conv3x3_emulated`."""
+    w_hwio, bias = _native.weights_f32(w_hwio, bias)
     if _native.on_cpu(x):
         return conv3x3_plain(x, w_hwio, bias, res, act, neg_slope)
     if _native.records(x, w_hwio, bias, res):
@@ -274,6 +276,7 @@ def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     and Cout are at most :data:`PAIR_MAX_CHANNELS` (larger raise).  On a
     CUDA tensor that autograd records it runs :class:`Conv3x3PairFn`.
     The kernel's products: :func:`conv3x3_pair_emulated`."""
+    w1, b1, w2, b2 = _native.weights_f32(w1, b1, w2, b2)
     if _native.on_cpu(x):
         return conv3x3_pair_plain(x, w1, b1, w2, b2, ns1)
     if _native.records(x, w1, b1, w2, b2):
@@ -314,6 +317,8 @@ def conv3x3_quad(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1: float = 0.1,
     takes :data:`PAIR_MAX_CHANNELS` (larger raise).  Serving only: it
     raises under autograd.  The kernel's products: two
     :func:`conv3x3_pair_emulated` calls."""
+    w1, b1, w2, b2, w3, b3, w4, b4 = _native.weights_f32(
+        w1, b1, w2, b2, w3, b3, w4, b4)
     if _native.on_cpu(x):
         return conv3x3_quad_plain(x, w1, b1, w2, b2, w3, b3, w4, b4, ns1, ns3)
     if _native.records(x, w1, b1, w2, b2, w3, b3, w4, b4):

@@ -193,7 +193,8 @@ def warp_sac_fused_kf(feat, flow, f0, wsel, bsel, feat_in, act: bool = True,
     f0 . wsel + bsel, computed in the kernel (on the tensor cores:
     :func:`predict_kernels_emulated`).  f0: (B, H, W, C0), a map (feat's
     type); wsel: (C0, n*3C) and bsel: (n*3C,) float32, iteration ``it``'s
-    3C columns used."""
+    3C columns used (bf16 ones cast up: exact)."""
+    wsel, bsel = _native.weights_f32(wsel, bsel)
     c = feat.shape[-1]
     if _native.on_cpu(feat):
         k = predict_kernels(f0, wsel, bsel, it, c)
@@ -420,9 +421,9 @@ def iac_fused_kf(feat_in, f0, wsel, bsel, offsets, ac_num: int,
                  channels: int, act_last: bool = True):
     """IAC chain with fused kernel prediction.  f0: (B, H, W, C0) of
     feat_in's type; wsel: (C0, ac_num*3C) in tap-major column order and
-    bsel: (ac_num*3C,), float32."""
+    bsel: (ac_num*3C,), float32 (bf16 ones cast up once a chain)."""
     feat_in, f0, offsets = _chain_inputs(feat_in, f0, offsets, channels)
-    wsel, bsel = wsel.contiguous(), bsel.contiguous()
+    wsel, bsel = (t.contiguous() for t in _native.weights_f32(wsel, bsel))
     cur = feat_in
     for i in range(ac_num):
         cur = warp_sac_fused_kf(cur, offsets[i], f0, wsel, bsel, feat_in,

@@ -33,6 +33,7 @@ class DataConfig:
     qp: int = 37
     lr_root: str = ""
     gt_root: str = ""
+    meta_file: str = ""           # Vimeo-90K septuplet list (vimeo only)
     lr_patch: int = 128           # LR crop (mmedit: gt_patch 512 -> lq 128)
     batch_size: int = 2
     window_padding: str = "replicate"
@@ -50,6 +51,7 @@ class TrainConfig:
     min_lr: float = 1e-7
     loss: str = "charbonnier_mean"     # charbonnier_mean | charbonnier_sum
     ckpt_interval: int = 5000
+    eval_interval: int = 5000
     log_interval: int = 100
     seed: int = 0
     use_ema: bool = False

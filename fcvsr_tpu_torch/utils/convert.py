@@ -2,8 +2,8 @@
 (counterpart of ``fcvsr_tpu.utils.torch_import``, in the other direction).
 
 FCVSR's names map through :func:`flax_to_torch_key`, the port's own copy of
-the JAX package's key map; the zoo's (EDVR, BasicVSR++, SPyNet) through
-patterns onto mmedit's names.  Kernels and DCN weights go from HWIO to OIHW,
+the JAX package's key map; the zoo's (EDVR, BasicVSR, BasicVSR++, IconVSR,
+TDAN, SPyNet) through patterns onto mmedit's names.  Kernels and DCN weights go from HWIO to OIHW,
 PReLU's ``alpha`` becomes ``weight`` (1,) and DivEnh's ``a``/``b`` become
 (C, 1, 1).
 
@@ -141,6 +141,35 @@ _BASICVSR_PP = _TAIL + [
      rf"deform_align.\1.conv_offset.{2 * i}") for i in range(4)]
 
 
+_SPYNET_IN = [(rf"spynet/{p}", rf"spynet.{t}") for p, t in _SPYNET]
+# BasicVSR's scans name the trunks backward/resblocks, forward/resblocks
+_BASICVSR = _TAIL + _SPYNET_IN + [
+    (r"(backward|forward)/resblocks/input_conv", r"\1_resblocks.main.0"),
+    (r"(backward|forward)/resblocks/block(\d+)/(conv[12])",
+     r"\1_resblocks.main.2.\2.\3"),
+    (r"fusion", "fusion")]
+_ICONVSR = _TAIL + _SPYNET_IN + [
+    (rf"edvr/{p}", rf"edvr.{t}") for p, t in _EDVR[len(_TAIL):]
+    if not p.startswith("recon")] + [
+    (r"(backward|forward)_fusion", r"\1_fusion"),
+    (r"(backward|forward)_resblocks/input_conv", r"\1_resblocks.main.0"),
+    (r"(backward|forward)_resblocks/block(\d+)/(conv[12])",
+     r"\1_resblocks.main.2.\2.\3")]
+_TDAN = [
+    (r"feat_conv", "feat_extract.0.conv"),
+    (r"pre(\d+)/(conv[12])", r"feat_extract.1.\1.\2"),
+    (r"agg_conv", "feat_aggregate.0"),
+    (r"agg_dcn([12])", r"feat_aggregate.\1"),
+    (r"agg_dcn([12])/conv_offset", r"feat_aggregate.\1.conv_offset"),
+    (r"(align_[12])", r"\1"), (r"(align_[12])/conv_offset", r"\1.conv_offset"),
+    (r"to_rgb", "to_rgb"),
+    (r"rec_conv", "reconstruct.0.conv"),
+    (r"post(\d+)/(conv[12])", r"reconstruct.1.\1.\2"),
+    (r"up1/upsample_conv", "reconstruct.2.upsample_conv"),
+    (r"up2/upsample_conv", "reconstruct.3.upsample_conv"),
+    (r"final", "reconstruct.4")]
+
+
 def _zoo_key(patterns, path: str) -> str | None:
     """The port module name of a flax module path, or None."""
     for pat, template in patterns:
@@ -165,12 +194,14 @@ def _zoo_state_dict(tree: Mapping, patterns) -> Dict[str, torch.Tensor]:
 
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """Map a flax FCVSRNet, EDVRNet, BasicVSRPlusPlus or SpyNet param tree
-    (``{'params': ...}`` or its inside, numpy-convertible leaves; the model
-    is told by its top-level names) onto the port's ``state_dict`` keys.
-    Raises ``KeyError`` on a param it cannot map."""
+    """Map a flax FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
+    TDANNet or SpyNet param tree (``{'params': ...}`` or its inside,
+    numpy-convertible leaves; the model is told by its top-level names)
+    onto the port's ``state_dict`` keys.  Raises ``KeyError`` on a param it
+    cannot map."""
     tree = params.get("params", params)
-    for marker, patterns in (("pcd_alignment", _EDVR),
+    for marker, patterns in (("pcd_alignment", _EDVR), ("edvr", _ICONVSR),
+                             ("align_1", _TDAN), ("backward", _BASICVSR),
                              ("spynet", _BASICVSR_PP), ("level0", _SPYNET)):
         if marker in tree:
             return _zoo_state_dict(tree, patterns)

@@ -46,7 +46,12 @@ chain, carried through its iterations), bf16 two bf16 steps of the
 output's magnitude (1.6e-2), since the two versions round at the same
 handoffs but a value within reassociation noise of a rounding boundary
 rounds either way.  FCVSR-S under the serving flags on the card
-against the CPU, with its launches.
+against the CPU, with its launches, and wholly in bf16 (its K1, K2 and K3
+on bf16 maps, the kernels handed bf16 weights equal to the same launches
+on float32 copies, bit for bit).  TDAN's DCNv1 (no mask, no bias, 8
+deform groups) through K7 and K8 at its training batch and at odd frames;
+the small BasicVSR, IconVSR and TDAN on the card against the CPU, with
+their DCN launches, and IconVSR's and TDAN's gradients.
 
 The BlockRCB level (K11: K6's two wgmma phases and the ContextBlock in
 one cooperative launch, bf16 maps) against its plain version at the bf16
@@ -1272,3 +1277,153 @@ def test_serving_modes_gpu_match_cpu(cuda):
         assert float((g.cpu() - r).abs().max()) <= 1e-3
     assert got_tiles.shape == ref_tiles.shape == (1, 1, 192, 176)
     assert float(np.abs(got_tiles - ref_tiles).max()) <= 1e-3
+
+
+# TDAN's DCNv1 (mmcv's DeformConv2dPack): no mask, no bias, 8 deform
+# groups, 64 -> 64; at its training batch (4 neighbours of 4 windows at 64
+# x 64, one batch) and at small odd frames that cut K7's 128-pixel and
+# K8's 64-pixel tiles at the frame's edge, with group widths of 8, 3
+# (scalar corners) and 2
+@pytest.mark.parametrize("b,h,w,cin,cout", [
+    (16, 64, 64, 64, 64), (2, 13, 29, 64, 64), (1, 5, 7, 24, 40),
+    (3, 9, 11, 16, 8)])
+def test_dcnv1_kernels_match_plain(cuda, b, h, w, cin, cout):
+    x, off, _, wt, _, g = _dcn_case(cuda, 170, b, h, w, cin, cout, 8,
+                                    with_mask=False, bias=False)
+    n0 = (fused_dcn.modulated_deform_conv2d_fused.launches,
+          fused_dcn.modulated_deform_conv2d_fused_vjp.launches)
+    got = fused_dcn.modulated_deform_conv2d_fused(x, off, None, wt, None,
+                                                  deform_groups=8)
+    _assert_close(got, modulated_deform_conv2d(x, off, None, wt, None,
+                                               deform_groups=8), 1e-4)
+    grads = fused_dcn.modulated_deform_conv2d_fused_vjp(x, off, None, wt, None,
+                                                        g, deform_groups=8)
+    assert grads[2] is None and grads[4] is None
+    _assert_grads_close(grads, modulated_deform_conv2d_vjp(
+        x, off, None, wt, None, g, 8), 1e-4)
+    assert (fused_dcn.modulated_deform_conv2d_fused.launches,
+            fused_dcn.modulated_deform_conv2d_fused_vjp.launches) == \
+        (n0[0] + 1, n0[1] + 1)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_take_bf16_weights_cast_up(cuda, dtype):
+    """K1 (its fused prediction's Wsel and bias), K2 and K3 handed bf16
+    weights, as a model cast whole to bf16 hands them: the wrappers cast
+    them up to float32, so each launch equals the same launch on float32
+    copies of those weights, bit for bit, on float32 and bf16 maps."""
+    h, w, c, c0 = 11, 23, 16, 12
+    x = _rand(cuda, 180, 1, h, w, c).to(dtype)
+    flow = _flows(cuda, 181, 1, h, w, 1.5)
+    f0 = _rand(cuda, 182, 1, h, w, c0).to(dtype)
+    ws = [_rand(cuda, 183 + i, *s, scale=0.1).bfloat16() for i, s in
+          enumerate(((c0, 3 * c), (3 * c,), (3, 3, c, 24), (24,),
+                     (3, 3, 24, c), (c,)))]
+    up = [t.float() for t in ws]
+    got = fused_iac.warp_sac_fused_kf(x, flow, f0, ws[0], ws[1], x)
+    want = fused_iac.warp_sac_fused_kf(x, flow, f0, up[0], up[1], x)
+    assert torch.equal(got, want)
+    assert torch.equal(fused_conv.conv3x3_pair(x, *ws[2:6], 0.1),
+                       fused_conv.conv3x3_pair(x, *up[2:6], 0.1))
+    assert torch.equal(fused_conv.conv3x3(x, ws[2], ws[3], act=True),
+                       fused_conv.conv3x3(x, up[2], up[3], act=True))
+
+
+def test_small_model_bf16_gpu_matches_cpu(cuda):
+    """FCVSR-S wholly in bf16 (``utils.precision.bf16_apply``) on the card
+    against the same on the CPU, at the --fast bars: K1, K2 and K3 launched
+    on bf16 maps."""
+    from fcvsr_tpu_torch.utils.precision import bf16_apply, cast_params
+
+    model = cast_params(init_weights(FCVSRNet.small(in_channels=1),
+                                     torch.Generator().manual_seed(12))
+                        .eval())
+    x = torch.from_numpy(np.random.default_rng(24).uniform(
+        0, 1, (2, 7, 1, 20, 28)).astype(np.float32))
+    with torch.no_grad():
+        ref = bf16_apply(model, x)
+        before = launch_counts()
+        got = bf16_apply(model.to(cuda), x.to(cuda)).cpu()
+        after = launch_counts()
+    assert all(after[k] > before[k] for k in ("iac", "conv3x3_pair",
+                                               "conv3x3")), (before, after)
+    d = (got - ref).abs()
+    assert got.dtype == torch.float32 and got.shape == (2, 1, 80, 112)
+    assert float(d.max()) < 0.02 and float(d.mean()) < 2e-3
+
+
+# the new zoo models, small, their DCNs' offset convs drawn non-zero: the
+# card against the CPU at 1e-3, with the DCN launches a forward (BasicVSR
+# none; IconVSR 4 a keyframe, its refill's PCD; TDAN 4, the neighbours one
+# batch) and, for the two with DCNs, one step's gradients as
+# test_zoo_model_gpu_grads_match_cpu holds EDVR's and BasicVSR++'s
+MORE_ZOO = {
+    "BasicVSRNet": (dict(mid_channels=16, num_blocks=1), (1, 4, 3, 64, 64),
+                    0),
+    "IconVSR": (dict(mid_channels=16, num_blocks=1, keyframe_stride=3),
+                (1, 6, 3, 64, 64), 4 * 3),
+    "TDANNet": (dict(mid_channels=16, num_blocks_before_align=1,
+                     num_blocks_after_align=1), (2, 5, 3, 20, 28), 4),
+}
+
+
+def _more_zoo(name):
+    kw, shape, dcns = MORE_ZOO[name]
+    model = init_weights(build(BACKBONES, dict(type=name, **kw)),
+                         torch.Generator().manual_seed(13))
+    gen = torch.Generator().manual_seed(14)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, ModulatedDeformConv2d):
+                last = [m for m in mod.conv_offset.modules()
+                        if isinstance(m, torch.nn.Conv2d)][-1]
+                last.weight.normal_(0, 0.02, generator=gen)
+                last.bias.normal_(0, 3.0, generator=gen)
+    x = torch.from_numpy(np.random.default_rng(15).uniform(0, 1, shape)
+                         .astype(np.float32))
+    return model, x, dcns
+
+
+def _sr(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+@pytest.mark.parametrize("name", list(MORE_ZOO))
+def test_more_zoo_models_gpu_match_cpu(cuda, name):
+    model, x, dcns = _more_zoo(name)
+    model.eval()
+    with torch.no_grad():
+        ref = model(x)
+        before = launch_counts()
+        got = model.to(cuda)(x.to(cuda))
+        after = launch_counts()
+    assert after["dcn"] - before["dcn"] == dcns
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert g.shape == r.shape
+        assert float((g.cpu() - r).abs().max()) <= 1e-3
+
+
+@pytest.mark.parametrize("name", ["IconVSR", "TDANNet"])
+def test_more_zoo_models_gpu_grads_match_cpu(cuda, name):
+    model, x, dcns = _more_zoo(name)
+    gt = torch.from_numpy(np.random.default_rng(16).uniform(
+        0, 1, _sr(model(x)).shape).astype(np.float32))
+    model.zero_grad(set_to_none=True)
+    charbonnier_sum(_sr(model(x)), gt).backward()
+    ref = {k: p.grad.clone() for k, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.to(cuda)
+    before = launch_counts()
+    charbonnier_sum(_sr(model(x.to(cuda))), gt.to(cuda)).backward()
+    after = launch_counts()
+    assert after["dcn"] - before["dcn"] == dcns
+    assert after["dcn_bwd"] - before["dcn_bwd"] == dcns
+    got = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    rel = {k: float((got[k] - r).norm() / r.norm()) for k, r in ref.items()
+           if r.any()}
+    whole = float(torch.cat([(got[k] - r).flatten() for k, r in
+                             ref.items()]).norm()
+                  / torch.cat([r.flatten() for r in ref.values()]).norm())
+    assert whole <= 1e-3 and float(np.median(list(rel.values()))) <= 1e-3
+    assert max(rel.values()) <= 5e-2, max(rel.items(), key=lambda kv: kv[1])

@@ -205,14 +205,15 @@ def test_state_dict_from_jax_raises_on_unknown_param(edvr_case,
 
 
 def test_registry_builds_the_ports_models():
-    assert BACKBONES.keys() == ["BasicVSRPlusPlus", "EDVRNet", "FCVSRNet",
-                                "FCVSR_SNet", "SpyNet"]
+    assert BACKBONES.keys() == ["BasicVSRNet", "BasicVSRPlusPlus", "EDVRNet",
+                                "FCVSRNet", "FCVSR_SNet", "IconVSR",
+                                "SpyNet", "TDANNet"]
     model = build(BACKBONES, dict(type="EDVRNet", mid_channels=16,
                                   num_blocks_extraction=1,
                                   num_blocks_reconstruction=1))
     assert isinstance(model, EDVRNet)
-    with pytest.raises(KeyError, match="TDANNet"):
-        build(BACKBONES, dict(type="TDANNet"))
+    with pytest.raises(KeyError, match="FTVSRNet"):
+        build(BACKBONES, dict(type="FTVSRNet"))
 
 
 def test_init_weights_zeroes_the_offset_convs():
