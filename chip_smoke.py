@@ -60,7 +60,11 @@ Phases, one line or more each:
      too) and the DCN launches per forward; and the DCN models' training
      loss gradients (``VideoRestorer.loss_fn``; TDAN's SR centre frame) at
      (1, 5, 3, 64, 64) per parameter tensor, beside the CPU's own floor,
-     with the K7 and K8 launches;
+     with the K7 and K8 launches; FTVSR (mid 64, 72 blocks, FTT at
+     d_model 144, 8 heads) and TTVSR (60 blocks), the output and every
+     frame's loss gradients at (1, 8, 3, 64, 64), no kernel launched, and
+     LTAM's tracked locations and keyframe picks (up to 3 keyframes)
+     equal on both devices, with their counts;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM; ``--no-tof``), with the kernel launch counts per frame checked,
@@ -81,11 +85,13 @@ Phases, one line or more each:
      forward), with ms, peak memory and launches;
   5. zoo serving: ``apis.restoration_video_inference`` restores a synthetic
      10-frame RGB clip with EDVR-M (180x320, 5-frame windows), BasicVSR++,
-     BasicVSR and IconVSR (192x320, the whole clip in one recurrent
-     forward; IconVSR's keyframes 0, 5 and 9), and TDAN its forward a
-     5-frame window (180x320); shapes, finite values and DCN launches per
-     forward, checked; ms per restored frame (``cli.fps_benchmark``) and
-     peak memory;
+     BasicVSR, IconVSR, FTVSR and TTVSR (192x320, the whole clip in one
+     recurrent forward; IconVSR's keyframes 0, 5 and 9), and TDAN its
+     forward a 5-frame window (180x320); shapes, finite values and DCN
+     launches per forward (FTVSR and TTVSR: no kernel), checked; ms per
+     restored frame (``cli.fps_benchmark``) and peak memory; FTVSR's and
+     TTVSR's stages (``profiling.stage_times``: SPyNet on the LR frames and
+     on the x4 outputs, the trunk, LTAM, the upsampler, the FTT head);
   6. zoo training: ``VideoRestorer`` trains EDVR-M (4 windows of 5 frames),
      BasicVSR++ (1 sequence of 30 frames), BasicVSR and IconVSR (1
      sequence of 15 frames), SPyNet and IconVSR's refill extractor frozen
@@ -95,7 +101,12 @@ Phases, one line or more each:
      steps, the losses, ms per step, peak memory and K7 / K8 launches per
      step, checked, the frozen tensors unmoved and every other tensor
      moved; then one ``torch.profiler`` step each (device time by kernel,
-     idle share);
+     idle share); then ``fcvsr_tpu_torch.train.cli`` trains FTVSR (preset
+     ftvsr_cvcpLD_QP22: 1 sequence of 7 frames, every frame's GT, 64x64 LR
+     patches, Adam 2e-4, Charbonnier-mean) and TTVSR (the same config,
+     ``model.name`` ttvsr) on the clip, 1 warm-up step and a resumed run of
+     5 timed steps: losses, ms per step, peak memory and no kernel
+     launched, checked; then a profiled step each;
   7. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
      6, 128x128 LR patches from the clip, Adam, Charbonnier-sum) for one
      warm-up step, then resumes from its checkpoint for 5 timed steps; the
@@ -221,12 +232,13 @@ ZOO_T = 10  # frames of the zoo's serving clip
 def dcn_per_forward(model: str, t: int) -> int:
     """DCN launches a forward of t frames: EDVR's levels 3, 2, 1 and the
     cascade, once each (T folded into the batch); BasicVSR++'s 4 branches
-    at every frame but the first of each; BasicVSR none; IconVSR the 4 of
+    at every frame but the first of each; BasicVSR, FTVSR and TTVSR
+    none; IconVSR the 4 of
     its refill's PCD (EDVR's) at each keyframe, every ICON_STRIDE frames
     and the last; TDAN its 4 DCNv1s, the 4 neighbours one batch."""
     if model == "EDVRNet" or model == "TDANNet":
         return 4
-    if model == "BasicVSRNet":
+    if model in ("BasicVSRNet",) + RECURRENT_PLAIN:
         return 0
     if model == "IconVSR":
         keys = set(range(0, t, ICON_STRIDE)) | {t - 1}
@@ -235,8 +247,27 @@ def dcn_per_forward(model: str, t: int) -> int:
 
 
 ICON_STRIDE = 5  # IconVSR's keyframe stride (mmedit's iconvsr_reds4)
-# the zoo the smoke serves and trains: the DCN models, then BasicVSR
-ZOO = ("EDVRNet", "BasicVSRPlusPlus", "BasicVSRNet", "IconVSR", "TDANNet")
+# the zoo the smoke serves and trains: the DCN models, then BasicVSR, FTVSR
+# and TTVSR
+ZOO = ("EDVRNet", "BasicVSRPlusPlus", "BasicVSRNet", "IconVSR", "TDANNet",
+       "FTVSRNet", "TTVSRNet")
+# the recurrent models whose path runs no kernel of the port: cuDNN convs,
+# GEMMs and attention, flow warps and gathers
+RECURRENT_PLAIN = ("FTVSRNet", "TTVSRNet")
+# the input of the GPU-against-CPU checks: FTVSR and TTVSR take 8 frames
+# of 64x64 (H and W as the JAX package's FTVSR golden shape; at keyframes
+# every 3 frames, LTAM chooses between 2 keyframes at 8 steps and between
+# 3 at 2), the rest 5 of 64x96
+ZOO_CHECK = {"FTVSRNet": (1, 8, 3, 64, 64), "TTVSRNet": (1, 8, 3, 64, 64)}
+# gradients that are 0 in exact arithmetic: the attention's softmax does
+# not see one vector added to every key, so FTVSR's key-embedding bias
+# gets rounding only; held under ZERO_GRAD_RTOL of the whole gradient's
+# norm on both devices, outside the per-tensor bars
+ZERO_GRAD = {"FTVSRNet": ("ftta.layer_k.bias",)}
+ZERO_GRAD_RTOL = 1e-6
+# the models whose gradients the card holds to the CPU's
+ZOO_GRADS = ("EDVRNet", "BasicVSRPlusPlus", "IconVSR", "TDANNet") \
+    + RECURRENT_PLAIN
 
 
 KERNELS = {
@@ -1102,36 +1133,92 @@ def zoo_sr(out):
     return out[0] if isinstance(out, tuple) else out
 
 
+def ltam_choices(model, record: list):
+    """A forward hook on ``model.LTAM``: each call appends its tracked
+    locations and keyframe picks, on the host, to ``record``."""
+    import torch
+
+    def hook(mod, args, out):
+        cur, idx, _, _, loc = args
+        with torch.no_grad():
+            pick = mod.scores(cur, idx, loc).argmax(1)
+        record.append((loc.cpu().numpy(), pick.cpu().numpy()))
+
+    return model.LTAM.register_forward_hook(hook)
+
+
+def compare_choices(ref: list, got: list) -> dict:
+    """LTAM's discrete choices on two devices, call by call: the tracked
+    locations that differ, and over the calls with 2 or more keyframes the
+    picks, those that differ and the keyframes picked."""
+    if len(ref) != len(got) or not ref:
+        fail(f"LTAM calls: {len(ref)} against {len(got)}")
+    n = flipped = moved = most = 0
+    picked = set()
+    for (rl, rp), (gl, gp) in zip(ref, got):
+        moved += int(np.any(rl != gl, -1).sum())
+        most = max(most, rl.shape[1])
+        if rl.shape[1] > 1:
+            n += rp.size
+            flipped += int((rp != gp).sum())
+            picked |= set(np.unique(rp).tolist())
+    return dict(calls=len(ref), most_keyframes=most,
+                picks_over_2_keyframes=n, flipped_picks=flipped,
+                moved_locations=moved, keyframes_picked=sorted(picked))
+
+
 def phase_zoo_models(torch, dev):
     """The zoo at full width, the GPU (the DCN kernel) against the same
     model on the CPU (the plain DCN), with the launches per forward (TDAN:
-    both of its outputs)."""
+    both of its outputs); no other kernel of the port launched.  FTVSR's
+    and TTVSR's LTAM choices (tracked locations, keyframe picks) are
+    compared call by call, and must agree."""
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    x = np.random.default_rng(5).uniform(0, 1, (1, 5, 3, 64, 96))
-    x = torch.from_numpy(x.astype(np.float32))
     for name in ZOO:
+        shape = ZOO_CHECK.get(name, (1, 5, 3, 64, 96))
+        x = torch.from_numpy(np.random.default_rng(5).uniform(0, 1, shape)
+                             .astype(np.float32))
         model = zoo_model(torch, name)
+        records = ([], [])
+        hooks = name in RECURRENT_PLAIN
         with torch.no_grad():
+            hook = hooks and ltam_choices(model, records[0])
             ref = model(x)
             model.to(dev)
+            if hooks:
+                hook.remove()
+                hook = ltam_choices(model, records[1])
             reset_launch_counts()
             got = model(x.to(dev))
-            launches = launch_counts()["dcn"]
+            counts = launch_counts()
+            launches = counts.pop("dcn")
+            if hooks:
+                hook.remove()
         pairs = list(zip(got, ref)) if isinstance(ref, tuple) \
             else [(got, ref)]
         err = max(float((g.cpu() - r).abs().max()) for g, r in pairs)
-        shape = list(zoo_sr(got).shape)
-        say("model", model=name, shape=shape, max_abs_err=err,
-            tol=MODEL_ATOL, dcn_launches=launches)
+        out_shape = list(zoo_sr(got).shape)
+        choices = compare_choices(*records) if hooks else None
+        say("model", model=name, input=list(shape), shape=out_shape,
+            max_abs_err=err, tol=MODEL_ATOL, dcn_launches=launches,
+            **({"ltam_choices": choices} if hooks else {}))
+        if hooks and (choices["flipped_picks"] or choices["moved_locations"]
+                      or choices["most_keyframes"] < 3
+                      or len(choices["keyframes_picked"]) < 2):
+            fail(f"{name}: LTAM's choices on the card and the CPU "
+                 f"{choices}: flipped or moved, or no choice between "
+                 "keyframes")
         if not all(torch.isfinite(g).all() and g.shape == r.shape
                    for g, r in pairs):
-            fail(f"{name}: output shape {shape} or non-finite values")
+            fail(f"{name}: output shape {out_shape} or non-finite values")
         if not err <= MODEL_ATOL:
             fail(f"{name}: GPU vs CPU model error {err} > {MODEL_ATOL}")
-        if launches != dcn_per_forward(name, 5):
+        if launches != dcn_per_forward(name, shape[1]) or any(
+                counts.values()):
             fail(f"{name}: {launches} DCN launches a forward, expected "
-                 f"{dcn_per_forward(name, 5)}")
+                 f"{dcn_per_forward(name, shape[1])}, and no other kernel: "
+                 f"{counts}")
         del model
 
 
@@ -1154,7 +1241,8 @@ def smooth_clip(torch, seed: int, n: int, h: int, w: int) -> np.ndarray:
 # one recurrent forward)
 ZOO_SERVE = {"EDVRNet": ((180, 320), 5), "BasicVSRPlusPlus": ((192, 320), 0),
              "BasicVSRNet": ((192, 320), 0), "IconVSR": ((192, 320), 0),
-             "TDANNet": ((180, 320), 5)}
+             "TDANNet": ((180, 320), 5), "FTVSRNet": ((192, 320), 0),
+             "TTVSRNet": ((192, 320), 0)}
 
 
 def serve_windows(torch, model, frames: np.ndarray, window: int):
@@ -1178,9 +1266,10 @@ def serve_windows(torch, model, frames: np.ndarray, window: int):
 def phase_zoo(torch, card):
     """Zoo serving: a synthetic 10-frame RGB clip restored by each zoo
     model, through ``apis.restoration_video_inference`` (EDVR-M in 5-frame
-    windows; BasicVSR++, BasicVSR and IconVSR the whole clip) or its own
-    forward a window (TDAN), then ms per restored frame."""
-    from fcvsr_tpu_torch import apis, cli
+    windows; BasicVSR++, BasicVSR, IconVSR, FTVSR and TTVSR the whole clip)
+    or its own forward a window (TDAN), then ms per restored frame, and
+    FTVSR's and TTVSR's stages."""
+    from fcvsr_tpu_torch import apis, cli, profiling
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
 
     counts = {}
@@ -1221,8 +1310,19 @@ def phase_zoo(torch, card):
                  f"{counts[name]}")
         if not fps["ms_per_frame"] > 0:
             fail(f"{name}: bad timing {fps}")
+        if name in RECURRENT_PLAIN:
+            x = torch.from_numpy(np.ascontiguousarray(np.transpose(
+                frames, (0, 3, 1, 2))[None])).to("cuda")
+            stages = profiling.stage_times(model, x, reps=3, warmup=1,
+                                           stages=profiling.FTVSR_STAGES)
+            say("zoo_stages", model=name, clip=[ZOO_T, h, w, 3], reps=3,
+                stages_ms=stages,
+                stages_ms_per_frame={k: v / ZOO_T for k, v in stages.items()},
+                card=card)
+            del x
         del model
-    return {k: sum(c[k] for c in counts.values()) for k in counts["EDVRNet"]}
+    return {k: sum(c[k] for c in counts.values())
+            for k in next(iter(counts.values()))}
 
 
 def zoo_loss(torch, model, name: str, lq, gt):
@@ -1244,17 +1344,19 @@ def phase_zoo_grads(torch, dev):
     """The DCN models of the zoo at full width, their training loss's
     gradients on the card (K7 forward, K8 backward) against the CPU (plain
     versions), per parameter tensor, beside the CPU's own floor (the same
-    step with the input moved by 1e-6 of itself)."""
+    step with the input moved by 1e-6 of itself); then FTVSR and TTVSR,
+    every frame's loss, no kernel launched, each tensor but SPyNet's
+    within GRAD_RTOL."""
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
 
-    rng = np.random.default_rng(8)
-    x = torch.from_numpy(rng.uniform(0, 1, (1, 5, 3, 64, 64))
-                         .astype(np.float32))
-    gt = torch.from_numpy(rng.uniform(0, 1, (1, 5, 3, 256, 256))
-                          .astype(np.float32))
-    moved = x * (1 + 1e-6 * torch.from_numpy(
-        rng.standard_normal(x.shape).astype(np.float32)))
-    for name in ("EDVRNet", "BasicVSRPlusPlus", "IconVSR", "TDANNet"):
+    for name in ZOO_GRADS:
+        rng = np.random.default_rng(8)
+        shape = ZOO_CHECK.get(name, (1, 5, 3, 64, 64))
+        x = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+        gt = torch.from_numpy(rng.uniform(0, 1, shape[:3] + (256, 256))
+                              .astype(np.float32))
+        moved = x * (1 + 1e-6 * torch.from_numpy(
+            rng.standard_normal(x.shape).astype(np.float32)))
         model = zoo_model(torch, name).train()
 
         def grads(inp, device):
@@ -1266,10 +1368,19 @@ def phase_zoo_grads(torch, dev):
                     for k, p in model.named_parameters()}
 
         ref = grads(x, "cpu")
-        floor = deviation(grads(moved, "cpu"), ref)
+        cpu_moved = grads(moved, "cpu")
         reset_launch_counts()
         got = grads(x, dev)
         counts = launch_counts()
+        # the tensors whose gradient is 0 in exact arithmetic, apart
+        norm = sum(float(r.norm()) ** 2 for r in ref.values()
+                   if r is not None) ** 0.5
+        zero = {k: max(float(d[k].norm()) for d in (ref, cpu_moved, got))
+                / norm for k in ZERO_GRAD.get(name, ())}
+        for d in (ref, cpu_moved, got):
+            for k in zero:
+                d.pop(k)
+        floor = deviation(cpu_moved, ref)
         whole, median, worst, over = deviation(got, ref)
         say("zoo_grads", model=name, shape=list(x.shape),
             tensors=sum(g is not None for g in ref.values()),
@@ -1277,15 +1388,22 @@ def phase_zoo_grads(torch, dev):
             over_grad_rtol=over, grad_rtol=GRAD_RTOL, flip_rtol=FLIP_RTOL,
             cpu_floor_1e6=dict(whole=floor[0], median=floor[1],
                                max=floor[2], over_grad_rtol=floor[3]),
-            launches=counts)
-        want = dcn_per_forward(name, 5)
-        if (counts["dcn"], counts["dcn_bwd"]) != (want, want):
-            fail(f"{name}: DCN launches {counts}, expected {want} forward "
-                 f"and {want} adjoint")
+            zero_grads=zero, zero_grad_rtol=ZERO_GRAD_RTOL, launches=counts)
+        want = dcn_per_forward(name, shape[1])
+        if counts != {k: want if k in ("dcn", "dcn_bwd") else 0
+                      for k in counts}:
+            fail(f"{name}: launches {counts}, expected {want} DCN forward "
+                 f"and {want} adjoint and no other kernel")
+        if any(v > ZERO_GRAD_RTOL for v in zero.values()):
+            fail(f"{name}: gradients that are 0 in exact arithmetic: {zero}")
         if not (whole <= GRAD_RTOL and median <= GRAD_RTOL
                 and worst <= FLIP_RTOL):
             fail(f"{name}: GPU vs CPU gradients beyond the bounds: whole "
                  f"{whole}, median {median}, over {over}")
+        if name in RECURRENT_PLAIN and any(not k.startswith("spynet.")
+                                           for k in over):
+            fail(f"{name}: tensors other than SPyNet's over {GRAD_RTOL}: "
+                 f"{over}")
         del model
 
 
@@ -1426,7 +1544,68 @@ def phase_zoo_train(torch, card):
             prof["kernels"] = prof["kernels"][:12]
             say("zoo_train_profile", model=name, card=card, **prof)
             del model, state, batches
-    return {k: sum(c[k] for c in totals.values()) for k in totals["EDVRNet"]}
+        for name, model_name in zip(RECURRENT_PLAIN, ("ftvsr", "ttvsr")):
+            totals[name] = train_recurrent(torch, card, tmp, model_name)
+    return {k: sum(c[k] for c in totals.values())
+            for k in next(iter(totals.values()))}
+
+
+FTVSR_PRESET = "ftvsr_cvcpLD_QP22"
+
+
+def train_recurrent(torch, card, root: str, model_name: str) -> dict:
+    """FTVSR (preset FTVSR_PRESET) or TTVSR (the same config, its
+    ``model.name`` ttvsr) trained by ``train/cli.py`` on the clip under
+    ``root``: one warm-up step, then a resumed run of 5 timed steps, with
+    the launch counts (none) and the peak; then one ``torch.profiler`` step
+    of the same recipe.  Returns the launch counts."""
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.data import ClipFolderDataset
+    from fcvsr_tpu_torch.train import cli as train_cli
+    from fcvsr_tpu_torch.train.losses import LOSSES
+    from fcvsr_tpu_torch.train.lr_schedule import build_schedule
+    from fcvsr_tpu_torch.train.trainer import TrainState
+    from fcvsr_tpu_torch.utils.config import preset
+
+    dev = torch.device("cuda", 0)
+    cfg = preset(FTVSR_PRESET)
+    cfg.model.name = model_name
+    cfg.name = f"{model_name}_{FTVSR_PRESET.split('_', 1)[1]}"
+    path = os.path.join(root, f"{cfg.name}.json")
+    with open(path, "w") as f:
+        f.write(cfg.to_json())
+    args = ["--config", path, "--seed", "0",
+            "--lr-root", os.path.join(root, "lr"),
+            "--gt-root", os.path.join(root, "gt"),
+            "--work-dir", os.path.join(root, "work")]
+    (warm, timed), counts, peak = train_cli_runs(torch, cfg.name, args,
+                                                 (1, 6))
+    ms = timed["ms_per_step"]
+    say("zoo_train", model=cfg.name, entry="train/cli.py",
+        batch=cfg.data.batch_size, frames=cfg.model.num_frames,
+        lr_patch=cfg.data.lr_patch, steps=6, resumed_at=timed["start"],
+        losses=warm["losses"] + timed["losses"],
+        warmup_ms=warm["ms_per_step"][0], ms_per_step=ms,
+        ms_median=float(np.median(ms)), ms_min=min(ms), ms_max=max(ms),
+        max_memory_allocated=peak, launches=counts, card=card)
+    if any(counts.values()):
+        fail(f"{cfg.name}: kernels launched on a path that has none: "
+             f"{counts}")
+    model = train_cli.build_model(cfg, 0, dev).train()
+    state = TrainState(model, build_schedule(cfg.train),
+                       betas=cfg.train.betas)
+    data = ClipFolderDataset(os.path.join(root, "lr"),
+                             os.path.join(root, "gt"),
+                             window=cfg.model.num_frames)
+    lq, gt = (torch.from_numpy(a).to(dev) for a in train_cli.sample_batch(
+        np.random.default_rng(11), data, cfg.data.batch_size,
+        cfg.data.lr_patch, sequence=True))
+    prof = profiling.train_profile(state, LOSSES[cfg.train.loss], lq, gt,
+                                   n=1)
+    prof["kernels"] = prof["kernels"][:12]
+    say("zoo_train_profile", model=cfg.name, card=card, **prof)
+    del model, state
+    return counts
 
 
 def write_clip(root: str, n: int = 10, h: int = 270, w: int = 480):
@@ -1566,41 +1745,51 @@ def phase_fast(torch, card):
     return counts["fast_resident_quad"]
 
 
-def phase_train(torch, card):
-    """The training slice: one warm-up step, then a resumed run of 5 timed
-    steps, with the launch counts of all 6 steps."""
+def train_cli_runs(torch, label: str, args, totals):
+    """``train/cli.py`` with ``args``, run to each total of steps in turn
+    (each run after the first resumes the one before), from zeroed launch
+    counts and peak memory: the runs' results, the launch counts and the
+    peak.  Fails unless each run started where the one before ended and
+    reached its total, with every loss finite."""
     from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
     from fcvsr_tpu_torch.train import cli as train_cli
 
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    outs = [train_cli.main(args + ["--total-iters", str(n)]) for n in totals]
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    for start, out, n in zip((0,) + tuple(totals), outs, totals):
+        if (out["start"], out["step"]) != (start, n):
+            fail(f"{label}: a run started at {out['start']} and ended at "
+                 f"{out['step']}, expected {start} and {n}")
+        if not all(math.isfinite(v) for v in out["losses"]):
+            fail(f"{label}: non-finite training loss {out['losses']}")
+    return outs, counts, peak
+
+
+def phase_train(torch, card):
+    """The training slice: one warm-up step, then a resumed run of 5 timed
+    steps, with the launch counts of all 6 steps."""
     with tempfile.TemporaryDirectory() as tmp:
         write_clip(tmp)
         args = ["--preset", PRESET, "--seed", "0",
                 "--lr-root", os.path.join(tmp, "lr"),
                 "--gt-root", os.path.join(tmp, "gt"),
                 "--work-dir", os.path.join(tmp, "work")]
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        warm = train_cli.main(args + ["--total-iters", "1"])
-        timed = train_cli.main(args + ["--total-iters", "6"])
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+        (warm, timed), counts, peak = train_cli_runs(torch, PRESET, args,
+                                                     (1, 6))
         serve_trained(torch, card, tmp, os.path.join(timed["work_dir"],
                                                      "ckpt"))
-    steps = warm["step"] + timed["step"] - timed["start"]
-    per_step = {k: v / steps for k, v in counts.items()}
-    losses = warm["losses"] + timed["losses"]
+    per_step = {k: v / 6 for k, v in counts.items()}
     ms = timed["ms_per_step"]
-    say("train", preset=PRESET, batch=6, lr_patch=128, steps=steps,
-        resumed_at=timed["start"], losses=losses,
+    say("train", preset=PRESET, batch=6, lr_patch=128, steps=6,
+        resumed_at=timed["start"], losses=warm["losses"] + timed["losses"],
         warmup_ms=warm["ms_per_step"][0], ms_per_step=ms,
         ms_median=float(np.median(ms)), ms_min=min(ms), ms_max=max(ms),
         max_memory_allocated=peak, launches=counts,
         launches_per_step=per_step, card=card)
-    if timed["start"] != 1 or timed["step"] != 6 or steps != 6:
-        fail(f"resume: started at {timed['start']}, ended at {timed['step']}")
-    if not all(math.isfinite(v) for v in losses):
-        fail(f"non-finite training loss {losses}")
     if per_step != {k: float(v) for k, v in PER_STEP.items()}:
         fail(f"launches per step {per_step}, expected {PER_STEP}")
     return counts
@@ -1652,7 +1841,6 @@ def phase_vimeo_train(torch, card):
     import importlib.util
 
     from fcvsr_tpu_torch import cli, profiling
-    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
     from fcvsr_tpu_torch.train import cli as train_cli
     from fcvsr_tpu_torch.train.losses import LOSSES
     from fcvsr_tpu_torch.train.lr_schedule import build_schedule
@@ -1670,19 +1858,13 @@ def phase_vimeo_train(torch, card):
         path = os.path.join(tmp, "config.json")
         with open(path, "w") as f:
             f.write(cfg.to_json())
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
-        out = train_cli.main([
+        (out,), counts, peak = train_cli_runs(torch, VIMEO_PRESET, [
             "--config", path, "--seed", "0",
             "--lr-root", os.path.join(tmp, "lr"),
             "--gt-root", os.path.join(tmp, "gt"), "--meta-file", meta,
-            "--total-iters", str(VIMEO_STEPS),
             "--val-lr-root", os.path.join(val, "lr"),
             "--val-gt-root", os.path.join(val, "gt"),
-            "--tensorboard", "--fast"])
-        counts = launch_counts()
-        peak = torch.cuda.max_memory_allocated()
+            "--tensorboard", "--fast"], (VIMEO_STEPS,))
         with open(os.path.join(out["work_dir"], "train_log.csv")) as f:
             rows = [r for r in f.read().split() if "eval_psnr" in r]
         events = os.listdir(os.path.join(out["work_dir"], "tb")) \
@@ -1711,9 +1893,6 @@ def phase_vimeo_train(torch, card):
         tensorboard=tb, event_files=len(events),
         max_memory_allocated=peak, launches=counts, expected=want,
         card=card)
-    if out["step"] != VIMEO_STEPS or not all(math.isfinite(v)
-                                             for v in out["losses"]):
-        fail(f"vimeo training: step {out['step']}, losses {out['losses']}")
     if [s for s, _ in out["eval_psnr"]] != [VIMEO_EVAL * (i + 1)
                                            for i in range(evals)] or \
             len(rows) != evals or not all(math.isfinite(v)

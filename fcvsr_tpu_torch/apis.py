@@ -34,8 +34,8 @@ def restoration_video_inference(model, frames: np.ndarray, window_size: int = 7,
     windowed model (FCVSR, EDVR); frame t is the centre of the
     ``window_size`` frames around it, padded at the clip ends by
     ``padding``, and ``batch_windows`` windows go through the model at once.
-    ``window_size == 0``: a recurrent model (BasicVSR++) takes the whole
-    clip as (1, T, C, H, W) in one forward.  Returns (T, 4H, 4W, C)."""
+    ``window_size == 0``: a recurrent model (BasicVSR++, FTVSR) takes the
+    whole clip as (1, T, C, H, W) in one forward.  Returns (T, 4H, 4W, C)."""
     if window_size < 0:
         raise ValueError(f"window_size {window_size} < 0")
     device = torch.device(device) if device is not None else \

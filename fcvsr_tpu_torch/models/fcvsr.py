@@ -511,6 +511,11 @@ def fcvsr_etc_forward(model: FCVSRNet, clip: torch.Tensor):
     return out, base.permute(0, 3, 1, 2).reshape(b, n, c, 4 * h, 4 * w)
 
 
+def _uniform(t: torch.Tensor, fan_in: int, generator) -> None:
+    t.copy_((torch.rand(t.shape, generator=generator) * 2 - 1)
+            * fan_in ** -0.5)
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded re-initialisation of every parameter.
@@ -521,7 +526,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     bias, which keeps deep stacks stable; a deformable conv gets
     U(+-1/sqrt(fan_in)), a zero bias (if it has one) and a zero last offset
     conv (zero offsets, mask 0.5); PReLU slopes are 0.25 and DivEnh keeps a = 0,
-    b = 1."""
+    b = 1.  Linear layers and an attention's packed input projection get
+    U(+-1/sqrt(fan_in)) for weight and bias; LayerNorms keep ones and
+    zeros."""
     scaled, zeroed = set(), set()
     for mod in model.modules():
         if isinstance(mod, (BlockRCB, RCB, MMResidualBlock)):
@@ -538,8 +545,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 wt.zero_()
                 mod.bias.zero_()
             elif isinstance(mod, ModulatedDeformConv2d):
-                wt.copy_((torch.rand(wt.shape, generator=generator) * 2 - 1)
-                         * fan_in ** -0.5)
+                _uniform(wt, fan_in, generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif id(mod) in scaled:
@@ -548,13 +554,16 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                 if mod.bias is not None:
                     mod.bias.zero_()
             else:
-                bound = fan_in ** -0.5
-                wt.copy_((torch.rand(wt.shape, generator=generator) * 2 - 1)
-                         * bound)
+                _uniform(wt, fan_in, generator)
                 if mod.bias is not None:
-                    mod.bias.copy_(
-                        (torch.rand(mod.bias.shape, generator=generator) * 2
-                         - 1) * bound)
+                    _uniform(mod.bias, fan_in, generator)
+        elif isinstance(mod, nn.Linear):
+            _uniform(mod.weight, mod.weight.shape[1], generator)
+            _uniform(mod.bias, mod.weight.shape[1], generator)
+        elif isinstance(mod, nn.MultiheadAttention):
+            fan_in = mod.in_proj_weight.shape[1]
+            _uniform(mod.in_proj_weight, fan_in, generator)
+            _uniform(mod.in_proj_bias, fan_in, generator)
         elif isinstance(mod, nn.PReLU):
             mod.weight.fill_(0.25)
         elif isinstance(mod, DivEnh):

@@ -11,6 +11,7 @@ from .basicvsr import BasicVSRNet
 from .basicvsr_pp import BasicVSRPlusPlus
 from .edvr import EDVRNet
 from .fcvsr import FCVSRNet
+from .ftvsr import FTVSRNet, TTVSRNet
 from .iconvsr import IconVSR, TDANNet
 from .spynet import SpyNet
 
@@ -47,6 +48,7 @@ def build(registry: Registry, cfg: dict) -> Any:
 
 BACKBONES = Registry("backbones")
 for _cls in (FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
-             TDANNet, SpyNet):
+             TDANNet, SpyNet, FTVSRNet):
     BACKBONES.register_obj(_cls.__name__, _cls)
+BACKBONES.register_obj("TTVSRNet", TTVSRNet)
 BACKBONES.register_obj("FCVSR_SNet", FCVSRNet.small)

@@ -5,15 +5,18 @@ after the normalisation round-trip of the reference ``flow_warp``, i.e.
 sampling at absolute pixel ``(x + dx, y + dy)``.  With ``padding_mode=
 'zeros'`` out-of-frame corner taps contribute zero (written as four gathers
 over a zero-ringed copy of the map); with ``'border'`` the coordinates clamp
-to the frame's edge, as SPyNet warps.  The order of operations is the JAX
-op's.  All tensors are channels-last (B, H, W, C).
+to the frame's edge, as SPyNet warps.  ``interpolation='nearest'`` samples
+the nearest pixel instead (``grid_sample(mode='nearest')``: coordinates
+round half to even, as ``std::nearbyint`` and ``jnp.round`` do), as FTVSR
+tracks its locations.  The order of operations is the JAX op's.  All
+tensors are channels-last (B, H, W, C).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["flow_warp", "grid_sample_bilinear"]
+__all__ = ["flow_warp", "grid_sample_bilinear", "grid_sample_nearest"]
 
 
 def _gather_hw(x: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor):
@@ -60,14 +63,43 @@ def grid_sample_bilinear(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     return out
 
 
+def grid_sample_nearest(x: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                        padding_mode: str = "zeros") -> torch.Tensor:
+    """Sample ``x`` (B, H, W, C) at the pixels nearest to ``px``/``py``
+    (B, P), half to even; with ``padding_mode`` 'zeros' a pixel outside the
+    frame reads 0, with 'border' the coordinates clamp to the frame.
+    Returns (B, P, C)."""
+    b, h, w, _ = x.shape
+    if padding_mode == "border":
+        xi = torch.round(px.clamp(0.0, w - 1)).long()
+        yi = torch.round(py.clamp(0.0, h - 1)).long()
+        return _gather_hw(x, yi.clamp(0, h - 1), xi.clamp(0, w - 1))
+    if padding_mode != "zeros":
+        raise ValueError(f"padding_mode {padding_mode!r}: 'zeros' or 'border'")
+    # the zero ring: a coordinate outside the frame rounds onto it
+    src = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    xi = torch.round(px.clamp(-1.0, float(w))).long() + 1
+    yi = torch.round(py.clamp(-1.0, float(h))).long() + 1
+    return _gather_hw(src, yi.clamp(0, h + 1), xi.clamp(0, w + 1))
+
+
 def flow_warp(x: torch.Tensor, flow: torch.Tensor,
-              padding_mode: str = "zeros") -> torch.Tensor:
+              padding_mode: str = "zeros",
+              interpolation: str = "bilinear") -> torch.Tensor:
     """Warp ``x`` (B, H, W, C) by ``flow`` (B, H, W, 2), [..., 0] = dx,
-    [..., 1] = dy: out(y, x) = x sampled at (y + dy, x + dx)."""
+    [..., 1] = dy: out(y, x) = x sampled at (y + dy, x + dx), bilinear or
+    (``interpolation='nearest'``) at the nearest pixel."""
     b, h, w, c = x.shape
     gy, gx = torch.meshgrid(
         torch.arange(h, dtype=x.dtype, device=x.device),
         torch.arange(w, dtype=x.dtype, device=x.device), indexing="ij")
     px = (gx + flow[..., 0]).reshape(b, h * w)
     py = (gy + flow[..., 1]).reshape(b, h * w)
-    return grid_sample_bilinear(x, px, py, padding_mode).reshape(b, h, w, c)
+    if interpolation == "nearest":
+        out = grid_sample_nearest(x, px, py, padding_mode)
+    elif interpolation == "bilinear":
+        out = grid_sample_bilinear(x, px, py, padding_mode)
+    else:
+        raise ValueError(f"interpolation {interpolation!r}: 'bilinear' or "
+                         "'nearest'")
+    return out.reshape(b, h, w, c)

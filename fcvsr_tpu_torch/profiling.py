@@ -46,16 +46,30 @@ from .train.trainer import TrainState
 from .utils.config import preset
 
 __all__ = ["cuda_ms", "warm_ms", "bound", "card", "need_device",
-           "stage_times", "device_profile", "serving_compare",
-           "train_step_times", "train_profile", "main"]
+           "stage_times", "STAGES", "FTVSR_STAGES", "device_profile",
+           "serving_compare", "train_step_times", "train_profile", "main"]
 
-# FCVSRNet children timed as stages; the tail convs are summed as one
-STAGES = {"feat_extract": "feat_extract", "MGAA": "MGAA",
+# FCVSRNet children timed as stages (a tuple names a child's calls in
+# turn); the tail convs are summed as one
+STAGES = {"feat_extract": "feat_extract",
+          "MGAA": ("MGAA.0", "MGAA.1", "MGAA.2"),
           "MFFRblock": "MFFR", "rconcat1": "rconcat", "rconcat2": "rconcat",
           "recorb1": "SCNet", "upconv1_L3": "tail convs",
           "upconv1_L2": "tail convs", "upconv1_L2_2": "tail convs",
           "upconv_fuse": "tail convs", "recorb0": "tail convs",
           "upconv1": "tail convs", "upconv2": "tail convs"}
+# FTVSRNet's and TTVSRNet's: SPyNet's first two calls are the LR flows,
+# the next two FTT's flows of the x4 outputs; the trunk is the residual
+# blocks of both propagations; the FTT head every module after FTT's
+# SPyNet (the DCTs, flow warps and glue are in ``rest``)
+FTVSR_STAGES = {
+    "spynet": ("SpyNet LR", "SpyNet LR", "SpyNet HR", "SpyNet HR"),
+    "feat_extractor": "feat extract", "resblocks": "trunk", "LTAM": "LTAM",
+    **dict.fromkeys(("fusion", "upsample1", "upsample2", "conv_hr",
+                     "conv_last"), "upsampler"),
+    **dict.fromkeys(("conv_layer1", "ftt_feat", "ftt_res", "ftta",
+                     "ftt_fusion0", "ftt_fusion1", "conv_layer2"),
+                    "FTT head")}
 
 
 # NVIDIA's published H100 SXM peaks (data sheet, dense, at 700 W): HBM
@@ -153,13 +167,16 @@ def _sync(dev):
 
 
 @torch.no_grad()
-def stage_times(model, x, reps: int = 10, warmup: int = 2) -> dict:
+def stage_times(model, x, reps: int = 10, warmup: int = 2,
+                stages: dict = STAGES) -> dict:
     """Median ms of each stage and of the whole forward over ``reps``
-    forwards; MGAA's three calls are ``MGAA.0`` .. ``MGAA.2``."""
+    forwards.  ``stages`` maps a child's name to its stage, or to a tuple
+    of stages its calls take in turn (MGAA's three calls are ``MGAA.0`` ..
+    ``MGAA.2``); ``rest`` is the forward less the stages."""
     dev = x.device
     marks, handles = [], []
     for name, child in model.named_children():
-        if name not in STAGES:
+        if name not in stages:
             continue
         handles.append(child.register_forward_pre_hook(
             lambda m, a, name=name: marks.append((name, "start", _mark(dev)))))
@@ -180,10 +197,10 @@ def stage_times(model, x, reps: int = 10, warmup: int = 2) -> dict:
                 if kind == "start":
                     start = mk
                     continue
-                key = STAGES[name]
-                if name == "MGAA":
-                    key = f"MGAA.{calls.get(name, 0)}"
-                    calls[name] = calls.get(name, 0) + 1
+                key = stages[name]
+                if isinstance(key, tuple):
+                    n = calls[name] = calls.get(name, -1) + 1
+                    key = key[min(n, len(key) - 1)]
                 run[key] = run.get(key, 0.0) + _ms(start, mk)
             run["rest"] = run["forward"] - sum(
                 v for k, v in run.items() if k != "forward")

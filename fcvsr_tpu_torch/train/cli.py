@@ -1,17 +1,21 @@
 """Training entry point of the port (counterpart of ``train.py`` for the
-FCVSR models), on one device:
+FCVSR, FTVSR and TTVSR models), on one device:
 
     python -m fcvsr_tpu_torch.train.cli --preset fcvsr_cvcpLD_QP22 \\
         --lr-root LR --gt-root GT --work-dir work_dirs [--total-iters N]
     python -m fcvsr_tpu_torch.train.cli --preset fcvsr_vimeoLD_QP22 \\
         --lr-root LR --gt-root GT --meta-file meta_info_Vimeo90K_train.txt \\
         [--val-lr-root VLR --val-gt-root VGT] [--tensorboard]
+    python -m fcvsr_tpu_torch.train.cli --preset ftvsr_cvcpLD_QP22 \\
+        --lr-root LR --gt-root GT       (or --config with model.name ttvsr)
 
 It samples batches of 7-frame LR windows and centre GT patches (numpy,
 seeded) from the clip folders, or from Vimeo-90K septuplets when the
 dataset is ``vimeo`` and a meta file is given (``build_dataset``, as
-``train.py`` chooses), runs forward, loss, backward and one Adam update a
-step, and keeps ``<work_dir>/<name>/``: ``config.json``,
+``train.py`` chooses); FTVSR and TTVSR, which restore every frame, take
+the GT of every frame of their window (``sample_batch``) and their loss
+runs over all of them.  A step runs forward, loss, backward and one Adam
+update, and the CLI keeps ``<work_dir>/<name>/``: ``config.json``,
 ``train_log.csv`` and ``ckpt/iter_<step>.pt`` every ``ckpt_interval``
 steps and at the end.  The CSV has a row ``step, loss, ms`` every
 ``log_interval`` steps and at the last (ms: on a CUDA device the median
@@ -19,7 +23,8 @@ CUDA-event ms a step over the interval, where the JAX CLI writes the
 interval's wall seconds), and, with ``--val-lr-root`` and
 ``--val-gt-root``, a row ``step, eval_psnr, PSNR`` every
 ``eval_interval`` steps: the PSNR over the first 8 windows of the first
-validation sequence (:func:`run_eval`, the JAX CLI's ``run_eval``).
+validation sequence, of the window's centre frame for FTVSR and TTVSR
+(:func:`run_eval`, the JAX CLI's ``run_eval``).
 ``--tensorboard`` also writes ``train/loss``, ``train/iters_per_sec`` and
 ``eval/psnr`` to ``<work_dir>/<name>/tb``; the CSV stays the record.  It
 resumes from the newest checkpoint there unless ``--resume-from`` or
@@ -44,16 +49,36 @@ import time
 import numpy as np
 import torch
 
-from ..cli import build_model
+from .. import cli
 from ..data import ClipFolderDataset, Vimeo90KDataset
 from ..metrics import calculate_psnr
+from ..models import FTVSRNet, TTVSRNet, init_weights
 from ..utils.checkpoint import (load_weights, restore_checkpoint,
                                 save_checkpoint)
 from ..utils.config import ExperimentConfig, preset
 from .lr_schedule import build_schedule
 from .trainer import TrainState, make_train_step
 
-__all__ = ["main", "sample_batch", "build_dataset", "run_eval"]
+__all__ = ["main", "sample_batch", "build_dataset", "build_model",
+           "run_eval", "SEQUENCE_MODELS"]
+
+# the recurrent models that restore (and train on) every frame of a window
+SEQUENCE_MODELS = ("ftvsr", "ttvsr")
+
+
+def build_model(cfg, seed: int, device) -> torch.nn.Module:
+    """The config's model with seeded random weights, on ``device``, as
+    ``train.py::build_model`` builds it: FCVSR through the serving CLI's
+    ``build_model``; FTVSR and TTVSR at ``mid_channels = n_feats``, with
+    ``num_blocks`` when the config sets it (else the model's 72 or 60)."""
+    if cfg.model.name not in SEQUENCE_MODELS:
+        return cli.build_model(cfg, seed, device)
+    kw = {"mid_channels": cfg.model.n_feats}
+    if cfg.model.num_blocks:
+        kw["num_blocks"] = cfg.model.num_blocks
+    model = (FTVSRNet if cfg.model.name == "ftvsr" else TTVSRNet)(**kw)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
 
 
 def build_dataset(cfg):
@@ -69,20 +94,30 @@ def build_dataset(cfg):
 
 
 def sample_batch(rng: np.random.Generator, dataset, batch_size: int,
-                 lr_patch: int):
+                 lr_patch: int, sequence: bool = False):
     """(lrs (B, T, C, p, p), gt (B, C, 4p, 4p)) float32, drawn as the JAX
     package's ``train.sample_batch`` draws them: a window of the clip
-    folders, or a septuplet of a dataset without windows (Vimeo-90K).
-    :func:`main` draws one batch and drops it before its loop, as the JAX
-    CLI draws the batch that initialises its state, so step i of both
-    trains on the same batch."""
-    draw = getattr(dataset, "sample_train_window", None) or \
-        dataset.sample_train
+    folders, or a septuplet of a dataset without windows (Vimeo-90K); with
+    ``sequence`` (FTVSR, TTVSR) a window with the GT of every frame, gt
+    (B, T, C, 4p, 4p).  :func:`main` draws one batch and drops it before
+    its loop, as the JAX CLI draws the batch that initialises its state,
+    so step i of both trains on the same batch."""
+    if sequence:
+        if not hasattr(dataset, "sample_train_sequence"):
+            raise ValueError(
+                f"{type(dataset).__name__} has no per-frame GT windows "
+                "(sample_train_sequence), which FTVSR and TTVSR train on: "
+                "give the clip folders, without a meta file")
+        draw, gt_axes = dataset.sample_train_sequence, (0, 3, 1, 2)
+    else:
+        draw = getattr(dataset, "sample_train_window", None) or \
+            dataset.sample_train
+        gt_axes = (2, 0, 1)
     lrs, gts = [], []
     for _ in range(batch_size):
         lr, gt = draw(rng, lr_patch)
         lrs.append(np.transpose(lr, (0, 3, 1, 2)))
-        gts.append(np.transpose(gt, (2, 0, 1)))
+        gts.append(np.transpose(gt, gt_axes))
     return np.stack(lrs), np.stack(gts)
 
 
@@ -91,8 +126,9 @@ def run_eval(model, cfg, val_lr_root: str, val_gt_root: str,
              device) -> float:
     """The mean PSNR of the model's SR over the first 8 windows of the first
     validation sequence (the JAX CLI's ``run_eval``: SR clipped to [0, 255],
-    against the GT frame, on every channel).  The model runs in eval mode
-    on ``device``, one window a forward, and returns to train mode."""
+    against the GT frame, on every channel; FTVSR's and TTVSR's SR is the
+    centre frame of their output).  The model runs in eval mode on
+    ``device``, one window a forward, and returns to train mode."""
     ds = ClipFolderDataset(lr_root=val_lr_root, gt_root=val_gt_root,
                            window=cfg.model.num_frames,
                            grayscale=cfg.model.in_channels == 1)
@@ -101,6 +137,8 @@ def run_eval(model, cfg, val_lr_root: str, val_gt_root: str,
     for i, window, gt in ds.iter_test_windows(ds.sequences[0]):
         x = np.transpose(window.astype(np.float32) / 255.0, (0, 3, 1, 2))
         sr = model(torch.from_numpy(x[None]).to(device))[0]
+        if cfg.model.name in SEQUENCE_MODELS:
+            sr = sr[sr.shape[0] // 2]
         sr255 = np.clip(sr.float().cpu().numpy().transpose(1, 2, 0) * 255,
                         0, 255)
         psnrs.append(calculate_psnr(sr255, gt.astype(np.float32)))
@@ -147,9 +185,9 @@ def _config(args) -> ExperimentConfig:
             setattr(getattr(cfg, section) if section else cfg, key, value)
     if args.seed is not None:
         cfg.train.seed = args.seed
-    if cfg.model.name not in ("fcvsr", "fcvsr_s"):
-        raise ValueError(f"the port trains fcvsr and fcvsr_s, not "
-                         f"{cfg.model.name}")
+    if cfg.model.name not in ("fcvsr", "fcvsr_s") + SEQUENCE_MODELS:
+        raise ValueError(f"the port trains fcvsr, fcvsr_s, ftvsr and ttvsr, "
+                         f"not {cfg.model.name}")
     return cfg
 
 
@@ -217,11 +255,13 @@ def main(argv=None) -> dict:
         start = restore_checkpoint(ckpt_dir, state)
 
     dataset = build_dataset(cfg)
+    sequence = cfg.model.name in SEQUENCE_MODELS
     # as in the JAX CLI, the data stream starts from the seed on every run,
     # resumed runs included, and its first batch (JAX initialises its state
     # with it) is not trained on
     rng = np.random.default_rng(cfg.train.seed)
-    sample_batch(rng, dataset, cfg.data.batch_size, cfg.data.lr_patch)
+    sample_batch(rng, dataset, cfg.data.batch_size, cfg.data.lr_patch,
+                 sequence)
     step = make_train_step(state, cfg.train.loss)
     timed = device.type == "cuda"
     evals = bool(args.val_lr_root and args.val_gt_root)
@@ -232,7 +272,8 @@ def main(argv=None) -> dict:
         log = csv.writer(f)
         for it in range(start, cfg.train.total_iters):
             lrs, gt = (torch.from_numpy(a).to(device) for a in sample_batch(
-                rng, dataset, cfg.data.batch_size, cfg.data.lr_patch))
+                rng, dataset, cfg.data.batch_size, cfg.data.lr_patch,
+                sequence))
             if timed:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()

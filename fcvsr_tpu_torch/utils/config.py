@@ -1,12 +1,14 @@
-"""Experiment configuration and the FCVSR presets (the port's own copy of
-``fcvsr_tpu.utils.config``, for the two models the port runs).
+"""Experiment configuration and the FCVSR and FTVSR presets (the port's
+own copy of ``fcvsr_tpu.utils.config``, for the models the port trains).
 
 One dataclass covers the reference's config axes {model} x {dataset} x
 {QP}.  The presets reproduce the shipped FCVSR configs
 (configs/restorers/fcvsr/fcvsr[_s]_{cvcp,reds,vimeo}LD_QP{22,27,32,37}.py):
 the CVCP ones follow the CVSR_train recipe (Y, Adam 0.5e-5 / 1e-4,
 MultiStepLR, Charbonnier-sum), the REDS / Vimeo ones the mmedit recipe
-(RGB, Adam 2e-4, CosineRestart, Charbonnier-mean).
+(RGB, Adam 2e-4, CosineRestart, Charbonnier-mean); and the 7 FTVSR
+configs (configs/restorers/ftvsr/: RGB, 7-frame segments, Adam 2e-4,
+CosineRestart, Charbonnier-mean, batch 1, LR patches of 64).
 """
 
 from __future__ import annotations
@@ -21,10 +23,11 @@ __all__ = ["ExperimentConfig", "preset", "PRESET_NAMES"]
 
 @dataclass
 class ModelConfig:
-    name: str = "fcvsr"           # fcvsr | fcvsr_s
+    name: str = "fcvsr"           # fcvsr | fcvsr_s | ftvsr | ttvsr
     n_feats: int = 64
     in_channels: int = 3          # 1 = Y (CVCP), 3 = RGB (REDS/Vimeo)
     num_frames: int = 7
+    num_blocks: int = 0           # recurrent trunk depth (0 = model default)
 
 
 @dataclass
@@ -101,15 +104,50 @@ class ExperimentConfig:
 _QPS = (22, 27, 32, 37)
 _MODELS = ("fcvsr", "fcvsr_s")
 _DATASETS = ("cvcp", "reds", "vimeo")
+# the 7 reference FTVSR configs (configs/restorers/ftvsr/)
+_FTVSR_PRESETS = (
+    "ftvsr_cvcp", "ftvsr_cvcpLD_QP22", "ftvsr_cvcpLD_QP27",
+    "ftvsr_cvcpLD_QP32", "ftvsr_cvcpLD_QP37", "ftvsr_reds4",
+    "ftvsr_vimeo90k",
+)
 
 PRESET_NAMES = [f"{m}_{d}LD_QP{q}" for m in _MODELS for d in _DATASETS
-                for q in _QPS]
+                for q in _QPS] + list(_FTVSR_PRESETS)
+
+
+def _ftvsr_preset(name: str) -> ExperimentConfig:
+    """An FTVSR recipe: RGB, 7-frame training segments (the reference
+    trains longer REDS segments), Adam 2e-4, CosineRestart,
+    Charbonnier-mean, batch 1, LR patches of 64 (GT 256); the dataset (and
+    a CVCP config's QP) from the name."""
+    cfg = ExperimentConfig(name=name)
+    cfg.model.name = "ftvsr"
+    cfg.model.in_channels = 3
+    cfg.model.num_frames = 7
+    if "cvcp" in name:
+        cfg.data.dataset = "cvcp"
+        if "QP" in name:
+            cfg.data.qp = int(name.rsplit("QP", 1)[1])
+    elif "reds" in name:
+        cfg.data.dataset = "reds"
+    else:
+        cfg.data.dataset = "vimeo"
+    cfg.train.lr = 2e-4
+    cfg.train.schedule = "cosine_restart"
+    cfg.train.loss = "charbonnier_mean"
+    cfg.data.batch_size = 1
+    cfg.data.lr_patch = 64
+    return cfg
 
 
 def preset(name: str) -> ExperimentConfig:
-    """The preset ``fcvsr[_s]_{cvcp,reds,vimeo}LD_QP{22,27,32,37}``."""
+    """The preset ``fcvsr[_s]_{cvcp,reds,vimeo}LD_QP{22,27,32,37}``, or one
+    of the 7 FTVSR configs (``ftvsr_cvcp[LD_QP*]``, ``ftvsr_reds4``,
+    ``ftvsr_vimeo90k``)."""
     if name not in PRESET_NAMES:
         raise KeyError(f"unknown preset {name}; options: {PRESET_NAMES[:4]}...")
+    if name in _FTVSR_PRESETS:
+        return _ftvsr_preset(name)
     head, qp = name.rsplit("_QP", 1)
     model, ds = head.rsplit("_", 1)
     cfg = ExperimentConfig(name=name)

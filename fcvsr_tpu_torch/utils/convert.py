@@ -3,9 +3,13 @@
 
 FCVSR's names map through :func:`flax_to_torch_key`, the port's own copy of
 the JAX package's key map; the zoo's (EDVR, BasicVSR, BasicVSR++, IconVSR,
-TDAN, SPyNet) through patterns onto mmedit's names.  Kernels and DCN weights go from HWIO to OIHW,
-PReLU's ``alpha`` becomes ``weight`` (1,) and DivEnh's ``a``/``b`` become
-(C, 1, 1).
+TDAN, FTVSR, TTVSR, SPyNet) through patterns onto mmedit's names.  Kernels
+and DCN weights go from HWIO to OIHW, PReLU's ``alpha`` becomes ``weight``
+(1,) and DivEnh's ``a``/``b`` become (C, 1, 1).  FTVSR's attention
+(``FTTALayer``) keeps torch's layout: a dense kernel (in, out) becomes a
+``Linear`` weight (out, in), the three input projections pack into
+``mha.in_proj_weight`` / ``in_proj_bias`` in q, k, v order, ``attn_out``
+becomes ``mha.out_proj`` and a LayerNorm's ``scale`` its ``weight``.
 
 :func:`block_rcb_args_from_jax` and :func:`block_rcb_args` give the
 arguments of the BlockRCB level kernel (``ops.fused_blockrcb.block_rcb``)
@@ -170,6 +174,55 @@ _TDAN = [
     (r"final", "reconstruct.4")]
 
 
+_TRUNK = r"(feat_extractor|resblocks|ftt_feat|ftt_res)"
+_FTVSR = _TAIL + _SPYNET_IN + [
+    (rf"{_TRUNK}/input_conv", r"\1.main.0"),
+    (rf"{_TRUNK}/block(\d+)/(conv[12])", r"\1.main.2.\2.\3"),
+    (r"LTAM/fusion", "LTAM.fusion"),
+    (r"(fusion|conv_layer[12]|ftt_fusion[01])", r"\1")]
+_FTTA_LINEAR = ("layer_q", "layer_k", "layer_v", "linear1", "linear2")
+
+
+def _tensor(v) -> torch.Tensor:
+    return torch.from_numpy(np.array(v, np.float32))
+
+
+def _ftta_state_dict(tree: Mapping,
+                     prefix: str = "") -> Dict[str, torch.Tensor]:
+    """A flax ``FTTALayer``'s params as the port's, under ``prefix``."""
+    known = set(_FTTA_LINEAR) | {"in_proj_q", "in_proj_k", "in_proj_v",
+                                 "attn_out", "norm1", "norm2"}
+    for name, sub in tree.items():
+        leaves = {"scale", "bias"} if name.startswith("norm") \
+            else {"kernel", "bias"}
+        if name not in known or set(sub) != leaves:
+            raise KeyError(f"no port key for JAX param {prefix}{name}/"
+                           f"{sorted(sub)}")
+    out = {}
+    for name, torch_name in [(n, n) for n in _FTTA_LINEAR] + [
+            ("attn_out", "mha.out_proj")]:
+        out[f"{prefix}{torch_name}.weight"] = _tensor(tree[name]["kernel"]).t()
+        out[f"{prefix}{torch_name}.bias"] = _tensor(tree[name]["bias"])
+    out[f"{prefix}mha.in_proj_weight"] = torch.cat(
+        [_tensor(tree[f"in_proj_{n}"]["kernel"]).t() for n in "qkv"])
+    out[f"{prefix}mha.in_proj_bias"] = torch.cat(
+        [_tensor(tree[f"in_proj_{n}"]["bias"]) for n in "qkv"])
+    for name in ("norm1", "norm2"):
+        out[f"{prefix}{name}.weight"] = _tensor(tree[name]["scale"])
+        out[f"{prefix}{name}.bias"] = _tensor(tree[name]["bias"])
+    return {k: v.contiguous() for k, v in out.items()}
+
+
+def _ftvsr_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """FTVSRNet / TTVSRNet: the convs by pattern, the attention by
+    :func:`_ftta_state_dict`."""
+    out = _zoo_state_dict({k: v for k, v in tree.items() if k != "ftta"},
+                          _FTVSR)
+    if "ftta" in tree:
+        out.update(_ftta_state_dict(tree["ftta"], "ftta."))
+    return out
+
+
 def _zoo_key(patterns, path: str) -> str | None:
     """The port module name of a flax module path, or None."""
     for pat, template in patterns:
@@ -195,11 +248,14 @@ def _zoo_state_dict(tree: Mapping, patterns) -> Dict[str, torch.Tensor]:
 
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
-    TDANNet or SpyNet param tree (``{'params': ...}`` or its inside,
-    numpy-convertible leaves; the model is told by its top-level names)
-    onto the port's ``state_dict`` keys.  Raises ``KeyError`` on a param it
-    cannot map."""
+    TDANNet, FTVSRNet (TTVSRNet) or SpyNet param
+    tree (``{'params': ...}`` or its inside, numpy-convertible leaves; the
+    model is told by its top-level names) onto the port's ``state_dict``
+    keys.  Raises ``KeyError`` on a param it cannot map."""
     tree = params.get("params", params)
+    # FTVSR has a SpyNet too: its marker goes first
+    if "LTAM" in tree:
+        return _ftvsr_state_dict(tree)
     for marker, patterns in (("pcd_alignment", _EDVR), ("edvr", _ICONVSR),
                              ("align_1", _TDAN), ("backward", _BASICVSR),
                              ("spynet", _BASICVSR_PP), ("level0", _SPYNET)):

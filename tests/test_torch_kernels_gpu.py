@@ -1356,7 +1356,9 @@ def test_small_model_bf16_gpu_matches_cpu(cuda):
 # card against the CPU at 1e-3, with the DCN launches a forward (BasicVSR
 # none; IconVSR 4 a keyframe, its refill's PCD; TDAN 4, the neighbours one
 # batch) and, for the two with DCNs, one step's gradients as
-# test_zoo_model_gpu_grads_match_cpu holds EDVR's and BasicVSR++'s
+# test_zoo_model_gpu_grads_match_cpu holds EDVR's and BasicVSR++'s; FTVSR
+# and TTVSR (no kernel) over 5 frames, keyframes every 2, so that LTAM
+# chooses between 2 keyframes at 4 steps of each direction
 MORE_ZOO = {
     "BasicVSRNet": (dict(mid_channels=16, num_blocks=1), (1, 4, 3, 64, 64),
                     0),
@@ -1364,7 +1366,15 @@ MORE_ZOO = {
                 (1, 6, 3, 64, 64), 4 * 3),
     "TDANNet": (dict(mid_channels=16, num_blocks_before_align=1,
                      num_blocks_after_align=1), (2, 5, 3, 20, 28), 4),
+    "FTVSRNet": (dict(mid_channels=16, num_blocks=1, d_model=16, n_heads=4,
+                      keyframe_stride=2), (1, 5, 3, 64, 64), 0),
+    "TTVSRNet": (dict(mid_channels=16, num_blocks=1, keyframe_stride=2),
+                 (1, 5, 3, 64, 64), 0),
 }
+# gradients that are 0 in exact arithmetic (a softmax ignores one vector
+# added to every key): rounding on both devices, held to 1e-6 of the whole
+# gradient's norm instead of the per-tensor bar
+ZERO_GRADS = ("ftta.layer_k.bias",)
 
 
 def _more_zoo(name):
@@ -1404,7 +1414,7 @@ def test_more_zoo_models_gpu_match_cpu(cuda, name):
         assert float((g.cpu() - r).abs().max()) <= 1e-3
 
 
-@pytest.mark.parametrize("name", ["IconVSR", "TDANNet"])
+@pytest.mark.parametrize("name", ["IconVSR", "TDANNet", "FTVSRNet"])
 def test_more_zoo_models_gpu_grads_match_cpu(cuda, name):
     model, x, dcns = _more_zoo(name)
     gt = torch.from_numpy(np.random.default_rng(16).uniform(
@@ -1420,10 +1430,14 @@ def test_more_zoo_models_gpu_grads_match_cpu(cuda, name):
     assert after["dcn"] - before["dcn"] == dcns
     assert after["dcn_bwd"] - before["dcn_bwd"] == dcns
     got = {k: p.grad.cpu() for k, p in model.named_parameters()}
+    norm = float(torch.cat([r.flatten() for r in ref.values()]).norm())
+    for k in ZERO_GRADS:
+        if k in ref:
+            assert max(float(ref[k].norm()), float(got[k].norm())) <= \
+                1e-6 * norm
     rel = {k: float((got[k] - r).norm() / r.norm()) for k, r in ref.items()
-           if r.any()}
+           if r.any() and k not in ZERO_GRADS}
     whole = float(torch.cat([(got[k] - r).flatten() for k, r in
-                             ref.items()]).norm()
-                  / torch.cat([r.flatten() for r in ref.values()]).norm())
+                             ref.items()]).norm()) / norm
     assert whole <= 1e-3 and float(np.median(list(rel.values()))) <= 1e-3
     assert max(rel.values()) <= 5e-2, max(rel.items(), key=lambda kv: kv[1])
