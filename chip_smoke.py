@@ -141,6 +141,26 @@ Phases, one line or more each:
      hold wgmma (HGMMA) and TMA tensor loads (UTMALDG) and no mma.sync or
      ldmatrix, the window kernel's six instantiations TMA tensor loads,
      the copy kernel TMA bulk copies (UBLKCP), and none cp.async (LDGSTS);
+  7d. the GAN family (``gan_models``), seeded weights at the presets' full
+     widths, on the card against the CPU: RealBasicVSR at 1 x 7 x 3 x 64 x
+     96 with the default cleaning threshold (1 pass) and with 0 (3), its
+     SR and cleaned frames; GLEAN 32 -> 256 (RRDB 64 x 23, style 512,
+     channel multiplier 2); DIC 16 -> 128 (4 steps: every step's SR and
+     heatmaps); the U-Net at 256^2, StyleGAN2's discriminator at 256 and
+     LightCNN at 128, each output's max abs error over its max against
+     GAN_RTOL; one ``GANRestorer`` step a family, the generator's and the
+     discriminator's gradients (whole, median, worst tensor); each
+     generator's forward at its preset's batch and patch (CUDA events,
+     median of 5 after 2 warm-ups) and its peak; no kernel launched;
+  7e. GAN training (``gan_train``): ``fcvsr_tpu_torch.train.cli`` on each
+     of the 5 GAN presets (GAN_TRAIN: RealBasicVSR, GLEAN and DICGAN 1 + 3
+     steps with a resume, the ``wogan`` and ``dic_celeba`` recipes a step)
+     at its own batch and patch, RealBasicVSR's LQ made from synthetic
+     256^2 GT clips by the degradation chain, GLEAN on 32 / 256 and DIC on
+     16 / 128 pairs: finite losses, ms per step (CUDA events), the host's
+     seconds a step in sampling and in the chain, the peak, the
+     checkpoint's keys after the resume, no kernel launched; then one
+     profiled step each (device idle share);
   8. the seconds each phase took, a JSON line of the kernels (launches
      from the run of the path that launches each: FCVSR training for
      FCVSR's, fast serving with the
@@ -2134,6 +2154,285 @@ def phase_modes(torch, card):
     del model, clip
 
 
+# the GAN family: its models' GPU vs CPU output, over the output's max
+# (DIC's float32 evaluation is itself 3e-4 of its max from float64 on the
+# CPU, tests/test_torch_gan_models.py; so MODEL_ATOL's 1e-3 for all)
+GAN_RTOL = 1e-3
+# train/cli.py on each GAN preset: the totals of steps of its runs (each
+# run after the first resumes the one before)
+GAN_TRAIN = {"realbasicvsr_reds": (1, 4), "glean_cat_8x": (1, 4),
+             "dic_gan_celeba": (1, 4), "realbasicvsr_wogan_reds": (1,),
+             "dic_celeba": (1,)}
+# the synthetic clips they train on: (data, LR side, scale)
+GAN_DATA = {"realbasicvsr": ("rbv", 64, 4), "glean": ("glean", 32, 8),
+            "dic": ("dic", 16, 8)}
+
+
+def gan_check(torch, label: str, got, ref, bar: float = GAN_RTOL) -> dict:
+    """The max abs error of ``got`` (any device) against ``ref`` (CPU) over
+    ``ref``'s max, failing above ``bar``."""
+    got = got.detach().float().cpu()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    rel = err / max(scale, 1e-12)
+    if got.shape != ref.shape or not rel <= bar:
+        fail(f"{label}: GPU vs CPU {rel} of max |out| (bar {bar}), shapes "
+             f"{tuple(got.shape)} {tuple(ref.shape)}")
+    return dict(max_abs_err=err, max_abs=scale, rel_err=rel, bar=bar)
+
+
+def gan_grads(torch, restorer, lq, gt) -> dict:
+    """The generator's and the discriminator's gradients of one
+    ``GANRestorer`` step (the generator's loss first, D frozen; then D's
+    loss on the detached SR), by tensor, on the CPU."""
+    gen, disc = restorer.generator, restorer.discriminator
+    for m in (gen, disc):
+        m.zero_grad(set_to_none=True)
+    disc.requires_grad_(False)
+    loss, _, sr = restorer.generator_loss(lq, gt)
+    loss.backward()
+    disc.requires_grad_(True)
+    restorer.disc_loss(sr, gt)[0].backward()
+    return {f"{tag}.{k}": None if p.grad is None else p.grad.cpu()
+            for tag, m in (("G", gen), ("D", disc))
+            for k, p in m.named_parameters()}
+
+
+def phase_gan_models(torch, dev):
+    """The GAN family at the presets' full widths, seeded weights, on the
+    card against the CPU: RealBasicVSR (mid 64, 20 + 20 blocks) at 1 x 7 x
+    3 x 64 x 96 with the default threshold (1 cleaning pass) and with 0
+    (3), its SR and cleaned frames; GLEAN 32 -> 256 (RRDB 64 x 23, style
+    512, channel multiplier 2); DIC 16 -> 128 (mid 64, 6 blocks, 68
+    keypoints, 4 steps: every step's SR and heatmaps); the U-Net at 256^2,
+    StyleGAN2's discriminator at 256 and LightCNN at 128.  Then one
+    ``GANRestorer`` step of each family (the preset's discriminator), its
+    generator's and discriminator's gradients on the card against the
+    CPU's (the whole, the median and the worst tensor); then each
+    generator's forward at its preset's batch and patch (CUDA events,
+    median of 5 after 2 warm-ups) and its peak memory.  No kernel of
+    ``ops.launch_counts()`` lies on these paths."""
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.models import (LightCNN, StyleGAN2Discriminator,
+                                        UNetDiscriminatorWithSpectralNorm,
+                                        init_weights)
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.train import cli as train_cli
+    from fcvsr_tpu_torch.utils.config import preset
+
+    cpu = torch.device("cpu")
+    reset_launch_counts()
+
+    def data(seed, *shape):
+        return torch.from_numpy(np.random.default_rng(seed).uniform(
+            0, 1, shape).astype(np.float32))
+
+    # RealBasicVSR on both sides of its cleaning threshold
+    rbv = preset("realbasicvsr_reds")
+    x = data(20, 1, 7, 3, 64, 96)
+    for thres, passes in ((255.0, 1), (0.0, 3)):
+        model = train_cli.build_model(rbv, 0, cpu).eval()
+        model.dynamic_refine_thres = thres
+        with torch.no_grad():
+            ref, ref_lq = model(x, return_lqs=True)
+            p_cpu = model.cleaning_passes
+            got, got_lq = model.to(dev)(x.to(dev), return_lqs=True)
+            p_gpu = model.cleaning_passes
+        say("gan_models", model="RealBasicVSRNet", threshold=thres,
+            shape=list(x.shape), passes=[p_cpu, p_gpu],
+            sr=gan_check(torch, "RealBasicVSR SR", got, ref),
+            cleaned=gan_check(torch, "RealBasicVSR cleaned", got_lq, ref_lq))
+        if p_cpu != passes or p_gpu != passes:
+            fail(f"RealBasicVSR at threshold {thres}: {p_cpu} cleaning "
+                 f"passes on the CPU, {p_gpu} on the card, expected {passes}")
+        del model
+    # GLEAN and DIC
+    for name, shape in (("glean_cat_8x", (1, 3, 32, 32)),
+                        ("dic_gan_celeba", (1, 3, 16, 16))):
+        cfg = preset(name)
+        model = train_cli.build_model(cfg, 0, cpu).eval()
+        x = data(21, *shape)
+        with torch.no_grad():
+            ref = model(x)
+            got = model.to(dev)(x.to(dev))
+        if isinstance(ref, tuple):    # DIC: every step's SR and heatmaps
+            checks = {f"{kind}{k}": gan_check(torch, f"DIC {kind} {k}", g, r)
+                      for kind, rs, gs in (("sr", ref[0], got[0]),
+                                           ("heatmap", ref[1], got[1]))
+                      for k, (r, g) in enumerate(zip(rs, gs))}
+        else:
+            checks = {"sr": gan_check(torch, name, got, ref)}
+        say("gan_models", model=type(model).__name__, preset=name,
+            shape=list(x.shape), params=sum(p.numel()
+                                           for p in model.parameters()),
+            **checks)
+        del model
+    # the discriminators
+    for disc, shape in ((UNetDiscriminatorWithSpectralNorm(), (1, 256, 256, 3)),
+                        (StyleGAN2Discriminator(256), (2, 256, 256, 3)),
+                        (LightCNN(), (2, 128, 128, 3))):
+        disc = init_weights(disc, torch.Generator().manual_seed(1)).eval()
+        x = data(22, *shape)
+        with torch.no_grad():
+            ref = disc(x)
+            got = disc.to(dev)(x.to(dev))
+        say("gan_models", model=type(disc).__name__, shape=list(shape),
+            logits=gan_check(torch, type(disc).__name__, got, ref))
+        del disc
+    # one GANRestorer step a family: gradients on the card against the CPU
+    for name, lq_shape, gt_shape in (
+            ("realbasicvsr_reds", (1, 3, 3, 64, 64), (1, 3, 3, 256, 256)),
+            ("glean_cat_8x", (1, 3, 32, 32), (1, 3, 256, 256)),
+            ("dic_gan_celeba", (1, 3, 16, 16), (1, 3, 128, 128))):
+        cfg = preset(name)
+        lq, gt = data(23, *lq_shape), data(24, *gt_shape)
+        ref = gan_grads(torch, train_cli.gan_trainer(cfg, cpu)[0], lq, gt)
+        got = gan_grads(torch, train_cli.gan_trainer(cfg, dev)[0],
+                        lq.to(dev), gt.to(dev))
+        out = {}
+        for tag in ("G", "D"):
+            part = lambda d: {k: v for k, v in d.items()
+                              if k.startswith(tag + ".")}
+            whole, median, worst, over = deviation(part(got), part(ref))
+            out[tag] = dict(whole_rel_err=whole, median_rel_err=median,
+                            max_rel_err=worst, over_grad_rtol=over,
+                            tensors=sum(v is not None
+                                        for v in part(ref).values()))
+            if not (whole <= GRAD_RTOL and median <= GRAD_RTOL
+                    and worst <= FLIP_RTOL):
+                fail(f"{name} {tag}: GPU vs CPU gradients beyond the "
+                     f"bounds: {out[tag]}")
+        say("gan_grads", preset=name, lq=list(lq_shape), gt=list(gt_shape),
+            grad_rtol=GRAD_RTOL, flip_rtol=FLIP_RTOL, **out)
+    # each generator's forward at its preset's batch and patch
+    for name, shape in (("realbasicvsr_reds", (2, 7, 3, 64, 64)),
+                        ("glean_cat_8x", (2, 3, 32, 32)),
+                        ("dic_gan_celeba", (2, 3, 16, 16))):
+        model = train_cli.build_model(preset(name), 0, dev).eval()
+        x = data(25, *shape).to(dev)
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            ms = profiling.cuda_ms([lambda: model(x)], reps=5, warmup=2)[0]
+            peak = torch.cuda.max_memory_allocated()
+        say("gan_forward", model=type(model).__name__, preset=name,
+            shape=list(shape), ms=ms, max_memory_allocated=peak,
+            card=nvidia_smi())
+        del model
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"GAN models: kernels launched on a path that has none: "
+             f"{counts}")
+
+
+def write_pair_clip(torch, root: str, n: int, lr: int, scale: int) -> None:
+    """A smooth random RGB clip of n frames as PNGs: GT (lr * scale)^2
+    (``smooth_clip`` plus noise), LR its block mean."""
+    from PIL import Image
+
+    side = lr * scale
+    rng = np.random.default_rng(26)
+    for i, frame in enumerate(smooth_clip(torch, 26, n, side, side)):
+        gt = np.clip(frame * 255 + rng.normal(0, 4, frame.shape), 0, 255)
+        low = gt.reshape(lr, scale, lr, scale, 3).mean((1, 3))
+        for sub, img in (("lr", low), ("gt", gt)):
+            d = os.path.join(root, sub, "clip")
+            os.makedirs(d, exist_ok=True)
+            Image.fromarray(img.round().astype(np.uint8)).save(
+                os.path.join(d, f"{i:08d}.png"))
+
+
+def phase_gan_train(torch, card):
+    """``train/cli.py`` trains each GAN preset on the card at its own
+    width, batch and patch (GAN_TRAIN's runs; RealBasicVSR on synthetic
+    256^2 GT clips of 8 frames, its LQ made by the degradation chain;
+    GLEAN on 32 / 256 pairs, DIC on 16 / 128): the losses (finite), ms per
+    step (CUDA events), the host seconds a step spends sampling and, for
+    RealBasicVSR, in the degradation chain, the peak memory, the
+    checkpoint's keys after the resume, and no kernel launched; then one
+    ``torch.profiler`` step of each recipe (device idle share)."""
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.train import cli as train_cli
+    from fcvsr_tpu_torch.utils.checkpoint import latest_checkpoint
+    from fcvsr_tpu_torch.utils.config import preset
+
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for data, lr, scale in GAN_DATA.values():
+            write_pair_clip(torch, os.path.join(tmp, data), 8, lr, scale)
+        for name, totals in GAN_TRAIN.items():
+            cfg = preset(name)
+            data = os.path.join(tmp, GAN_DATA[cfg.model.name][0])
+            args = ["--preset", name, "--lr-root", os.path.join(data, "lr"),
+                    "--gt-root", os.path.join(data, "gt"),
+                    "--work-dir", os.path.join(tmp, "work")]
+            t0 = time.perf_counter()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            outs = [train_cli.main(args + ["--total-iters", str(n)])
+                    for n in totals]
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            peak = torch.cuda.max_memory_allocated()
+            for start, out, n in zip((0,) + totals, outs, totals):
+                if (out["start"], out["step"], out["counter"]) != \
+                        (start, n, n):
+                    fail(f"{name}: a run started at {out['start']} and "
+                         f"ended at {out['step']} (counter "
+                         f"{out['counter']}), expected {start} and {n}")
+            logs = [h for out in outs for h in out["logs"]]
+            if not all(math.isfinite(v) for h in logs for v in h.values()):
+                fail(f"{name}: non-finite losses {logs}")
+            if any(counts.values()):
+                fail(f"{name}: kernels launched on a path that has none: "
+                     f"{counts}")
+            ckpt_dir = os.path.join(outs[-1]["work_dir"], "ckpt")
+            keys = sorted(torch.load(latest_checkpoint(ckpt_dir),
+                                     map_location="cpu", weights_only=True,
+                                     mmap=True))
+            want = {"model", "optimizer", "counter", "step"} | (
+                {"discriminator", "d_optimizer"}
+                if cfg.gan.disc != "none" else set())
+            if set(keys) != want:
+                fail(f"{name}: checkpoint keys {keys}, expected "
+                     f"{sorted(want)}")
+            ms = [m for out in outs for m in out["ms_per_step"]]
+            timed = outs[-1]["ms_per_step"]
+            sample_s = [v for out in outs for v in out["sample_seconds"]]
+            degrade_s = [v for out in outs for v in out["degrade_seconds"]]
+            say("gan_train", preset=name, entry="train/cli.py",
+                batch=cfg.data.batch_size, lr_patch=cfg.data.lr_patch,
+                frames=cfg.model.num_frames if cfg.model.name ==
+                "realbasicvsr" else 1, runs=list(totals),
+                resumed_at=[out["start"] for out in outs],
+                loss_g=[h["loss_g"] for h in logs],
+                loss_d=[h.get("loss_d") for h in logs], ms_per_step=ms,
+                ms_median_resumed=float(np.median(timed)),
+                sample_s_per_step=sample_s,
+                degrade_s_per_step=degrade_s,
+                max_memory_allocated=peak, checkpoint_keys=keys,
+                launches=counts, cli_seconds=seconds, card=card)
+            # one profiled step of the recipe, on a random batch of its
+            # shapes (the host's sampling is not in the profile)
+            restorer, g_opt, d_opt = train_cli.gan_trainer(cfg, dev)
+            step = restorer.make_train_step(g_opt, d_opt)
+            b, p = cfg.data.batch_size, cfg.data.lr_patch
+            s = train_cli.gan_scale(cfg)
+            lead = (b, cfg.model.num_frames, 3) \
+                if cfg.model.name == "realbasicvsr" else (b, 3)
+            rng = np.random.default_rng(27)
+            lq, gt = (torch.from_numpy(rng.uniform(0, 1, lead + (n, n))
+                                       .astype(np.float32)).to(dev)
+                      for n in (p, s * p))
+            prof = profiling._profile(lambda: step(lq, gt), dev, 1)
+            prof["kernels"] = prof["kernels"][:10]
+            say("gan_train_profile", preset=name, card=card, **prof)
+            del restorer, g_opt, d_opt, step
+
+
 def phase_probe(torch):
     """The toolchain probe in its own process: every probe must pass.
     Returns its kernel's launches (the checked one)."""
@@ -2335,6 +2634,8 @@ def main() -> None:
     train_counts = run("train", phase_train, torch, card)
     run("vimeo_train", phase_vimeo_train, torch, card)
     run("bf16", phase_bf16, torch, card)
+    run("gan_models", phase_gan_models, torch, dev)
+    run("gan_train", phase_gan_train, torch, card)
     ab_counts = {"blockrcb": run("blockrcb_ab", phase_blockrcb_ab, torch)}
     mb_counts, mb_results = run("microbench", phase_microbench, torch)
     results.update(mb_results)

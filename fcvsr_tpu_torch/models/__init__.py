@@ -1,22 +1,34 @@
 """Models of the port (channels-last inside, reference key names): FCVSR
 (with its ETC mode), and the zoo's EDVR, BasicVSR, BasicVSR++, IconVSR,
 TDAN, FTVSR, TTVSR and SPyNet; the restorer that trains and evaluates
-them; and batched sliding-window and tiled serving
-(``models.inference``)."""
+them; batched sliding-window and tiled serving (``models.inference``);
+and the GAN family: RealBasicVSR, GLEAN (on StyleGAN2), DIC, the three
+discriminators and the GAN restorer that trains them."""
 
 from .basicvsr import BasicVSRNet
 from .basicvsr_pp import BasicVSRPlusPlus
+from .dic import DICNet, FeedbackHourglass
+from .discriminators import (LightCNN, ModifiedVGG,
+                             UNetDiscriminatorWithSpectralNorm)
 from .edvr import EDVRNet
 from .fcvsr import MFFR, MGAA, FCVSRNet, fcvsr_etc_forward, init_weights
 from .ftvsr import FTVSRNet, TTVSRNet
+from .gan_restorer import GANRestorer
+from .glean import GLEANStyleGANv2
 from .iconvsr import IconVSR, TDANNet
 from .inference import sliding_window_sr, tiled_sr
+from .real_basicvsr import RealBasicVSRNet
 from .registry import BACKBONES, build
 from .restorers import VideoRestorer, tensor2img
 from .spynet import SpyNet
+from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 
-__all__ = ["BACKBONES", "BasicVSRNet", "BasicVSRPlusPlus", "EDVRNet",
-           "FCVSRNet", "FTVSRNet", "IconVSR", "MGAA", "MFFR", "SpyNet",
-           "TDANNet", "TTVSRNet", "VideoRestorer", "build",
+__all__ = ["BACKBONES", "BasicVSRNet", "BasicVSRPlusPlus", "DICNet",
+           "EDVRNet", "FCVSRNet", "FTVSRNet", "FeedbackHourglass",
+           "GANRestorer", "GLEANStyleGANv2", "IconVSR", "LightCNN", "MGAA",
+           "MFFR", "ModifiedVGG", "RealBasicVSRNet", "SpyNet",
+           "StyleGAN2Discriminator", "StyleGAN2Generator", "TDANNet",
+           "TTVSRNet", "UNetDiscriminatorWithSpectralNorm", "VideoRestorer",
+           "build",
            "fcvsr_etc_forward", "init_weights", "sliding_window_sr",
            "tensor2img", "tiled_sr"]

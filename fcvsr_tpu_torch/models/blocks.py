@@ -26,20 +26,23 @@ __all__ = ["Conv2d", "PReLU", "CALayer", "ConvBlk", "ContextBlock", "RCB",
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` with symmetric ``k // 2`` padding on NHWC tensors, in
-    ``compute_dtype`` (None: the input's type)."""
+    """``nn.Conv2d`` on NHWC tensors, with symmetric ``k // 2`` padding
+    unless ``padding`` is given, in ``compute_dtype`` (None: the input's
+    type)."""
 
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
-                 bias: bool = True, compute_dtype=None):
-        super().__init__(cin, cout, k, stride=stride, padding=k // 2,
-                         bias=bias)
+                 bias: bool = True, compute_dtype=None, groups: int = 1,
+                 padding=None):
+        super().__init__(cin, cout, k, stride=stride,
+                         padding=k // 2 if padding is None else padding,
+                         bias=bias, groups=groups)
         self.compute_dtype = compute_dtype
 
     def forward(self, x):
         dt = self.compute_dtype or x.dtype
         bias = None if self.bias is None else self.bias.to(dt)
         y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt), bias,
-                     self.stride, self.padding)
+                     self.stride, self.padding, 1, self.groups)
         return y.permute(0, 2, 3, 1)
 
 

@@ -528,7 +528,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     conv (zero offsets, mask 0.5); PReLU slopes are 0.25 and DivEnh keeps a = 0,
     b = 1.  Linear layers and an attention's packed input projection get
     U(+-1/sqrt(fan_in)) for weight and bias; LayerNorms keep ones and
-    zeros."""
+    zeros.  Last, a module with an ``init_seeded(generator)`` method (the
+    GAN family's equalised-lr and spectral-norm layers, RRDB's dense
+    blocks, DIC) sets its own parameters and buffers with it."""
     scaled, zeroed = set(), set()
     for mod in model.modules():
         if isinstance(mod, (BlockRCB, RCB, MMResidualBlock)):
@@ -569,4 +571,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, DivEnh):
             mod.a.zero_()
             mod.b.fill_(1.0)
+    for mod in model.modules():
+        if hasattr(mod, "init_seeded"):
+            mod.init_seeded(generator)
     return model

@@ -9,11 +9,17 @@ from typing import Any, Callable, Dict
 
 from .basicvsr import BasicVSRNet
 from .basicvsr_pp import BasicVSRPlusPlus
+from .dic import DICNet, FeedbackHourglass
+from .discriminators import (LightCNN, ModifiedVGG,
+                             UNetDiscriminatorWithSpectralNorm)
 from .edvr import EDVRNet
 from .fcvsr import FCVSRNet
 from .ftvsr import FTVSRNet, TTVSRNet
+from .glean import GLEANStyleGANv2
 from .iconvsr import IconVSR, TDANNet
+from .real_basicvsr import RealBasicVSRNet
 from .spynet import SpyNet
+from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 
 __all__ = ["Registry", "BACKBONES", "build"]
 
@@ -51,4 +57,8 @@ for _cls in (FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
              TDANNet, SpyNet, FTVSRNet):
     BACKBONES.register_obj(_cls.__name__, _cls)
 BACKBONES.register_obj("TTVSRNet", TTVSRNet)
+for _cls in (DICNet, FeedbackHourglass, GLEANStyleGANv2, RealBasicVSRNet,
+             StyleGAN2Generator, StyleGAN2Discriminator, ModifiedVGG,
+             LightCNN, UNetDiscriminatorWithSpectralNorm):
+    BACKBONES.register_obj(_cls.__name__, _cls)
 BACKBONES.register_obj("FCVSR_SNet", FCVSRNet.small)

@@ -1,5 +1,5 @@
-"""Training entry point of the port (counterpart of ``train.py`` for the
-FCVSR, FTVSR and TTVSR models), on one device:
+"""Training entry point of the port (counterpart of ``train.py``: the
+FCVSR, FTVSR and TTVSR models, and the GAN family), on one device:
 
     python -m fcvsr_tpu_torch.train.cli --preset fcvsr_cvcpLD_QP22 \\
         --lr-root LR --gt-root GT --work-dir work_dirs [--total-iters N]
@@ -31,6 +31,24 @@ resumes from the newest checkpoint there unless ``--resume-from`` or
 ``--load-from`` says otherwise.  Weights start random, from the seed.
 MGAA trains with materialised kernels (``k_fused`` is inference only).
 
+RealBasicVSR, GLEAN and DIC (``--preset realbasicvsr_reds``,
+``realbasicvsr_wogan_reds``, ``glean_cat_8x``, ``dic_celeba``,
+``dic_gan_celeba``) train through :func:`run_gan_training`, the JAX CLI's
+``run_gan_training``: a generator and a discriminator (the U-Net,
+StyleGAN2's or LightCNN; none in the ``wogan`` and ``dic_celeba``
+recipes), each with its own constant-lr Adam (``train.lr`` and
+``gan.disc_lr``, ``train.betas``; no schedule, though the presets name
+one), one ``models.GANRestorer`` step a batch.  DIC trains at scale 8,
+GLEAN at ``out_size // in_size``, RealBasicVSR at 4; the image families
+(GLEAN, DIC) take the centre frame of each window.  With
+``data.degradations`` (the RealBasicVSR recipes) the GT clips are read at
+scale 1 and the LQ is made from them by ``data.degradations``'s chain,
+whose generators are seeded from ``train.seed`` (the JAX package draws
+them from the unseeded global streams).  The CSV gets ``step`` and the
+sorted losses every ``log_interval`` steps; checkpoints
+(``utils.checkpoint.save_gan_checkpoint``) every ``ckpt_interval`` and at
+the end; a rerun resumes from the newest.
+
 ``--fast`` and ``--warp-impl`` are the JAX CLI's flags: there they route
 training through the Pallas kernels, both directions.  On the card the
 port always trains through its exact kernels (the IAC iteration, the
@@ -44,6 +62,7 @@ from __future__ import annotations
 import argparse
 import csv
 import os
+import random
 import time
 
 import numpy as np
@@ -52,33 +71,267 @@ import torch
 from .. import cli
 from ..data import ClipFolderDataset, Vimeo90KDataset
 from ..metrics import calculate_psnr
-from ..models import FTVSRNet, TTVSRNet, init_weights
+from ..models import (DICNet, FTVSRNet, GANRestorer, GLEANStyleGANv2,
+                      LightCNN, RealBasicVSRNet, StyleGAN2Discriminator,
+                      TTVSRNet, UNetDiscriminatorWithSpectralNorm,
+                      init_weights)
 from ..utils.checkpoint import (load_weights, restore_checkpoint,
-                                save_checkpoint)
+                                restore_gan_checkpoint, save_checkpoint,
+                                save_gan_checkpoint)
 from ..utils.config import ExperimentConfig, preset
+from .gan_losses import gan_loss
 from .lr_schedule import build_schedule
 from .trainer import TrainState, make_train_step
 
 __all__ = ["main", "sample_batch", "build_dataset", "build_model",
-           "run_eval", "SEQUENCE_MODELS"]
+           "build_discriminator", "gan_scale", "gan_sampler", "gan_trainer",
+           "run_gan_training",
+           "run_eval", "SEQUENCE_MODELS", "GAN_MODELS"]
 
 # the recurrent models that restore (and train on) every frame of a window
 SEQUENCE_MODELS = ("ftvsr", "ttvsr")
+# the models that train through run_gan_training
+GAN_MODELS = ("realbasicvsr", "glean", "dic")
+
+
+def _seeded(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(device)
 
 
 def build_model(cfg, seed: int, device) -> torch.nn.Module:
     """The config's model with seeded random weights, on ``device``, as
     ``train.py::build_model`` builds it: FCVSR through the serving CLI's
     ``build_model``; FTVSR and TTVSR at ``mid_channels = n_feats``, with
-    ``num_blocks`` when the config sets it (else the model's 72 or 60)."""
-    if cfg.model.name not in SEQUENCE_MODELS:
+    ``num_blocks`` when the config sets it (else the model's 72 or 60);
+    RealBasicVSR at ``mid_channels = n_feats`` (``num_blocks`` for both its
+    propagation and cleaning trunks when set); GLEAN at ``in_size`` (32) ->
+    ``out_size`` (256), ``n_feats`` RRDB channels, ``num_blocks`` RRDBs
+    (23); DIC at ``n_feats``, ``hg_num_keypoints``, ``num_steps`` and
+    ``num_blocks`` when set."""
+    m = cfg.model
+    if m.name in SEQUENCE_MODELS:
+        kw = {"mid_channels": m.n_feats}
+        if m.num_blocks:
+            kw["num_blocks"] = m.num_blocks
+        model = (FTVSRNet if m.name == "ftvsr" else TTVSRNet)(**kw)
+    elif m.name == "realbasicvsr":
+        kw = {"mid_channels": m.n_feats}
+        if m.num_blocks:
+            kw["num_propagation_blocks"] = m.num_blocks
+            kw["num_cleaning_blocks"] = m.num_blocks
+        model = RealBasicVSRNet(**kw)
+    elif m.name == "glean":
+        model = GLEANStyleGANv2(in_size=m.in_size or 32,
+                                out_size=m.out_size or 256,
+                                rrdb_channels=m.n_feats,
+                                num_rrdbs=m.num_blocks or 23)
+    elif m.name == "dic":
+        kw = {"mid_channels": m.n_feats,
+              "hg_num_keypoints": m.hg_num_keypoints}
+        if m.num_steps:
+            kw["num_steps"] = m.num_steps
+        if m.num_blocks:
+            kw["num_blocks"] = m.num_blocks
+        model = DICNet(**kw)
+    else:
         return cli.build_model(cfg, seed, device)
-    kw = {"mid_channels": cfg.model.n_feats}
-    if cfg.model.num_blocks:
-        kw["num_blocks"] = cfg.model.num_blocks
-    model = (FTVSRNet if cfg.model.name == "ftvsr" else TTVSRNet)(**kw)
-    init_weights(model, torch.Generator().manual_seed(seed))
-    return model.to(device)
+    return _seeded(model, seed, device)
+
+
+def build_discriminator(cfg, seed: int, device):
+    """The GAN recipe's discriminator with seeded random weights (None for
+    ``gan.disc == 'none'``), as ``train.py::_build_discriminator``: the
+    U-Net at ``max(n_feats, 8)`` channels, StyleGAN2's at ``out_size``
+    (256), or LightCNN."""
+    d = cfg.gan.disc
+    if d == "none":
+        return None
+    if d == "unet_sn":
+        disc = UNetDiscriminatorWithSpectralNorm(
+            mid_channels=max(cfg.model.n_feats, 8))
+    elif d == "stylegan2":
+        disc = StyleGAN2Discriminator(in_size=cfg.model.out_size or 256)
+    elif d == "lightcnn":
+        disc = LightCNN()
+    else:
+        raise ValueError(f"unknown discriminator {d}")
+    return _seeded(disc, seed, device)
+
+
+def gan_scale(cfg) -> int:
+    """The GAN family's SR scale: 8 for DIC, ``out_size // in_size`` for
+    GLEAN, else 4."""
+    if cfg.model.name == "dic":
+        return 8
+    if cfg.model.name == "glean":
+        return (cfg.model.out_size or 256) // (cfg.model.in_size or 32)
+    return 4
+
+
+def gan_sampler(cfg):
+    """``sample(rng) -> (lq, gt)`` float32 numpy batches, as the JAX CLI's
+    ``run_gan_training`` draws them: with ``data.degradations``, GT
+    sequences read at scale 1 (LR patches of ``4 lr_patch``) and their LQ
+    made by the degradation chain, (B, T, 3, p, p) and (B, T, 3, 4p, 4p);
+    else RealBasicVSR's LR / GT sequences, or for the image families the
+    centre LR frame of a window and its GT, (B, 3, p, p) and (B, 3, sp,
+    sp).  The sampler's ``degrade_seconds`` accumulates the host seconds
+    spent in the chain."""
+    from ..data.degradations import (degrade_sequence,
+                                     realbasicvsr_degradation_chain)
+
+    d, t = cfg.data, cfg.model.num_frames
+    video = cfg.model.name == "realbasicvsr"
+    if d.degradations:
+        chain = realbasicvsr_degradation_chain(
+            rs=np.random.RandomState(cfg.train.seed),
+            py_rng=random.Random(cfg.train.seed))
+        ds = ClipFolderDataset(lr_root=d.gt_root, gt_root=d.gt_root,
+                               window=t, scale=1)
+    else:
+        ds = ClipFolderDataset(lr_root=d.lr_root, gt_root=d.gt_root,
+                               window=t, scale=gan_scale(cfg))
+
+    def sample(rng):
+        lqs, gts = [], []
+        for _ in range(d.batch_size):
+            if d.degradations:
+                gt, _ = ds.sample_train_sequence(rng, 4 * d.lr_patch)
+                t0 = time.perf_counter()
+                lq = degrade_sequence(chain, gt, 4)
+                sample.degrade_seconds += time.perf_counter() - t0
+                lqs.append(np.transpose(lq, (0, 3, 1, 2)))
+                gts.append(np.transpose(gt, (0, 3, 1, 2)))
+            elif video:
+                lq, gt = ds.sample_train_sequence(rng, d.lr_patch)
+                lqs.append(np.transpose(lq, (0, 3, 1, 2)))
+                gts.append(np.transpose(gt, (0, 3, 1, 2)))
+            else:
+                lq, gt = ds.sample_train_window(rng, d.lr_patch)
+                lqs.append(np.transpose(lq[lq.shape[0] // 2], (2, 0, 1)))
+                gts.append(np.transpose(gt, (2, 0, 1)))
+        return np.stack(lqs), np.stack(gts)
+
+    sample.degrade_seconds = 0.0
+    return sample
+
+
+def _dic_generator_loss(gen, disc, gan):
+    """DIC's generator loss in the JAX CLI: every feedback step's SR
+    against the GT (L1 times ``pixel_loss_weight``), plus the GAN loss of
+    the last SR when there is a discriminator.  No landmark (align) loss:
+    the folder data has no landmarks."""
+
+    def loss_fn(lq, gt):
+        sr_list, _ = gen(lq)
+        logs, total = {}, 0.0
+        for k, sr in enumerate(sr_list):
+            lp = (sr - gt).abs().mean() * gan.pixel_loss_weight
+            logs[f"loss_pixel_v{k}"] = lp
+            total = total + lp
+        last = sr_list[-1].permute(0, 2, 3, 1)
+        if disc is not None:
+            lg = gan_loss(disc(last), True, gan.gan_type,
+                          loss_weight=gan.gan_loss_weight)
+            total, logs["loss_gan"] = total + lg, lg
+        return total, logs, last.detach()
+
+    return loss_fn
+
+
+def gan_trainer(cfg, device):
+    """(``GANRestorer``, the generator's Adam, the discriminator's or None)
+    of a GAN recipe, the models seeded from ``train.seed`` (the
+    discriminator from ``train.seed + 1``) on ``device``; DIC's restorer
+    takes the JAX CLI's DIC loss (and its defaults otherwise, as there)."""
+    gen = build_model(cfg, cfg.train.seed, device).train()
+    disc = build_discriminator(cfg, cfg.train.seed + 1, device)
+    betas = tuple(cfg.train.betas)
+    g_opt = torch.optim.Adam(gen.parameters(), lr=cfg.train.lr, betas=betas,
+                             eps=1e-8)
+    d_opt = None if disc is None else torch.optim.Adam(
+        disc.parameters(), lr=cfg.gan.disc_lr, betas=betas, eps=1e-8)
+    g = cfg.gan
+    if cfg.model.name == "dic":
+        restorer = GANRestorer(gen, disc, gan_type=g.gan_type)
+        restorer.generator_loss = _dic_generator_loss(gen, disc, g)
+    else:
+        restorer = GANRestorer(
+            gen, disc, gan_type=g.gan_type,
+            gan_loss_weight=g.gan_loss_weight,
+            pixel_loss_weight=g.pixel_loss_weight,
+            cleaning_loss_weight=g.cleaning_loss_weight
+            if cfg.model.name == "realbasicvsr" else 0.0,
+            disc_steps=g.disc_steps, disc_init_steps=g.disc_init_steps,
+            relativistic=g.relativistic)
+    return restorer, g_opt, d_opt
+
+
+def run_gan_training(cfg, args, device) -> dict:
+    """Train a GAN recipe (RealBasicVSR, GLEAN, DIC) as the JAX CLI's
+    ``run_gan_training`` does: the data stream from ``train.seed``, its
+    first batch drawn and dropped (JAX initialises with it), a generator
+    seeded with ``train.seed`` and a discriminator with ``train.seed + 1``,
+    constant-lr Adams, auto-resume from ``<work_dir>/<name>/ckpt``."""
+    if cfg.train.load_from or cfg.train.resume_from:
+        raise ValueError("the GAN trainer resumes from its work dir only "
+                         "(as the JAX CLI's run_gan_training): drop "
+                         "--load-from / --resume-from")
+    work_dir = os.path.join(cfg.work_dir, cfg.name)
+    os.makedirs(work_dir, exist_ok=True)
+    with open(os.path.join(work_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+
+    rng = np.random.default_rng(cfg.train.seed)
+    sample = gan_sampler(cfg)
+    sample(rng)
+    restorer, g_opt, d_opt = gan_trainer(cfg, device)
+    step = restorer.make_train_step(g_opt, d_opt)
+    ckpt_dir = os.path.join(work_dir, "ckpt")
+    start = restore_gan_checkpoint(ckpt_dir, restorer, g_opt, d_opt)
+
+    timed = device.type == "cuda"
+    tb = _make_tb(work_dir, getattr(args, "tensorboard", False))
+    history, events, sample_s, degrade_s = [], [], [], []
+    t0 = time.time()
+    with open(os.path.join(work_dir, "train_log.csv"), "a", newline="") as f:
+        log = csv.writer(f)
+        for it in range(start, cfg.train.total_iters):
+            d0, h0 = sample.degrade_seconds, time.perf_counter()
+            lq, gt = (torch.from_numpy(a).to(device) for a in sample(rng))
+            sample_s.append(time.perf_counter() - h0)
+            degrade_s.append(sample.degrade_seconds - d0)
+            if timed:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+            logs = step(lq, gt)
+            if timed:
+                ev[1].record()
+                events.append(ev)
+            history.append(logs)
+            if (it + 1) % cfg.train.log_interval == 0:
+                vals = {k: float(v) for k, v in sorted(logs.items())}
+                print(f"iter {it + 1}/{cfg.train.total_iters} " + " ".join(
+                    f"{k} {v:.5f}" for k, v in vals.items()), flush=True)
+                log.writerow([it + 1] + list(vals.values()))
+                f.flush()
+                if tb is not None:
+                    for k, v in vals.items():
+                        tb.add_scalar(f"train/{k}", v, it + 1)
+            if (it + 1) % cfg.train.ckpt_interval == 0 or \
+                    it + 1 == cfg.train.total_iters:
+                save_gan_checkpoint(ckpt_dir, it + 1, restorer, g_opt, d_opt)
+    if tb is not None:
+        tb.close()
+    print(f"training complete ({time.time() - t0:.1f}s)", flush=True)
+    return {"start": start, "step": max(start, cfg.train.total_iters),
+            "counter": restorer.counter,
+            "logs": [{k: float(v) for k, v in h.items()} for h in history],
+            "ms_per_step": _ms(events) if timed else None,
+            "sample_seconds": sample_s, "degrade_seconds": degrade_s,
+            "device": torch.cuda.get_device_name(device) if timed else "cpu",
+            "work_dir": work_dir}
 
 
 def build_dataset(cfg):
@@ -185,9 +438,9 @@ def _config(args) -> ExperimentConfig:
             setattr(getattr(cfg, section) if section else cfg, key, value)
     if args.seed is not None:
         cfg.train.seed = args.seed
-    if cfg.model.name not in ("fcvsr", "fcvsr_s") + SEQUENCE_MODELS:
-        raise ValueError(f"the port trains fcvsr, fcvsr_s, ftvsr and ttvsr, "
-                         f"not {cfg.model.name}")
+    if cfg.model.name not in ("fcvsr", "fcvsr_s") + SEQUENCE_MODELS + \
+            GAN_MODELS:
+        raise ValueError(f"unknown model {cfg.model.name}")
     return cfg
 
 
@@ -236,6 +489,8 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda: torch.cuda.is_available() is "
                            "False (pass --device cpu to train on the CPU)")
+    if cfg.model.name in GAN_MODELS:
+        return run_gan_training(cfg, args, device)
     work_dir = os.path.join(cfg.work_dir, cfg.name)
     os.makedirs(work_dir, exist_ok=True)
     with open(os.path.join(work_dir, "config.json"), "w") as f:

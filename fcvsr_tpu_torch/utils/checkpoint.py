@@ -13,6 +13,15 @@ checkpoint (file or directory), full state; ``--load-from`` weights only
 (:func:`load_weights`), with a fresh optimizer at step 0.  The serving CLI
 loads weights the same way (``cli.py --checkpoint`` / ``--torch-checkpoint``).
 
+The GAN trainer's checkpoints (:func:`save_gan_checkpoint`, the JAX
+package's ``save_gan_checkpoint``) are ``iter_<step>.pt`` too: ``{"model":
+the generator's state_dict, "optimizer": its Adam's, "discriminator",
+"d_optimizer": the discriminator's and its Adam's (absent in the
+generator-only ``wogan`` stage), "counter": the restorer's step counter,
+"step"}``; ``read_weights`` reads the generator from one.  The GAN trainer
+auto-resumes from its work dir (:func:`restore_gan_checkpoint`), as the
+JAX CLI does; that path has no ``--load-from`` or ``--resume-from``.
+
 Weights cross to the JAX package under the reference key names, which are
 the port's own: :func:`export_npz` writes them as the ``.npz`` that
 ``fcvsr_tpu.utils.torch_import.convert_torch_state_dict`` (and ``test.py
@@ -29,19 +38,15 @@ import numpy as np
 import torch
 
 __all__ = ["save_checkpoint", "latest_checkpoint", "restore_checkpoint",
-           "load_weights", "read_weights", "export_npz"]
+           "save_gan_checkpoint", "restore_gan_checkpoint", "load_weights",
+           "read_weights", "export_npz"]
 
 _CKPT = re.compile(r"^iter_(\d+)\.pt$")
 
 
 def save_checkpoint(ckpt_dir: str, state) -> str:
     """Write ``state`` (a ``TrainState``) as ``iter_<state.step>.pt``."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, f"iter_{state.step}.pt")
-    tmp = path + ".tmp"
-    torch.save(state.state_dict(), tmp)
-    os.replace(tmp, path)
-    return path
+    return _save(ckpt_dir, state.step, state.state_dict())
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
@@ -67,6 +72,47 @@ def restore_checkpoint(path: str, state, required: bool = False) -> int:
     state.load_state_dict(torch.load(path, map_location="cpu",
                                      weights_only=True))
     return state.step
+
+
+def _save(ckpt_dir: str, step: int, payload: dict) -> str:
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.join(ckpt_dir, f"iter_{step}.pt")
+    tmp = path + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def save_gan_checkpoint(ckpt_dir: str, step: int, restorer, g_opt,
+                        d_opt=None) -> str:
+    """Write a ``GANRestorer``'s generator and discriminator, both Adams,
+    its counter and ``step`` as ``iter_<step>.pt``; the discriminator's
+    entries are left out when it has none."""
+    payload = {"model": restorer.generator.state_dict(),
+               "optimizer": g_opt.state_dict(),
+               "counter": restorer.counter, "step": int(step)}
+    if restorer.discriminator is not None:
+        payload["discriminator"] = restorer.discriminator.state_dict()
+        payload["d_optimizer"] = d_opt.state_dict()
+    return _save(ckpt_dir, step, payload)
+
+
+def restore_gan_checkpoint(path: str, restorer, g_opt, d_opt=None) -> int:
+    """Load a GAN checkpoint file, or a directory's newest, into the
+    restorer and its optimisers; returns the step to start from (0 when a
+    directory holds none)."""
+    if os.path.isdir(path) or not os.path.exists(path):
+        path = latest_checkpoint(path)
+        if path is None:
+            return 0
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    restorer.generator.load_state_dict(sd["model"])
+    g_opt.load_state_dict(sd["optimizer"])
+    if restorer.discriminator is not None:
+        restorer.discriminator.load_state_dict(sd["discriminator"])
+        d_opt.load_state_dict(sd["d_optimizer"])
+    restorer.counter = int(sd["counter"])
+    return int(sd["step"])
 
 
 def _strip(name: str) -> str:

@@ -1,5 +1,6 @@
-"""Experiment configuration and the FCVSR and FTVSR presets (the port's
-own copy of ``fcvsr_tpu.utils.config``, for the models the port trains).
+"""Experiment configuration and the FCVSR, FTVSR and GAN presets (the
+port's own copy of ``fcvsr_tpu.utils.config``, for the models the port
+trains).
 
 One dataclass covers the reference's config axes {model} x {dataset} x
 {QP}.  The presets reproduce the shipped FCVSR configs
@@ -8,7 +9,10 @@ the CVCP ones follow the CVSR_train recipe (Y, Adam 0.5e-5 / 1e-4,
 MultiStepLR, Charbonnier-sum), the REDS / Vimeo ones the mmedit recipe
 (RGB, Adam 2e-4, CosineRestart, Charbonnier-mean); and the 7 FTVSR
 configs (configs/restorers/ftvsr/: RGB, 7-frame segments, Adam 2e-4,
-CosineRestart, Charbonnier-mean, batch 1, LR patches of 64).
+CosineRestart, Charbonnier-mean, batch 1, LR patches of 64); and the 5
+GAN recipes (``realbasicvsr_reds``, ``realbasicvsr_wogan_reds``,
+``glean_cat_8x``, ``dic_celeba``, ``dic_gan_celeba``: two Adam optimisers,
+a generator and one of three discriminators, ``GANConfig``).
 """
 
 from __future__ import annotations
@@ -23,11 +27,16 @@ __all__ = ["ExperimentConfig", "preset", "PRESET_NAMES"]
 
 @dataclass
 class ModelConfig:
-    name: str = "fcvsr"           # fcvsr | fcvsr_s | ftvsr | ttvsr
+    name: str = "fcvsr"  # fcvsr | fcvsr_s | ftvsr | ttvsr | realbasicvsr
+    #                      | glean | dic
     n_feats: int = 64
     in_channels: int = 3          # 1 = Y (CVCP), 3 = RGB (REDS/Vimeo)
     num_frames: int = 7
     num_blocks: int = 0           # recurrent trunk depth (0 = model default)
+    in_size: int = 0              # GLEAN fixed LR size (0 = model default)
+    out_size: int = 0             # GLEAN StyleGAN2 output size
+    num_steps: int = 0            # DIC feedback steps (0 = model default)
+    hg_num_keypoints: int = 68    # DIC landmark heatmap count
 
 
 @dataclass
@@ -36,10 +45,14 @@ class DataConfig:
     qp: int = 37
     lr_root: str = ""
     gt_root: str = ""
+    ann_file: str = ""            # kept for the JAX config's sake
     meta_file: str = ""           # Vimeo-90K septuplet list (vimeo only)
     lr_patch: int = 128           # LR crop (mmedit: gt_patch 512 -> lq 128)
     batch_size: int = 2
     window_padding: str = "replicate"
+    # RealBasicVSR: synthesize the LQ from the GT with the second-order
+    # degradation chain (``data.degradations``; lr_root then unused)
+    degradations: bool = False
 
 
 @dataclass
@@ -63,13 +76,34 @@ class TrainConfig:
 
 
 @dataclass
+class GANConfig:
+    """The two-optimiser adversarial recipe (mmedit restorers/srgan.py,
+    real_basicvsr.py, glean.py, dic.py): the discriminator, the GAN loss's
+    type and weight, the pixel and cleaning weights, D's lr, the gating of
+    the generator's update and the relativistic variant."""
+
+    enabled: bool = False
+    disc: str = "unet_sn"         # unet_sn | stylegan2 | lightcnn | none
+    gan_type: str = "vanilla"
+    gan_loss_weight: float = 5e-2
+    pixel_loss_weight: float = 1.0
+    cleaning_loss_weight: float = 0.0   # RealBasicVSR cleaning branch
+    disc_lr: float = 1e-4
+    disc_steps: int = 1
+    disc_init_steps: int = 0
+    relativistic: bool = False
+
+
+@dataclass
 class EvalConfig:
     crop_border: int = 0
     convert_to: Optional[str] = "Y"
+    metrics: Sequence[str] = field(default_factory=lambda: ["PSNR", "SSIM"])
+    save_images: bool = False
 
 
 _SECTIONS = {"model": ModelConfig, "data": DataConfig, "train": TrainConfig,
-             "eval": EvalConfig}
+             "gan": GANConfig, "eval": EvalConfig}
 
 
 @dataclass
@@ -78,6 +112,7 @@ class ExperimentConfig:
     model: ModelConfig = field(default_factory=ModelConfig)
     data: DataConfig = field(default_factory=DataConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    gan: GANConfig = field(default_factory=GANConfig)
     eval: EvalConfig = field(default_factory=EvalConfig)
     work_dir: str = "./work_dirs"
 
@@ -111,8 +146,14 @@ _FTVSR_PRESETS = (
     "ftvsr_vimeo90k",
 )
 
+# the GAN and feedback recipes (the JAX package's ``_gan_preset``)
+_GAN_PRESETS = (
+    "realbasicvsr_reds", "realbasicvsr_wogan_reds",
+    "glean_cat_8x", "dic_celeba", "dic_gan_celeba",
+)
+
 PRESET_NAMES = [f"{m}_{d}LD_QP{q}" for m in _MODELS for d in _DATASETS
-                for q in _QPS] + list(_FTVSR_PRESETS)
+                for q in _QPS] + list(_FTVSR_PRESETS) + list(_GAN_PRESETS)
 
 
 def _ftvsr_preset(name: str) -> ExperimentConfig:
@@ -140,14 +181,66 @@ def _ftvsr_preset(name: str) -> ExperimentConfig:
     return cfg
 
 
+def _gan_preset(name: str) -> ExperimentConfig:
+    """A GAN or feedback recipe.  RealBasicVSR: 7-frame clips, batch 2, LR
+    patches of 64 made from the GT by the degradation chain, Adam 5e-5, the
+    cleaning loss at weight 1, the U-Net discriminator at GAN weight 5e-2
+    (``wogan``: no discriminator, Adam 1e-4).  GLEAN: 32 -> 256, batch 2,
+    Adam 1e-4, StyleGAN2's discriminator at GAN weight 1e-2.  DIC: 4
+    feedback steps, 16 -> 128, batch 2, Adam 1e-4, pixel weight 1
+    (``gan``: LightCNN at GAN weight 5e-3).  Every recipe names the
+    CosineRestart schedule, which the GAN trainer does not apply (its
+    Adams run at constant lr, as the JAX package's do)."""
+    cfg = ExperimentConfig(name=name)
+    cfg.train.schedule = "cosine_restart"
+    cfg.train.loss = "charbonnier_mean"
+    cfg.gan.enabled = True
+    cfg.data.batch_size = 2
+    if name.startswith("realbasicvsr"):
+        cfg.model.name = "realbasicvsr"
+        cfg.model.num_frames = 7
+        cfg.data.lr_patch = 64
+        cfg.data.degradations = True
+        cfg.train.lr = 5e-5
+        cfg.gan.cleaning_loss_weight = 1.0
+        if "wogan" in name:
+            cfg.gan.disc = "none"
+            cfg.train.lr = 1e-4
+        else:
+            cfg.gan.disc = "unet_sn"
+            cfg.gan.gan_loss_weight = 5e-2
+    elif name.startswith("glean"):
+        cfg.model.name = "glean"
+        cfg.model.in_size, cfg.model.out_size = 32, 256
+        cfg.data.lr_patch = 32
+        cfg.train.lr = 1e-4
+        cfg.gan.disc = "stylegan2"
+        cfg.gan.gan_loss_weight = 1e-2
+        cfg.gan.disc_lr = 1e-4
+    else:
+        cfg.model.name = "dic"
+        cfg.model.num_steps = 4
+        cfg.data.lr_patch = 16
+        cfg.train.lr = 1e-4
+        cfg.gan.pixel_loss_weight = 1.0
+        if "gan" in name:
+            cfg.gan.disc = "lightcnn"
+            cfg.gan.gan_loss_weight = 5e-3
+        else:
+            cfg.gan.disc = "none"
+    return cfg
+
+
 def preset(name: str) -> ExperimentConfig:
-    """The preset ``fcvsr[_s]_{cvcp,reds,vimeo}LD_QP{22,27,32,37}``, or one
-    of the 7 FTVSR configs (``ftvsr_cvcp[LD_QP*]``, ``ftvsr_reds4``,
-    ``ftvsr_vimeo90k``)."""
+    """The preset ``fcvsr[_s]_{cvcp,reds,vimeo}LD_QP{22,27,32,37}``, one of
+    the 7 FTVSR configs (``ftvsr_cvcp[LD_QP*]``, ``ftvsr_reds4``,
+    ``ftvsr_vimeo90k``) or one of the 5 GAN recipes."""
     if name not in PRESET_NAMES:
         raise KeyError(f"unknown preset {name}; options: {PRESET_NAMES[:4]}...")
     if name in _FTVSR_PRESETS:
         return _ftvsr_preset(name)
+    if name in _GAN_PRESETS:
+        return _gan_preset(name)
     head, qp = name.rsplit("_QP", 1)
     model, ds = head.rsplit("_", 1)
     cfg = ExperimentConfig(name=name)

@@ -26,7 +26,8 @@ import numpy as np
 import torch
 
 __all__ = ["state_dict_from_jax", "flax_to_torch_key",
-           "block_rcb_args_from_jax", "block_rcb_args"]
+           "conv_transpose_weight", "block_rcb_args_from_jax",
+           "block_rcb_args"]
 
 _TOP_CONVS = {
     "feat_extract": "feat_extract.0", "rconcat1": "rconcat1",
@@ -246,13 +247,119 @@ def _zoo_state_dict(tree: Mapping, patterns) -> Dict[str, torch.Tensor]:
     return out
 
 
+# RealBasicVSR under mmedit's names: the cleaning module is
+# Sequential(ResidualBlocksWithInputConv, conv), BasicVSR is ``basicvsr``
+_REAL_BASICVSR = [
+    (r"image_cleaning/blocks/input_conv", "image_cleaning.0.main.0"),
+    (r"image_cleaning/blocks/block(\d+)/(conv[12])",
+     r"image_cleaning.0.main.2.\1.\2"),
+    (r"image_cleaning/conv", "image_cleaning.1")] + [
+    (rf"basicvsr/{p}", rf"basicvsr.{t}") for p, t in _BASICVSR]
+# the top-level names that tell the other GAN-family models apart: GLEAN,
+# DIC, the StyleGAN2 generator and discriminator, the U-Net, LightCNN,
+# ModifiedVGG and the VGG feature extractor
+_GAN_MARKERS = ("rrdb_extractor", "hour_glass", "mlp0", "from_rgb_w",
+                "conv_9", "mf0", "conv0_0", "features_0")
+# DIC's transposed convs
+_TRANSPOSED = re.compile(r"(.*/)?(up_block\d+|conv_up)")
+_EQUAL_CONV = re.compile(r"(.+)_([wb])")
+
+
+def conv_transpose_weight(kernel) -> torch.Tensor:
+    """The JAX package's ``ConvTranspose2d`` kernel (k, k, Cin, Cout), an
+    lhs-dilated correlation's, as ``F.conv_transpose2d``'s weight (Cin,
+    Cout, k, k): flipped in both spatial axes."""
+    k = np.asarray(kernel, np.float32)[::-1, ::-1]
+    return torch.from_numpy(np.ascontiguousarray(k.transpose(2, 3, 0, 1)))
+
+
+def _gan_param(module: str, leaf: str, v: np.ndarray):
+    """(port key, tensor) of one GAN-family param under the JAX package's
+    module names ('/' -> '.', flax's ``Conv_0`` dropped), or None."""
+    def at(name):
+        return f"{module}.{name}" if module else name
+
+    if leaf == "kernel" and v.ndim == 4:
+        if _TRANSPOSED.fullmatch(module):
+            return at("weight"), conv_transpose_weight(v)
+        return at("weight"), torch.tensor(v.transpose(3, 2, 0, 1))
+    if leaf in ("kernel", "weight") and v.ndim == 2:   # dense (in, out)
+        return at("weight"), torch.tensor(v.T)
+    if leaf == "weight" and v.ndim == 4:               # modulated conv
+        return at("weight"), torch.tensor(v.transpose(3, 2, 0, 1))
+    if leaf in ("bias", "noise_weight", "constant_input"):
+        return at(leaf), torch.tensor(v)
+    if leaf == "alpha":
+        return at("weight"), torch.tensor(v.reshape(1))
+    if leaf == "scale":                                # batch norm
+        return at("weight"), torch.tensor(v)
+    m = _EQUAL_CONV.fullmatch(leaf)
+    if m and not module:           # StyleGAN2 discriminator's econv params
+        w = v.transpose(3, 2, 0, 1) if m.group(2) == "w" else v
+        return f"{m.group(1)}.{'weight' if m.group(2) == 'w' else 'bias'}", \
+            torch.tensor(w)
+    return None
+
+
+def _gan_state_dict(variables: Mapping, tree: Mapping
+                    ) -> Dict[str, torch.Tensor]:
+    """The GAN family's variables: ``params``, the ``noises`` collection
+    (StyleGAN2's and GLEAN's noise maps, the port's ``noise`` parameters,
+    NHWC) and ``batch_stats`` (the U-Net's spectral-norm ``u`` and
+    ``sigma``, the port's buffers; ModifiedVGG's running statistics)."""
+    if "image_cleaning" in tree:
+        return _zoo_state_dict(tree, _REAL_BASICVSR)
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree):
+        v = np.asarray(value, dtype=np.float32)
+        mod = [p for p in path[:-1] if p != "Conv_0"]
+        mod = [f"features.{p[len('features_'):]}" if p.startswith("features_")
+               else p for p in mod]
+        got = _gan_param(".".join(mod), path[-1], v)
+        if got is None:
+            raise KeyError(f"no port key for JAX param {'/'.join(path)}")
+        out[got[0]] = got[1]
+    for path, value in _flatten(variables.get("noises", {})):
+        out[".".join(path)] = torch.tensor(np.asarray(value, np.float32))
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        # flax names a spectral norm's variables 'conv_1/kernel/u', one key
+        path = tuple(q for p in path for q in p.split("/"))
+        v = torch.tensor(np.asarray(value, np.float32))
+        if path[0].startswith("SpectralNorm_") and path[-1] in ("u", "sigma"):
+            # SpectralNorm_i/<conv>/kernel/u -> <conv>.u
+            out[f"{path[1]}.{path[-1]}"] = v
+        elif path[-1] in ("mean", "var"):
+            base = ".".join(path[:-1])
+            out[f"{base}.running_{path[-1]}"] = v
+            out[f"{base}.num_batches_tracked"] = torch.tensor(0)
+        else:
+            raise KeyError(f"no port key for JAX batch_stats "
+                           f"{'/'.join(path)}")
+    unknown = set(variables) - {"params", "noises", "batch_stats"}
+    if unknown and "params" in variables:
+        raise KeyError(f"no port keys for JAX collections {sorted(unknown)}")
+    return out
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
     TDANNet, FTVSRNet (TTVSRNet) or SpyNet param
     tree (``{'params': ...}`` or its inside, numpy-convertible leaves; the
     model is told by its top-level names) onto the port's ``state_dict``
-    keys.  Raises ``KeyError`` on a param it cannot map."""
+    keys.  Raises ``KeyError`` on a param it cannot map.
+
+    The GAN family (RealBasicVSR, GLEAN, DIC, the StyleGAN2 generator and
+    discriminator, the U-Net, LightCNN, ModifiedVGG, the VGG feature
+    extractor) takes the whole variables dict: ``params`` with ``noises``
+    and ``batch_stats`` beside it.  RealBasicVSR maps onto mmedit's names;
+    the others keep the JAX package's module names, '/' turned to '.'
+    (``Conv_0`` dropped), dense kernels (in, out) become (out, in)
+    weights, conv and modulated-conv kernels OIHW, DIC's transposed-conv
+    kernels are flipped (:func:`conv_transpose_weight`) and StyleGAN2's
+    ``constant_input`` and noise maps stay NHWC."""
     tree = params.get("params", params)
+    if any(m in tree for m in ("image_cleaning",) + _GAN_MARKERS):
+        return _gan_state_dict(params, tree)
     # FTVSR has a SpyNet too: its marker goes first
     if "LTAM" in tree:
         return _ftvsr_state_dict(tree)

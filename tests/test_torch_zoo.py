@@ -205,9 +205,12 @@ def test_state_dict_from_jax_raises_on_unknown_param(edvr_case,
 
 
 def test_registry_builds_the_ports_models():
-    assert BACKBONES.keys() == ["BasicVSRNet", "BasicVSRPlusPlus", "EDVRNet",
-                                "FCVSRNet", "FCVSR_SNet", "FTVSRNet",
-                                "IconVSR", "SpyNet", "TDANNet", "TTVSRNet"]
+    assert BACKBONES.keys() == [
+        "BasicVSRNet", "BasicVSRPlusPlus", "DICNet", "EDVRNet", "FCVSRNet",
+        "FCVSR_SNet", "FTVSRNet", "FeedbackHourglass", "GLEANStyleGANv2",
+        "IconVSR", "LightCNN", "ModifiedVGG", "RealBasicVSRNet", "SpyNet",
+        "StyleGAN2Discriminator", "StyleGAN2Generator", "TDANNet",
+        "TTVSRNet", "UNetDiscriminatorWithSpectralNorm"]
     model = build(BACKBONES, dict(type="EDVRNet", mid_channels=16,
                                   num_blocks_extraction=1,
                                   num_blocks_reconstruction=1))
