@@ -123,6 +123,25 @@ Phases, one line or more each:
      bf16 (``utils.precision.bf16_apply``) at 1 x 7 x 1 x 272 x 480
      against the exact path at the --fast bars, its launches (K1, K2, K3
      on bf16 maps) checked, both timed in turns with their peaks;
+  7a. data parallelism (``ddp``, right after the training slice):
+     ``train/cli.py --multihost`` at world size 1 on NCCL (DDP's
+     broadcast, gradient buckets and all-reduce hooks), phase 7's preset,
+     batch and patch, 1 + 3 steps with a resume, against the same runs
+     without it, before and after (two plain runs need not agree bit for
+     bit: the IAC adjoint sums by atomics; their deviation is printed and
+     DDP held to DDP_WORLD1_RTOL of the parameters' norm), the launches
+     per step phase 7's, ms per step beside the plain run's; EDVR-M's restorer
+     step under DDP at world size 1 (``initialize_multihost`` with a
+     coordinator, as ``--multihost`` calls it), 2 steps of phase 6's
+     recipe, K7 and K8 launched, against the plain step the same way; 2
+     ranks on the one card under Gloo (NCCL refuses two ranks on one
+     device), spawned with a join timeout, each loading the library built
+     above (never building it), TF32 off: FCVSR Y at a global batch of 2
+     (1 a rank) of 64^2 patches, 2 steps, the replicas equal bit for bit
+     and held to one process's steps on the whole batch (DDP_RTOL), each
+     rank's launches; then ``tiled_sr`` over those 2 ranks at phase 4c's
+     540x960 window (15 tiles of 272 padded to 16, 8 a rank) against one
+     process's, DDP_TILES_RTOL of max|out|;
   7b. the BlockRCB A/B (``python -m
      fcvsr_tpu_torch.benchmarks.microbench_blockrcb_kernel``) at 272x480x64
      with C1 64 and 128: K11 against the unfused path, both timed, their
@@ -2154,6 +2173,301 @@ def phase_modes(torch, card):
     del model, clip
 
 
+# phase ddp: data parallelism on the one card.  (a) phase train's preset,
+# batch and patch through ``train/cli.py --multihost`` at world size 1 on
+# NCCL, 1 + 3 steps, against the same runs without it; (b) 2 ranks on the
+# one card under Gloo (NCCL refuses two ranks on one device), spawned,
+# FCVSR Y at a global batch of 2 (1 a rank) of DDP_PATCH^2 patches, 2
+# steps, against one process's steps on the whole batch; (c) EDVR-M's
+# restorer step under DDP at world size 1, 2 steps, against the plain
+# step; (d) tiled_sr over the ranks of (b) at phase modes' window against
+# one process.  Two runs of one process on the card need not agree bit
+# for bit: the IAC adjoint and the DCN adjoint sum by atomics (the plain
+# path's final parameters against its own rerun: 3.5e-8 of their norm in
+# (a), 3.3e-8 in (c), H100 80GB HBM3 at 700 W), so (a) and (c) run the
+# plain path twice, print that floor, and hold DDP to DDP_WORLD1_RTOL of
+# the parameters' norm (DDP at world size 1 measured 4.3e-8 and 1.5e-8)
+DDP_WORLD1_RTOL = 1e-6
+DDP_STEPS = (1, 4)
+DDP_PATCH = 64
+DDP_TIMEOUT_S = 300.0
+DDP_EDVR_STEPS = 2
+# (b): 2 ranks against one process on the whole batch, whole-model
+# relative deviation of the parameters after each step
+DDP_RTOL = 1e-5
+# (d): tiles over 2 ranks against one process, over max|out|
+DDP_TILES_RTOL = 1e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def param_deviation(got: dict, ref: dict) -> dict:
+    """Max abs and whole-model relative deviation of two state dicts (or
+    flat dicts of parameters)."""
+    num = den = worst = 0.0
+    for k, r in ref.items():
+        d = (got[k].double() - r.double())
+        num += float((d ** 2).sum())
+        den += float((r.double() ** 2).sum())
+        worst = max(worst, float(d.abs().max()) if d.numel() else 0.0)
+    return {"max_abs": worst, "whole_rel": math.sqrt(num / max(den, 1e-300))}
+
+
+def ddp_cli(torch, tmp: str, label: str, multihost: bool):
+    """Phase train's preset, batch and patch through ``train/cli.py`` for
+    DDP_STEPS (a fresh run, then a resumed one), with ``--multihost`` at
+    world size 1 or without: the runs, the launch counts and the final
+    parameters."""
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.train import cli as train_cli
+    from fcvsr_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    args = ["--preset", PRESET, "--seed", "0",
+            "--lr-root", os.path.join(tmp, "lr"),
+            "--gt-root", os.path.join(tmp, "gt"),
+            "--work-dir", os.path.join(tmp, label)]
+    torch.cuda.empty_cache()
+    reset_launch_counts()
+    outs = []
+    for n in DDP_STEPS:
+        extra = ["--multihost", "--num-processes", "1", "--process-id", "0",
+                 "--coordinator", f"127.0.0.1:{free_port()}"] \
+            if multihost else []
+        outs.append(train_cli.main(args + extra + ["--total-iters", str(n)]))
+    counts = launch_counts()
+    for start, out, n in zip((0,) + DDP_STEPS, outs, DDP_STEPS):
+        if (out["start"], out["step"]) != (start, n):
+            fail(f"ddp {label}: a run started at {out['start']} and ended "
+                 f"at {out['step']}, expected {start} and {n}")
+    final = torch.load(latest_checkpoint(os.path.join(
+        outs[-1]["work_dir"], "ckpt")), map_location="cpu",
+        weights_only=True)["model"]
+    return outs, counts, final
+
+
+def ddp_edvr(torch, batches, group):
+    """EDVR-M's restorer steps (phase zoo_train's recipe) on ``batches``,
+    under DDP over ``group`` or plain: the losses, launch counts and
+    final parameters."""
+    from fcvsr_tpu_torch.models import VideoRestorer
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.train.trainer import TrainState
+
+    cfg = ZOO_TRAIN["EDVRNet"]
+    model = zoo_model(torch, "EDVRNet").train().to("cuda")
+    state = TrainState(model, lambda s: cfg["lr"], betas=(0.9, 0.999))
+    step = VideoRestorer(model, center_frame_only=True).make_train_step(
+        state, group=group)
+    reset_launch_counts()
+    losses = [float(step(lq, gt)["loss"]) for lq, gt in batches]
+    counts = launch_counts()
+    return losses, counts, {k: v.detach().to("cpu", copy=True)
+                            for k, v in model.state_dict().items()}
+
+
+def ddp_rank(rank: int, world: int, store: str, batches, window) -> dict:
+    """One rank of (b) and (d), in its own process: TF32 off, the kernel
+    library the parent built loaded (never built here), FCVSR Y seeded as
+    the CLI seeds it under DDP over Gloo, a step on the rank's share of
+    each global batch; then ``tiled_sr`` of ``window`` over the ranks."""
+    import torch
+    import torch.distributed as dist
+
+    from fcvsr_tpu_torch import cli
+    from fcvsr_tpu_torch.models import tiled_sr
+    from fcvsr_tpu_torch.ops import _native, launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.parallel import (initialize_multihost, make_mesh,
+                                          rank_share, shutdown)
+    from fcvsr_tpu_torch.train.lr_schedule import build_schedule
+    from fcvsr_tpu_torch.train.trainer import TrainState, make_train_step
+    from fcvsr_tpu_torch.utils.config import preset
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _native.lib()
+    initialize_multihost(f"file://{store}", world, rank, backend="gloo",
+                         device="cuda")
+    try:
+        group = dist.group.WORLD
+        mesh = make_mesh("cuda", group)
+        cfg = preset(PRESET)
+        model = cli.build_model(cfg, 0, mesh.device).train()
+        state = TrainState(model, build_schedule(cfg.train),
+                           betas=cfg.train.betas)
+        step = make_train_step(state, cfg.train.loss, group=group)
+        reset_launch_counts()
+        params, losses = [], []
+        for lrs, gt in batches:
+            out = step(*(torch.from_numpy(rank_share(a, mesh)).to(mesh.device)
+                         for a in (lrs, gt)))
+            losses.append(float(out["loss"]))
+            params.append({k: p.detach().to("cpu", copy=True)
+                           for k, p in model.named_parameters()})
+        train_counts = launch_counts()
+        served = cli.build_model(cfg, 0, mesh.device)
+        reset_launch_counts()
+        sr = tiled_sr(served, window, TILE, OVERLAP, device=mesh.device,
+                      group=group)
+        return {"rank": rank, "device": str(mesh.device),
+                "build_seconds": _native.build_seconds, "losses": losses,
+                "params": params, "train_launches": train_counts,
+                "tile_launches": launch_counts(), "sr": sr}
+    finally:
+        shutdown()
+
+
+def phase_ddp(torch, card):
+    """Data parallelism on the one card, (a)-(d) of the note at
+    DDP_STEPS."""
+    import torch.distributed as dist
+
+    from fcvsr_tpu_torch import cli
+    from fcvsr_tpu_torch.data import ClipFolderDataset
+    from fcvsr_tpu_torch.models import tiled_sr
+    from fcvsr_tpu_torch.parallel import initialize_multihost, shutdown, spawn
+    from fcvsr_tpu_torch.train import cli as train_cli
+    from fcvsr_tpu_torch.train.lr_schedule import build_schedule
+    from fcvsr_tpu_torch.train.trainer import TrainState, make_train_step
+    from fcvsr_tpu_torch.utils.config import preset
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_clip(tmp)
+        # (a) the CLI at world size 1 on NCCL, between two plain runs
+        plain, _, plain_final = ddp_cli(torch, tmp, "plain", False)
+        multi, counts, final = ddp_cli(torch, tmp, "multihost", True)
+        again, _, again_final = ddp_cli(torch, tmp, "plain_again", False)
+        floor = param_deviation(again_final, plain_final)
+        dev = param_deviation(final, plain_final)
+        losses = [o["losses"] for o in multi]
+        plain_losses = [o["losses"] for o in plain]
+        per_step = {k: v / DDP_STEPS[-1] for k, v in counts.items()}
+        ms, plain_ms = multi[-1]["ms_per_step"], plain[-1]["ms_per_step"]
+        say("ddp_world1", preset=PRESET, backend="nccl", steps=DDP_STEPS,
+            world_size=multi[-1]["world_size"], losses=losses,
+            plain_losses=plain_losses,
+            plain_again_losses=[o["losses"] for o in again],
+            params_vs_plain=dev, plain_run_to_run=floor,
+            bitwise=dev["max_abs"] == 0.0, ms_per_step=ms,
+            ms_median=float(np.median(ms)), plain_ms_per_step=plain_ms,
+            plain_ms_median=float(np.median(plain_ms)),
+            plain_again_ms_per_step=again[-1]["ms_per_step"],
+            launches_per_step=per_step, card=card)
+        if per_step != {k: float(v) for k, v in PER_STEP.items()}:
+            fail(f"ddp world 1: launches per step {per_step}, expected "
+                 f"phase train's {PER_STEP}")
+        if dev["whole_rel"] > DDP_WORLD1_RTOL:
+            fail(f"ddp world 1: parameters {dev} off the plain run's (its "
+                 f"own run-to-run deviation {floor})")
+        if not all(math.isfinite(v) for run in losses for v in run):
+            fail(f"ddp world 1: non-finite losses {losses}")
+
+        # (c) EDVR-M's restorer under DDP at world size 1
+        data = ClipFolderDataset(os.path.join(tmp, "lr"),
+                                 os.path.join(tmp, "gt"), window=5)
+        rng = np.random.default_rng(10)
+        edvr_batches = []
+        for _ in range(DDP_EDVR_STEPS):
+            lq, gt = train_cli.sample_batch(rng, data,
+                                            ZOO_TRAIN["EDVRNet"]["batch"],
+                                            DDP_PATCH)
+            edvr_batches.append((torch.from_numpy(lq).to("cuda"),
+                                 torch.from_numpy(gt).to("cuda")))
+        e_plain = ddp_edvr(torch, edvr_batches, None)
+        initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+        try:
+            e_ddp = ddp_edvr(torch, edvr_batches, dist.group.WORLD)
+        finally:
+            shutdown()
+        e_again = ddp_edvr(torch, edvr_batches, None)
+        e_floor = param_deviation(e_again[2], e_plain[2])
+        e_dev = param_deviation(e_ddp[2], e_plain[2])
+        want = dcn_per_forward("EDVRNet", 5) * DDP_EDVR_STEPS
+        say("ddp_edvr", backend="nccl", world_size=1,
+            batch=ZOO_TRAIN["EDVRNet"]["batch"], frames=5,
+            lr_patch=DDP_PATCH, losses=e_ddp[0], plain_losses=e_plain[0],
+            params_vs_plain=e_dev, plain_run_to_run=e_floor,
+            launches=e_ddp[1], card=card)
+        if {k: v for k, v in e_ddp[1].items() if v} != {"dcn": want,
+                                                         "dcn_bwd": want}:
+            fail(f"ddp EDVR-M: launches {e_ddp[1]}, expected {want} K7 and "
+                 f"{want} K8")
+        if e_dev["whole_rel"] > DDP_WORLD1_RTOL:
+            fail(f"ddp EDVR-M: parameters {e_dev} off the plain run's (its "
+                 f"own run-to-run deviation {e_floor})")
+
+        # (b) and (d): 2 ranks on the one card under Gloo
+        cfg = preset(PRESET)
+        data = ClipFolderDataset(os.path.join(tmp, "lr"),
+                                 os.path.join(tmp, "gt"), grayscale=True)
+        rng = np.random.default_rng(11)
+        batches = [train_cli.sample_batch(rng, data, 2, DDP_PATCH)
+                   for _ in range(2)]
+        t, tc, th, tw = TILE_SHAPE
+        window = np.ascontiguousarray(np.transpose(
+            smooth_clip(torch, 13, t, th, tw)[..., :tc], (0, 3, 1, 2)))
+        t0 = time.perf_counter()
+        ranks = spawn(ddp_rank, 2, (os.path.join(tmp, "store"), batches,
+                                    window), timeout_s=DDP_TIMEOUT_S)
+        ranks_s = time.perf_counter() - t0
+        model = cli.build_model(cfg, 0, "cuda").train()
+        state = TrainState(model, build_schedule(cfg.train),
+                           betas=cfg.train.betas)
+        step = make_train_step(state, cfg.train.loss)
+        ref_losses, devs = [], []
+        for i, (lrs, gt) in enumerate(batches):
+            ref_losses.append(float(step(torch.from_numpy(lrs).to("cuda"),
+                                         torch.from_numpy(gt).to("cuda"))
+                                    ["loss"]))
+            ref = {k: p.detach().to("cpu", copy=True)
+                   for k, p in model.named_parameters()}
+            devs.append(param_deviation(ranks[0]["params"][i], ref))
+            if param_deviation(ranks[1]["params"][i],
+                               ranks[0]["params"][i])["max_abs"] != 0.0:
+                fail(f"ddp 2 ranks: the replicas differ after step {i}")
+        del model, state
+        torch.cuda.empty_cache()
+        served = cli.build_model(cfg, 0, "cuda")
+        one = tiled_sr(served, window, TILE, OVERLAP, device="cuda")
+        scale = float(np.abs(one).max())
+        tile_devs = [float(np.abs(r["sr"] - one).max()) / scale
+                     for r in ranks]
+        del served
+        say("ddp_two_ranks", backend="gloo", world_size=2, global_batch=2,
+            lr_patch=DDP_PATCH, steps=len(batches),
+            losses=[r["losses"] for r in ranks], one_process_losses=
+            ref_losses, params_vs_one_process=devs, tol=DDP_RTOL,
+            devices=[r["device"] for r in ranks],
+            rank_build_seconds=[r["build_seconds"] for r in ranks],
+            launches=[r["train_launches"] for r in ranks], seconds=ranks_s,
+            card=card)
+        say("ddp_tiles", world_size=2, window=list(window.shape), tile=TILE,
+            overlap=OVERLAP, tiles_per_rank=8, out_shape=list(one.shape),
+            max_abs_dev_over_max=tile_devs, tol=DDP_TILES_RTOL,
+            launches=[r["tile_launches"] for r in ranks], card=card)
+        for r in ranks:
+            if r["build_seconds"] is not None:
+                fail(f"ddp rank {r['rank']} built the kernel library")
+            if r["train_launches"] != {k: 2 * v for k, v in
+                                       PER_STEP.items()}:
+                fail(f"ddp rank {r['rank']}: launches {r['train_launches']}"
+                     f", expected 2 steps of {PER_STEP}")
+            if r["tile_launches"] != PER_FRAME:
+                fail(f"ddp rank {r['rank']}: tile launches "
+                     f"{r['tile_launches']}, expected one forward's")
+            if not all(math.isfinite(v) for v in r["losses"]):
+                fail(f"ddp rank {r['rank']}: non-finite losses")
+        if max(d["whole_rel"] for d in devs) > DDP_RTOL:
+            fail(f"ddp 2 ranks against one process: {devs}, bar {DDP_RTOL}")
+        if max(tile_devs) > DDP_TILES_RTOL:
+            fail(f"ddp tiles against one process: {tile_devs}")
+
+
 # the GAN family: its models' GPU vs CPU output, over the output's max
 # (DIC's float32 evaluation is itself 3e-4 of its max from float64 on the
 # CPU, tests/test_torch_gan_models.py; so MODEL_ATOL's 1e-3 for all)
@@ -2632,6 +2946,7 @@ def main() -> None:
     run("zoo", phase_zoo, torch, card)
     zoo_counts = run("zoo_train", phase_zoo_train, torch, card)
     train_counts = run("train", phase_train, torch, card)
+    run("ddp", phase_ddp, torch, card)
     run("vimeo_train", phase_vimeo_train, torch, card)
     run("bf16", phase_bf16, torch, card)
     run("gan_models", phase_gan_models, torch, dev)

@@ -14,8 +14,9 @@ Both take and return numpy arrays, move the inputs to ``device`` (the
 model's, CUDA by default; no fallback) and run without autograd.
 ``sliding_window_sr(bf16=True)`` runs the whole model in bf16
 (``utils.precision.bf16_apply`` on a cast copy of the model), as the JAX
-package's does.  Not ported: ``tiled_sr``'s ``mesh=`` (tiles spread over
-devices).
+package's does.  ``tiled_sr(group=...)`` spreads the tiles over the ranks
+of a process group, as the JAX package's ``mesh`` branch spreads them over
+devices: the same result as one process.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from ..data.pipelines import padded_window_indices
+from ..parallel import gather_results, make_mesh, rank_share
 from ..utils.precision import bf16_apply, cast_params
 
 __all__ = ["sliding_window_sr", "tiled_sr"]
@@ -63,13 +65,18 @@ def sliding_window_sr(model, clip: np.ndarray, window: int = 7,
 
 
 def tiled_sr(model, window: np.ndarray, tile: int = 272, overlap: int = 32,
-             device="cuda") -> np.ndarray:
+             device="cuda", group=None) -> np.ndarray:
     """window: (T, C, H, W) or (1, T, C, H, W) float32 in [0, 1] -> (1, C,
     4H, 4W).  The frame is padded by edge replication (zeros would bleed
     black into the overlap ring) to a grid of ``tile`` x ``tile`` tiles a
     step of ``tile - 2 * overlap`` apart; all tiles run as one batched
     forward; each SR tile keeps its interior (its outer ring too where it
-    is the frame's border), stitched in place."""
+    is the frame's border), stitched in place.  With a process group
+    (``torch.distributed.group.WORLD`` for the default one), every rank
+    gives the same window and model: the tiles are padded to a multiple of
+    the world size by repeating the last, each rank forwards its
+    contiguous share, and every rank stitches the shares gathered in tile
+    order, the padding dropped."""
     x = np.asarray(window, np.float32)
     if x.ndim == 4:
         x = x[None]
@@ -87,7 +94,16 @@ def tiled_sr(model, window: np.ndarray, tile: int = 272, overlap: int = 32,
     grid = [(iy, ix) for iy in range(ny) for ix in range(nx)]
     tiles = np.stack([xp[0, :, :, iy * step:iy * step + tile,
                          ix * step:ix * step + tile] for iy, ix in grid])
-    out = _forward(model, tiles, device)
+    if group is None:
+        out = _forward(model, tiles, device)
+    else:
+        mesh = make_mesh(device, group)
+        n = len(tiles)
+        pad = -n % mesh.size
+        if pad:
+            tiles = np.concatenate([tiles, np.repeat(tiles[-1:], pad, 0)])
+        local = _forward(model, rank_share(tiles, mesh), device)
+        out = gather_results(local, group).reshape(-1, *local.shape[1:])[:n]
     s = SCALE
     sr = np.zeros((1, c, s * hp, s * wp), np.float32)
     for k, (iy, ix) in enumerate(grid):

@@ -13,6 +13,8 @@ BasicRestorer / BasicVSR restorers).
   parameter left without one would take its first updates with another
   bias correction than optax's.  For the same reason a parameter that the
   loss does not reach gets a zero gradient too, as ``jax.grad`` gives it.
+  With a process group the model runs under DDP, as
+  ``train.trainer.make_train_step`` runs it.
 * :meth:`VideoRestorer.forward_test` - inference and PSNR / SSIM / tOF;
   the previous frame's (sr, gt) pair for tOF is carried by the caller.
 """
@@ -26,7 +28,9 @@ import numpy as np
 import torch
 
 from ..metrics import calculate_psnr, calculate_ssim, calculate_tof
+from ..parallel import data_parallel, psum_metrics
 from ..train.losses import LOSSES
+from ..train.trainer import batch_loss_scale
 
 __all__ = ["VideoRestorer", "tensor2img"]
 
@@ -57,13 +61,14 @@ class VideoRestorer:
 
     _ALLOWED = ("PSNR", "SSIM", "tOF")
 
-    def loss_fn(self, lq: torch.Tensor, gt: torch.Tensor):
+    def loss_fn(self, lq: torch.Tensor, gt: torch.Tensor, forward=None):
         """(loss, sr) of one batch: lq (B, T, C, H, W); gt the model's output
-        shape, or (B, T, C, 4H, 4W) cut to its centre frame."""
+        shape, or (B, T, C, 4H, 4W) cut to its centre frame.  ``forward``
+        runs the model (its DDP wrapper), the model itself when None."""
         if self.pixel_loss not in LOSSES:
             raise ValueError(f"unknown loss {self.pixel_loss}; options: "
                              f"{list(LOSSES)}")
-        sr = self.model(lq)
+        sr = (forward or self.model)(lq)
         if self.center_frame_only and gt.ndim == 5:
             gt = gt[:, gt.shape[1] // 2]
         return LOSSES[self.pixel_loss](sr, gt), sr
@@ -73,18 +78,25 @@ class VideoRestorer:
         name = name.lower()
         return any(part in name for part in FROZEN_NAMES)
 
-    def make_train_step(self, state):
+    def make_train_step(self, state, group=None):
         """``step(lq, gt) -> {"loss": tensor}``: one forward, backward and
-        update of ``state`` (a ``TrainState`` over this restorer's model)."""
+        update of ``state`` (a ``TrainState`` over this restorer's model);
+        with a process group ``group``, of this rank's share of the batch,
+        the gradients averaged over the ranks by DDP and the reported loss
+        their mean (``train.trainer.make_train_step``'s rules)."""
         if state.model is not self.model:
             raise ValueError("the train state holds another model than the "
                              "restorer's")
         named = list(self.model.named_parameters())
         frozen = [p for n, p in named if self.is_frozen(n)]
+        forward = None if group is None else data_parallel(self.model, group)
+        scale = batch_loss_scale(self.pixel_loss, group)
 
         def step(lq: torch.Tensor, gt: torch.Tensor) -> Dict[str, Any]:
             state.optimizer.zero_grad(set_to_none=True)
-            loss, _ = self.loss_fn(lq, gt)
+            loss, _ = self.loss_fn(lq, gt, forward)
+            if scale != 1:
+                loss = loss * scale
             loss.backward()
             for _, p in named:
                 if p.grad is None:
@@ -93,7 +105,9 @@ class VideoRestorer:
                 for p in frozen:
                     p.grad.zero_()
             state.apply_gradients()
-            return {"loss": loss.detach()}
+            if group is None:
+                return {"loss": loss.detach()}
+            return psum_metrics({"loss": loss}, group)
 
         return step
 

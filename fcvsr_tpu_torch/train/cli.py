@@ -1,5 +1,6 @@
 """Training entry point of the port (counterpart of ``train.py``: the
-FCVSR, FTVSR and TTVSR models, and the GAN family), on one device:
+FCVSR, FTVSR and TTVSR models, and the GAN family), on one device or
+data-parallel over GPUs:
 
     python -m fcvsr_tpu_torch.train.cli --preset fcvsr_cvcpLD_QP22 \\
         --lr-root LR --gt-root GT --work-dir work_dirs [--total-iters N]
@@ -8,6 +9,10 @@ FCVSR, FTVSR and TTVSR models, and the GAN family), on one device:
         [--val-lr-root VLR --val-gt-root VGT] [--tensorboard]
     python -m fcvsr_tpu_torch.train.cli --preset ftvsr_cvcpLD_QP22 \\
         --lr-root LR --gt-root GT       (or --config with model.name ttvsr)
+    torchrun --nproc-per-node 4 -m fcvsr_tpu_torch.train.cli --multihost \\
+        --preset fcvsr_cvcpLD_QP22 --lr-root LR --gt-root GT
+    python -m fcvsr_tpu_torch.train.cli --multihost --coordinator HOST:PORT \\
+        --num-processes N --process-id I --preset ...   (one per rank)
 
 It samples batches of 7-frame LR windows and centre GT patches (numpy,
 seeded) from the clip folders, or from Vimeo-90K septuplets when the
@@ -49,6 +54,24 @@ sorted losses every ``log_interval`` steps; checkpoints
 (``utils.checkpoint.save_gan_checkpoint``) every ``ckpt_interval`` and at
 the end; a rerun resumes from the newest.
 
+``--multihost`` (``train.py``'s data-parallel path, ``train.py:365-379``
+and ``:454-495``) joins a process group (``parallel.initialize_multihost``:
+NCCL, each rank on its card, or Gloo with ``--device cpu``; the three
+flags, or torchrun's environment without them; no fallback to one
+process) and trains the pixel-loss models under DDP
+(``trainer.make_train_step(group=...)``).  The global batch is rounded
+down to a multiple of the world size and each rank draws its share from
+its own stream, ``np.random.default_rng(seed + rank)``, dropping its
+first batch as one process does; the CSV's loss is the mean over ranks
+of their losses, the global batch's.  Rank 0 alone writes
+``config.json``, the CSV, the checkpoints and TensorBoard and runs the
+evaluation, while the others wait at a barrier; every rank restores a
+resumed run.  W ranks train as the JAX CLI's ``--multihost`` run of W
+processes with one device each; a JAX process that holds N devices draws
+one stream for all of them.  The GAN presets refuse ``--multihost``:
+``train.py`` runs its single-device GAN trainer on every process
+(``train.py:141-147``, ``:417-419``).
+
 ``--fast`` and ``--warp-impl`` are the JAX CLI's flags: there they route
 training through the Pallas kernels, both directions.  On the card the
 port always trains through its exact kernels (the IAC iteration, the
@@ -60,6 +83,7 @@ back to the CPU.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import csv
 import os
 import random
@@ -67,6 +91,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .. import cli
 from ..data import ClipFolderDataset, Vimeo90KDataset
@@ -75,6 +100,9 @@ from ..models import (DICNet, FTVSRNet, GANRestorer, GLEANStyleGANv2,
                       LightCNN, RealBasicVSRNet, StyleGAN2Discriminator,
                       TTVSRNet, UNetDiscriminatorWithSpectralNorm,
                       init_weights)
+from ..parallel import (Mesh, initialize_multihost, make_mesh, shard_batch,
+                        shutdown)
+from ..parallel.dist import barrier
 from ..utils.checkpoint import (load_weights, restore_checkpoint,
                                 restore_gan_checkpoint, save_checkpoint,
                                 save_gan_checkpoint)
@@ -83,7 +111,8 @@ from .gan_losses import gan_loss
 from .lr_schedule import build_schedule
 from .trainer import TrainState, make_train_step
 
-__all__ = ["main", "sample_batch", "build_dataset", "build_model",
+__all__ = ["main", "train", "sample_batch", "local_batch_size",
+           "build_dataset", "build_model",
            "build_discriminator", "gan_scale", "gan_sampler", "gan_trainer",
            "run_gan_training",
            "run_eval", "SEQUENCE_MODELS", "GAN_MODELS"]
@@ -92,6 +121,11 @@ __all__ = ["main", "sample_batch", "build_dataset", "build_model",
 SEQUENCE_MODELS = ("ftvsr", "ttvsr")
 # the models that train through run_gan_training
 GAN_MODELS = ("realbasicvsr", "glean", "dic")
+GAN_MULTIHOST = (
+    "--multihost trains the pixel-loss models only: train.py runs its "
+    "single-device GAN trainer on every process (train.py:141-147, "
+    ":417-419), so a GAN preset has no data-parallel path to follow; "
+    "train it without --multihost")
 
 
 def _seeded(model: torch.nn.Module, seed: int, device) -> torch.nn.Module:
@@ -374,6 +408,18 @@ def sample_batch(rng: np.random.Generator, dataset, batch_size: int,
     return np.stack(lrs), np.stack(gts)
 
 
+def local_batch_size(batch: int, world: int) -> int:
+    """This rank's share of the global batch ``batch`` over ``world``
+    ranks, cut as ``train.py:459-466`` cuts it: the global batch rounded
+    down to a multiple of the world size (at least the world size; the JAX
+    CLI rounds to its devices, one a rank here), then divided by it."""
+    if batch % world:
+        batch = max(world, batch // world * world)
+        print(f"[train] batch rounded to {batch} for {world} ranks",
+              flush=True)
+    return batch // world
+
+
 @torch.no_grad()
 def run_eval(model, cfg, val_lr_root: str, val_gt_root: str,
              device) -> float:
@@ -481,7 +527,17 @@ def main(argv=None) -> dict:
     parser.add_argument("--seed", type=int, default=None,
                         help="seed of the weights and the data sampling "
                              "(default: the config's)")
-    parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="cuda (NCCL under --multihost) or cpu (Gloo)")
+    parser.add_argument("--multihost", action="store_true",
+                        help="train data-parallel (DDP) over the ranks of a "
+                             "process group, a process and a device each")
+    parser.add_argument("--coordinator", type=str, default="",
+                        help="rank 0's rendezvous, host:port; with "
+                             "--num-processes and --process-id (without the "
+                             "three, torchrun's environment)")
+    parser.add_argument("--num-processes", type=int, default=0)
+    parser.add_argument("--process-id", type=int, default=-1)
     args = parser.parse_args(argv)
     cfg = _config(args)
 
@@ -490,11 +546,44 @@ def main(argv=None) -> dict:
         raise RuntimeError("--device cuda: torch.cuda.is_available() is "
                            "False (pass --device cpu to train on the CPU)")
     if cfg.model.name in GAN_MODELS:
+        if args.multihost:
+            raise ValueError(GAN_MULTIHOST)
         return run_gan_training(cfg, args, device)
+    if not args.multihost:
+        return train(cfg, args, Mesh(device))
+    initialize_multihost(
+        args.coordinator or None, args.num_processes or None,
+        args.process_id if args.process_id >= 0 else None,
+        device=device.type)
+    if not dist.is_initialized():
+        raise RuntimeError("--multihost: no process group formed; give "
+                           "--coordinator, --num-processes and --process-id, "
+                           "or launch under torchrun")
+    try:
+        return train(cfg, args, make_mesh(device, dist.group.WORLD))
+    finally:
+        shutdown()
+
+
+def _on_lead(mesh: Mesh, fn):
+    """``fn()`` on rank 0 alone (its result there, None elsewhere); in a
+    process group the other ranks wait for it at a barrier."""
+    out = fn() if mesh.rank == 0 else None
+    if mesh.group is not None:
+        barrier(mesh.group)
+    return out
+
+
+def train(cfg, args, mesh: Mesh) -> dict:
+    """Train a pixel-loss model (FCVSR, FTVSR, TTVSR) on ``mesh``: one
+    device (``Mesh(device)``), or this rank of a process group, whose ranks
+    step together under DDP (``mesh.group``).  See the module's note."""
+    device, lead = mesh.device, mesh.rank == 0
     work_dir = os.path.join(cfg.work_dir, cfg.name)
-    os.makedirs(work_dir, exist_ok=True)
-    with open(os.path.join(work_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
+    if lead:
+        os.makedirs(work_dir, exist_ok=True)
+        with open(os.path.join(work_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
 
     model = build_model(cfg, cfg.train.seed, device).train()
     state = TrainState(model, build_schedule(cfg.train),
@@ -511,24 +600,24 @@ def main(argv=None) -> dict:
 
     dataset = build_dataset(cfg)
     sequence = cfg.model.name in SEQUENCE_MODELS
-    # as in the JAX CLI, the data stream starts from the seed on every run,
-    # resumed runs included, and its first batch (JAX initialises its state
-    # with it) is not trained on
-    rng = np.random.default_rng(cfg.train.seed)
-    sample_batch(rng, dataset, cfg.data.batch_size, cfg.data.lr_patch,
-                 sequence)
-    step = make_train_step(state, cfg.train.loss)
+    batch = local_batch_size(cfg.data.batch_size, mesh.size)
+    # as in the JAX CLI, each rank's data stream starts from the seed plus
+    # its rank on every run, resumed runs included, and its first batch
+    # (JAX initialises its state with it) is not trained on
+    rng = np.random.default_rng(cfg.train.seed + mesh.rank)
+    sample_batch(rng, dataset, batch, cfg.data.lr_patch, sequence)
+    step = make_train_step(state, cfg.train.loss, group=mesh.group)
     timed = device.type == "cuda"
     evals = bool(args.val_lr_root and args.val_gt_root)
-    tb = _make_tb(work_dir, args.tensorboard)
+    tb = _make_tb(work_dir, args.tensorboard) if lead else None
     losses, events, pending, psnrs = [], [], [], []
     steps, t0 = 0, time.time()
-    with open(os.path.join(work_dir, "train_log.csv"), "a", newline="") as f:
-        log = csv.writer(f)
+    with open(os.path.join(work_dir, "train_log.csv"), "a", newline="") \
+            if lead else contextlib.nullcontext() as f:
+        log = csv.writer(f) if lead else None
         for it in range(start, cfg.train.total_iters):
-            lrs, gt = (torch.from_numpy(a).to(device) for a in sample_batch(
-                rng, dataset, cfg.data.batch_size, cfg.data.lr_patch,
-                sequence))
+            lrs, gt = shard_batch(sample_batch(
+                rng, dataset, batch, cfg.data.lr_patch, sequence), mesh)
             if timed:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 ev[0].record()
@@ -538,8 +627,8 @@ def main(argv=None) -> dict:
                 ev[1].record()
                 events.append(ev)
                 pending.append(ev)
-            if (it + 1) % cfg.train.log_interval == 0 or \
-                    it + 1 == cfg.train.total_iters:
+            if lead and ((it + 1) % cfg.train.log_interval == 0 or
+                         it + 1 == cfg.train.total_iters):
                 loss = float(losses[-1])
                 med = float(np.median(_ms(pending))) if pending else None
                 dt = time.time() - t0
@@ -554,24 +643,28 @@ def main(argv=None) -> dict:
                 pending, steps = [], 0
                 t0 = time.time()
             if (it + 1) % cfg.train.ckpt_interval == 0:
-                save_checkpoint(ckpt_dir, state)
+                _on_lead(mesh, lambda: save_checkpoint(ckpt_dir, state))
             if evals and (it + 1) % cfg.train.eval_interval == 0:
-                psnr = run_eval(model, cfg, args.val_lr_root,
-                                args.val_gt_root, device)
-                psnrs.append((it + 1, psnr))
-                print(f"[eval] iter {it + 1} PSNR {psnr:.4f}", flush=True)
-                log.writerow([it + 1, "eval_psnr", psnr])
-                f.flush()
-                if tb is not None:
-                    tb.add_scalar("eval/psnr", psnr, it + 1)
+                psnr = _on_lead(mesh, lambda: run_eval(
+                    model, cfg, args.val_lr_root, args.val_gt_root, device))
+                if lead:
+                    psnrs.append((it + 1, psnr))
+                    print(f"[eval] iter {it + 1} PSNR {psnr:.4f}",
+                          flush=True)
+                    log.writerow([it + 1, "eval_psnr", psnr])
+                    f.flush()
+                    if tb is not None:
+                        tb.add_scalar("eval/psnr", psnr, it + 1)
     if tb is not None:
         tb.close()
-    save_checkpoint(ckpt_dir, state)
-    print("training complete", flush=True)
+    _on_lead(mesh, lambda: save_checkpoint(ckpt_dir, state))
+    if lead:
+        print("training complete", flush=True)
     return {"start": start, "step": state.step,
             "losses": [float(v) for v in losses],
             "ms_per_step": _ms(events) if timed else None,
-            "eval_psnr": psnrs,
+            "eval_psnr": psnrs, "rank": mesh.rank, "world_size": mesh.size,
+            "batch": batch,
             "device": torch.cuda.get_device_name(device) if timed else "cpu",
             "work_dir": work_dir}
 

@@ -64,7 +64,8 @@ atomics) and with flows far outside the frame.  The toolchain probe's
 kernel (K12), exact.  Every launch enters its tensors' device: K1, K2, K7, K8 and K11 on
 cuda:1 with cuda:0 current (skips below two cards), and K2 and K11
 launched from a side stream, complete once that stream alone is
-synchronised, as are K4 and K6.
+synchronised, as are K4 and K6.  A DDP step of FCVSR-S at world size 1 on
+NCCL takes the plain step's loss and update, through the kernels.
 """
 
 import numpy as np
@@ -726,6 +727,57 @@ def test_small_model_gpu_grads_match_cpu(cuda, cin):
     # a missing or wrong gradient is off by its own size
     assert whole <= 1e-3 and float(np.median(list(rel.values()))) <= 1e-3
     assert max(rel.values()) <= 5e-2, rel
+
+
+def test_ddp_step_at_world_size_one_equals_the_plain_step(cuda):
+    """One Adam step of FCVSR-S under DDP at world size 1 on NCCL
+    (``make_train_step(group=...)``: the parameter broadcast, the gradient
+    buckets and their all-reduce) against the plain step on the card: the
+    same loss bit for bit (the forward's kernels are deterministic), the
+    same update within 1e-3 of its norm (the IAC adjoint sums by atomics,
+    and Adam's first step divides each gradient by its own magnitude), and
+    the FCVSR kernels launched under DDP."""
+    import socket
+
+    import torch.distributed as dist
+
+    from fcvsr_tpu_torch.parallel import initialize_multihost, shutdown
+    from fcvsr_tpu_torch.train.trainer import TrainState, make_train_step
+
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.uniform(0, 1, (2, 7, 1, 20, 28))
+                         .astype(np.float32)).to(cuda)
+    gt = torch.from_numpy(rng.uniform(0, 1, (2, 1, 80, 112))
+                          .astype(np.float32)).to(cuda)
+
+    def one_step(group):
+        model = init_weights(FCVSRNet.small(n_feats=32),
+                             torch.Generator().manual_seed(5)).to(cuda)
+        before = {k: p.detach().clone() for k, p in model.named_parameters()}
+        state = TrainState(model, lambda s: 1e-4)
+        loss = make_train_step(state, "charbonnier_sum", group=group)(x, gt)
+        return float(loss["loss"]), {k: p.detach() - before[k] for k, p in
+                                     model.named_parameters()}
+
+    loss, update = one_step(None)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"127.0.0.1:{port}", 1, 0, device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        counts = launch_counts()
+        ddp_loss, ddp_update = one_step(dist.group.WORLD)
+        moved = {k: v - counts[k] for k, v in launch_counts().items()}
+    finally:
+        shutdown()
+    assert ddp_loss == loss
+    assert all(moved[k] > 0 for k in ("iac", "iac_bwd", "conv3x3_pair",
+                                      "conv3x3")), moved
+    num = sum(float((ddp_update[k] - u).norm() ** 2)
+              for k, u in update.items())
+    den = sum(float(u.norm() ** 2) for u in update.values())
+    assert (num / den) ** 0.5 <= 1e-3, (num / den) ** 0.5
 
 
 # bf16 storage: the kernels and the plain versions round at the same

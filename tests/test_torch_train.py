@@ -359,6 +359,9 @@ def test_port_imports_no_jax():
     mods = sorted(m.name for m in pkgutil.walk_packages(
         fcvsr_tpu_torch.__path__, "fcvsr_tpu_torch."))
     assert "fcvsr_tpu_torch.train.cli" in mods and len(mods) > 20
+    assert {"fcvsr_tpu_torch.parallel.dist", "fcvsr_tpu_torch.parallel.mesh",
+            "fcvsr_tpu_torch.data.lmdb_reader",
+            "fcvsr_tpu_torch.data.lmdb_writer"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"

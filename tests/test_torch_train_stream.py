@@ -59,8 +59,8 @@ def _port_batches(monkeypatch, root, total_iters):
     seen = []
     make = train_cli.make_train_step
 
-    def recording(state, loss):
-        step = make(state, loss)
+    def recording(state, loss, **kw):
+        step = make(state, loss, **kw)
 
         def run(lrs, gt):
             seen.append((lrs.numpy().copy(), gt.numpy().copy()))
