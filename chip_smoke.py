@@ -65,6 +65,17 @@ Phases, one line or more each:
      frame's loss gradients at (1, 8, 3, 64, 64), no kernel launched, and
      LTAM's tracked locations and keyframe picks (up to 3 keyframes)
      equal on both devices, with their counts;
+  3b. the CVCP family (``cvcp_zoo``) at its full widths, seeded weights,
+     every CAB2's ``beta`` and batch norm's running statistics drawn
+     non-zero: SIDECVSR (nf 64, 4 groups; smooth MVs that reach the STN's
+     clamp, both outputs), FCVSR-TFDC (64 features, 3 groups) at 1 x 7 x
+     1 x 64 x 96 and RAFT (12 updates, ``raft_flow``) on a 64 x 96 pair,
+     the card against the CPU within MODEL_ATOL; then, on the card only,
+     FCVSR-TFDC through ``sliding_window_sr`` over a 10-frame 272 x 480 Y
+     clip, SIDECVSR a forward a window over it with synthetic side
+     information and ``raft_flow`` on a 436 x 1024 pair: ms a frame (a
+     pair, CUDA events, the median of 3 after a warm-up), the peak, one
+     window's device profile; no kernel of the port launched;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM; ``--no-tof``), with the kernel launch counts per frame checked,
@@ -1444,6 +1455,221 @@ def phase_zoo_grads(torch, dev):
             fail(f"{name}: tensors other than SPyNet's over {GRAD_RTOL}: "
                  f"{over}")
         del model
+
+
+# the CVCP compressed-VSR family at its JAX-default (full) widths
+CVCP = {"SIDECVSR": dict(nf=64, sc_groups=4),
+        "FCVSRTFDCNet": dict(n_feats=64, sc_groups=3),
+        "RAFT": dict(iters=12)}
+CVCP_CHECK = (64, 96)       # card against CPU: 1 x 7 x 1 x 64 x 96, a pair
+CVCP_CLIP = (10, 272, 480)  # the CVCP eval's padded LR size, Y
+RAFT_PAIR = (436, 1024)     # Sintel's frame size
+CVCP_REPS = 3
+CVCP_MV_PX = 3.0            # the MVs' amplitude; x32 in the STN: clamped
+
+
+def cvcp_model(torch, name: str):
+    """A CVCP-family model at full width, seeded weights, every CAB2's
+    ``beta`` and every batch norm's running statistics drawn non-zero (at
+    init they are 0 and 0 / 1, which would leave CAB2 the identity and the
+    batch norms an affine map)."""
+    from fcvsr_tpu_torch.models import BACKBONES, build, init_weights
+    from fcvsr_tpu_torch.models.blocks_ext import CAB2
+
+    model = init_weights(build(BACKBONES, dict(type=name, **CVCP[name])),
+                         torch.Generator().manual_seed(0)).eval()
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, CAB2):
+                mod.beta.uniform_(-0.5, 0.5, generator=gen)
+            elif isinstance(mod, torch.nn.BatchNorm2d):
+                mod.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+    return model
+
+
+def side_window_inputs(torch, seed: int, t: int, h: int, w: int):
+    """A synthetic Y clip with side information, (1, t, c, h, w) each:
+    smooth frames, smooth MVs of up to CVCP_MV_PX px (the STN's x32 takes
+    most of them to its clamp, some stay inside), and the partition map,
+    residue and unfiltered prediction in [0, 1]."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+
+    def smooth(n, amp, off):
+        a, b, c = rng.uniform(0.02, 0.2, (3, n, 1, 1))
+        return off + amp * np.sin(a * xx + b * yy + 6 * c)
+
+    y = smooth(t, 0.4, 0.5)[:, None]
+    mvs = np.stack([smooth(t, CVCP_MV_PX, 0), smooth(t, CVCP_MV_PX, 0)], 1)
+    side = [smooth(t, 0.5, 0.5)[:, None] for _ in range(3)]
+    return [torch.from_numpy(np.asarray(v, np.float32)[None])
+            for v in [y, mvs] + side]
+
+
+def raft_images(torch, seed: int, h: int, w: int):
+    """Two smooth RGB images in [0, 1], (1, h, w, 3), the second the first
+    moved by about (3.0, 1.5) px."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    waves = rng.uniform(0.02, 0.3, (8, 3))
+    imgs = []
+    for dx, dy in ((0.0, 0.0), (3.0, 1.5)):
+        v = sum(np.sin(a * (xx - dx) + b * (yy - dy) + 6 * c)
+                for a, b, c in waves)
+        v = (v - v.min()) / (v.max() - v.min())
+        imgs.append(torch.from_numpy(np.repeat(v[..., None], 3, -1)[None]
+                                     .astype(np.float32)))
+    return imgs
+
+
+def cvcp_forward(name, model, inputs):
+    """The model's outputs as a list: SIDECVSR (SR, L1), RAFT the flow of
+    ``raft_flow`` at the inputs' size, FCVSR-TFDC the SR."""
+    from fcvsr_tpu_torch.models import raft_flow
+
+    if name == "RAFT":
+        return [raft_flow(model, *inputs)]
+    out = model(*inputs)
+    return list(out) if isinstance(out, tuple) else [out]
+
+
+def cvcp_profile(profiling, name: str, model, *inputs) -> None:
+    """One window's forward under ``torch.profiler``: its device busy ms,
+    idle share and the kernels that take the most device time."""
+    prof = profiling.device_profile(model, *inputs, n=1)
+    say("cvcp_profile", model=name, wall_ms=prof["wall_ms"],
+        busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+        top_kernels=prof["kernels"][:8])
+
+
+def phase_cvcp_zoo(torch, card):
+    """The CVCP family at full width: (a) each model on the card against
+    the same model on the CPU (SIDECVSR with smooth MVs that reach the
+    STN's clamp, FCVSR-TFDC, RAFT through ``raft_flow`` on a 64 x 96 pair)
+    within MODEL_ATOL; (b) no kernel of the port launched; (c) on the card
+    only, warm, CUDA events, the median of CVCP_REPS: FCVSR-TFDC through
+    ``sliding_window_sr`` over a 10-frame 272 x 480 Y clip, SIDECVSR window
+    by window over the same clip with synthetic side information, and
+    ``raft_flow`` on a Sintel-sized pair; ms a frame (a pair), the peak,
+    and one window's device profile of the two SR models."""
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.data.pipelines import padded_window_indices
+    from fcvsr_tpu_torch.models import raft_flow, sliding_window_sr
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda", 0)
+    reset_launch_counts()
+    h, w = CVCP_CHECK
+    check_inputs = {
+        "SIDECVSR": side_window_inputs(torch, 11, 7, h, w),
+        "FCVSRTFDCNet": [torch.from_numpy(np.random.default_rng(12).uniform(
+            0, 1, (1, 7, 1, h, w)).astype(np.float32))],
+        "RAFT": raft_images(torch, 13, h, w)}
+    for name in CVCP:
+        model = cvcp_model(torch, name)
+        inputs = check_inputs[name]
+        with torch.no_grad():
+            ref = cvcp_forward(name, model, inputs)
+            got = cvcp_forward(name, model.to(dev),
+                               [v.to(dev) for v in inputs])
+        errs = [float((g.cpu() - r).abs().max()) for g, r in zip(got, ref)]
+        scale = [float(r.abs().max()) for r in ref]
+        say("cvcp_model", model=name, config=CVCP[name],
+            input=[list(v.shape) for v in inputs],
+            shapes=[list(g.shape) for g in got], max_abs_err=errs,
+            max_abs_out=scale, rel_err=[e / s for e, s in zip(errs, scale)],
+            tol=MODEL_ATOL)
+        if not all(torch.isfinite(g).all() and g.shape == r.shape
+                   for g, r in zip(got, ref)):
+            fail(f"{name}: output shapes {[g.shape for g in got]} or "
+                 "non-finite values")
+        if not max(errs) <= MODEL_ATOL:
+            fail(f"{name}: GPU vs CPU model error {errs} > {MODEL_ATOL}")
+        del model, got
+
+    t, hh, ww = CVCP_CLIP
+    clip = smooth_clip(torch, 14, t, hh, ww)[..., :1]
+    # FCVSR-TFDC: the sliding-window eval (its default 8 windows a forward)
+    model = cvcp_model(torch, "FCVSRTFDCNet").to(dev)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+
+    def tfdc_clip():
+        out["sr"] = sliding_window_sr(model, clip, device=dev)
+
+    (ms,) = profiling.cuda_ms([tfdc_clip], reps=CVCP_REPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    say("cvcp_serve", model="FCVSRTFDCNet", entry="sliding_window_sr",
+        clip=[t, hh, ww, 1], reps=CVCP_REPS, ms_per_clip=ms,
+        ms_per_frame=ms / t, max_memory_allocated=peak, card=card)
+    with torch.no_grad():
+        cvcp_profile(profiling, "FCVSRTFDCNet", model, torch.from_numpy(
+            np.ascontiguousarray(np.transpose(clip[:7], (0, 3, 1, 2))[None]))
+            .to(dev))
+    if out["sr"].shape != (t, 4 * hh, 4 * ww, 1) or not np.isfinite(
+            out["sr"]).all():
+        fail(f"FCVSR-TFDC: sliding_window_sr gave {out['sr'].shape} or "
+             "non-finite values")
+    del model, out
+
+    # SIDECVSR: a forward a window, the side information on the card
+    model = cvcp_model(torch, "SIDECVSR").to(dev)
+    side = [v.to(dev) for v in side_window_inputs(torch, 15, t, hh, ww)]
+    side[0] = torch.from_numpy(np.ascontiguousarray(np.transpose(
+        clip, (0, 3, 1, 2))[None])).to(dev)
+    windows = [padded_window_indices(i, t, 7) for i in range(t)]
+    srs = []
+
+    def side_clip():
+        srs.clear()
+        with torch.no_grad():
+            for idx in windows:
+                srs.append(model(*[v[:, idx] for v in side])[0])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (ms,) = profiling.cuda_ms([side_clip], reps=CVCP_REPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    say("cvcp_serve", model="SIDECVSR", entry="forward a window",
+        clip=[t, hh, ww, 1], reps=CVCP_REPS, ms_per_clip=ms,
+        ms_per_frame=ms / t, max_memory_allocated=peak, card=card)
+    if len(srs) != t or any(s.shape != (1, 1, 4 * hh, 4 * ww)
+                            or not torch.isfinite(s).all() for s in srs):
+        fail("SIDECVSR: window outputs of the wrong shape or non-finite")
+    with torch.no_grad():
+        cvcp_profile(profiling, "SIDECVSR", model,
+                     *[v[:, windows[t // 2]] for v in side])
+    del model, side, srs
+
+    # RAFT: raft_flow on a Sintel-sized pair (436 -> 440 and back)
+    model = cvcp_model(torch, "RAFT").to(dev)
+    pair = [v.to(dev) for v in raft_images(torch, 16, *RAFT_PAIR)]
+    flow = {}
+
+    def raft_pair():
+        with torch.no_grad():
+            flow["f"] = raft_flow(model, *pair)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (ms,) = profiling.cuda_ms([raft_pair], reps=CVCP_REPS, warmup=1)
+    peak = torch.cuda.max_memory_allocated()
+    say("cvcp_serve", model="RAFT", entry="raft_flow", iters=12,
+        pair=list(RAFT_PAIR), reps=CVCP_REPS, ms_per_pair=ms,
+        max_memory_allocated=peak, card=card)
+    if flow["f"].shape != (1, *RAFT_PAIR, 2) or not torch.isfinite(
+            flow["f"]).all():
+        fail(f"RAFT: raft_flow gave {tuple(flow['f'].shape)} or non-finite "
+             "values")
+    del model, pair, flow
+
+    counts = launch_counts()
+    say("cvcp_launches", launches=counts)
+    if any(counts.values()):
+        fail(f"a kernel of the port launched on the CVCP path: {counts}")
 
 
 def write_rgb_clip(torch, root: str, n: int, h: int, w: int):
@@ -2940,6 +3166,7 @@ def main() -> None:
     run("model", phase_model, torch, dev)
     run("zoo_models", phase_zoo_models, torch, dev)
     run("zoo_grads", phase_zoo_grads, torch, dev)
+    run("cvcp_zoo", phase_cvcp_zoo, torch, card)
     run("slice", phase_slice, torch, card)
     fast_counts = run("fast", phase_fast, torch, card)
     run("modes", phase_modes, torch, card)

@@ -1,7 +1,8 @@
 """Models of the port (channels-last inside, reference key names): FCVSR
 (with its ETC mode), and the zoo's EDVR, BasicVSR, BasicVSR++, IconVSR,
-TDAN, FTVSR, TTVSR and SPyNet; the restorer that trains and evaluates
-them; batched sliding-window and tiled serving (``models.inference``);
+TDAN, FTVSR, TTVSR and SPyNet; the CVCP compressed-VSR family (SIDECVSR
+on HEVC side information, FCVSR-TFDC) and RAFT; the restorer that trains
+and evaluates them; batched sliding-window and tiled serving (``models.inference``);
 and the GAN family: RealBasicVSR, GLEAN (on StyleGAN2), DIC, the three
 discriminators and the GAN restorer that trains them."""
 
@@ -12,23 +13,28 @@ from .discriminators import (LightCNN, ModifiedVGG,
                              UNetDiscriminatorWithSpectralNorm)
 from .edvr import EDVRNet
 from .fcvsr import MFFR, MGAA, FCVSRNet, fcvsr_etc_forward, init_weights
+from .fcvsr_tfdc import FCVSRTFDCNet
 from .ftvsr import FTVSRNet, TTVSRNet
 from .gan_restorer import GANRestorer
 from .glean import GLEANStyleGANv2
 from .iconvsr import IconVSR, TDANNet
 from .inference import sliding_window_sr, tiled_sr
+from .raft import RAFT, raft_flow
 from .real_basicvsr import RealBasicVSRNet
 from .registry import BACKBONES, build
 from .restorers import VideoRestorer, tensor2img
+from .sidecvsr import SIDECVSR
 from .spynet import SpyNet
 from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 
 __all__ = ["BACKBONES", "BasicVSRNet", "BasicVSRPlusPlus", "DICNet",
-           "EDVRNet", "FCVSRNet", "FTVSRNet", "FeedbackHourglass",
+           "EDVRNet", "FCVSRNet", "FCVSRTFDCNet", "FTVSRNet", "FeedbackHourglass",
            "GANRestorer", "GLEANStyleGANv2", "IconVSR", "LightCNN", "MGAA",
-           "MFFR", "ModifiedVGG", "RealBasicVSRNet", "SpyNet",
+           "MFFR", "ModifiedVGG", "RAFT", "RealBasicVSRNet", "SIDECVSR",
+           "SpyNet",
            "StyleGAN2Discriminator", "StyleGAN2Generator", "TDANNet",
            "TTVSRNet", "UNetDiscriminatorWithSpectralNorm", "VideoRestorer",
            "build",
-           "fcvsr_etc_forward", "init_weights", "sliding_window_sr",
+           "fcvsr_etc_forward", "init_weights", "raft_flow",
+           "sliding_window_sr",
            "tensor2img", "tiled_sr"]

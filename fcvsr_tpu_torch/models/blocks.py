@@ -20,9 +20,9 @@ import torch.nn.functional as F
 
 from .scnet_rows import scnet_apply
 
-__all__ = ["Conv2d", "PReLU", "CALayer", "ConvBlk", "ContextBlock", "RCB",
-           "BlockRCB", "SCGroup", "SCNet", "DivEnh", "pixel_shuffle",
-           "set_compute_dtype"]
+__all__ = ["Conv2d", "PReLU", "LayerNorm2d", "BatchNorm2d", "CALayer",
+           "ConvBlk", "ContextBlock", "RCB", "BlockRCB", "SCGroup", "SCNet",
+           "DivEnh", "pixel_shuffle", "set_compute_dtype"]
 
 
 class Conv2d(nn.Conv2d):
@@ -59,6 +59,36 @@ class PReLU(nn.PReLU):
 
     def forward(self, x):
         return F.prelu(x, self.weight.to(x.dtype))
+
+
+class LayerNorm2d(nn.Module):
+    """Layer norm over the channel axis of an NHWC tensor (the reference's
+    ``LayerNorm2d``): the biased variance, ``eps`` inside the square root,
+    a per-channel ``weight`` and ``bias``."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x):
+        mu = x.mean(-1, keepdim=True)
+        var = (x - mu).square().mean(-1, keepdim=True)
+        y = (x - mu) / torch.sqrt(var + self.eps)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """Batch norm of an NHWC tensor on its running statistics, in training
+    mode too (flax's ``BatchNorm(use_running_average=True)``, as the JAX
+    package's RAFT context encoder and ``FourierUnit`` run it).  Its
+    ``state_dict`` is ``nn.BatchNorm2d``'s."""
+
+    def forward(self, x):
+        return F.batch_norm(x.permute(0, 3, 1, 2), self.running_mean,
+                            self.running_var, self.weight, self.bias, False,
+                            0.0, self.eps).permute(0, 2, 3, 1)
 
 
 class CALayer(nn.Module):

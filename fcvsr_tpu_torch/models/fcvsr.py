@@ -27,9 +27,12 @@ from ..ops.psfold import (block_to_interleaved_perm,
 from ..ops.resize import resize_bilinear
 from ..ops.sac import iac
 from .basicvsr import MMResidualBlock, ModulatedDeformConv2d
-from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, PReLU, RCB,
-                     SCNet, pixel_shuffle, set_compute_dtype)
+from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, LayerNorm2d,
+                     PReLU, RCB, SCNet, pixel_shuffle, set_compute_dtype)
+from .blocks_ext import CAB2
+from .raft import InstanceNorm
 from .scnet_rows import STORAGE, conv_bias, hwio
+from .sidecvsr import _WideBlock
 
 __all__ = ["MGAA", "MFFR", "FCVSRNet", "init_weights", "fcvsr_etc_forward"]
 
@@ -522,18 +525,22 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
     Convs get torch's default U(+-1/sqrt(fan_in)) for weight and bias; the
     residual blocks the reference re-initialises (SCNet's BlockRCB and its
-    RCB, mmedit's ResidualBlockNoBN) get kaiming-normal x 0.1 with zero
-    bias, which keeps deep stacks stable; a deformable conv gets
+    RCB, mmedit's ResidualBlockNoBN, the width-4 cross-scale block of
+    SIDECVSR and FCVSR-TFDC) get kaiming-normal x 0.1 with zero bias, which
+    keeps deep stacks stable; a deformable conv gets
     U(+-1/sqrt(fan_in)), a zero bias (if it has one) and a zero last offset
     conv (zero offsets, mask 0.5); PReLU slopes are 0.25 and DivEnh keeps a = 0,
     b = 1.  Linear layers and an attention's packed input projection get
-    U(+-1/sqrt(fan_in)) for weight and bias; LayerNorms keep ones and
-    zeros.  Last, a module with an ``init_seeded(generator)`` method (the
+    U(+-1/sqrt(fan_in)) for weight and bias; the norms (LayerNorm,
+    ``LayerNorm2d``, RAFT's instance norm, batch norms) get ones and zeros,
+    batch norms' running statistics 0 and 1, and CAB2's ``beta`` zeros (the
+    block starts as the identity), as the JAX package initialises them.
+    Last, a module with an ``init_seeded(generator)`` method (the
     GAN family's equalised-lr and spectral-norm layers, RRDB's dense
     blocks, DIC) sets its own parameters and buffers with it."""
     scaled, zeroed = set(), set()
     for mod in model.modules():
-        if isinstance(mod, (BlockRCB, RCB, MMResidualBlock)):
+        if isinstance(mod, (BlockRCB, RCB, MMResidualBlock, _WideBlock)):
             scaled.update(id(m) for m in mod.modules()
                           if isinstance(m, nn.Conv2d))
         elif isinstance(mod, ModulatedDeformConv2d):
@@ -571,6 +578,13 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(mod, DivEnh):
             mod.a.zero_()
             mod.b.fill_(1.0)
+        elif isinstance(mod, (nn.LayerNorm, LayerNorm2d, InstanceNorm)):
+            mod.weight.fill_(1.0)
+            mod.bias.zero_()
+        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            mod.reset_parameters()
+        elif isinstance(mod, CAB2):
+            mod.beta.zero_()
     for mod in model.modules():
         if hasattr(mod, "init_seeded"):
             mod.init_seeded(generator)

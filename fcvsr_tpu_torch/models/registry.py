@@ -14,10 +14,13 @@ from .discriminators import (LightCNN, ModifiedVGG,
                              UNetDiscriminatorWithSpectralNorm)
 from .edvr import EDVRNet
 from .fcvsr import FCVSRNet
+from .fcvsr_tfdc import FCVSRTFDCNet
 from .ftvsr import FTVSRNet, TTVSRNet
 from .glean import GLEANStyleGANv2
 from .iconvsr import IconVSR, TDANNet
+from .raft import RAFT
 from .real_basicvsr import RealBasicVSRNet
+from .sidecvsr import SIDECVSR
 from .spynet import SpyNet
 from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
 
@@ -57,8 +60,14 @@ for _cls in (FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
              TDANNet, SpyNet, FTVSRNet):
     BACKBONES.register_obj(_cls.__name__, _cls)
 BACKBONES.register_obj("TTVSRNet", TTVSRNet)
-for _cls in (DICNet, FeedbackHourglass, GLEANStyleGANv2, RealBasicVSRNet,
-             StyleGAN2Generator, StyleGAN2Discriminator, ModifiedVGG,
-             LightCNN, UNetDiscriminatorWithSpectralNorm):
+for _cls in (FCVSRTFDCNet, RAFT, SIDECVSR, DICNet, FeedbackHourglass,
+             GLEANStyleGANv2, RealBasicVSRNet, StyleGAN2Generator,
+             StyleGAN2Discriminator, ModifiedVGG, LightCNN,
+             UNetDiscriminatorWithSpectralNorm):
     BACKBONES.register_obj(_cls.__name__, _cls)
 BACKBONES.register_obj("FCVSR_SNet", FCVSRNet.small)
+# the CVCP names of FCVSR on Y
+BACKBONES.register_obj("GShiftNet",
+                       lambda **kw: FCVSRNet(in_channels=1, **kw))
+BACKBONES.register_obj("GShiftNet_S",
+                       lambda **kw: FCVSRNet.small(in_channels=1, **kw))

@@ -212,11 +212,12 @@ def stage_times(model, x, reps: int = 10, warmup: int = 2,
 
 
 @torch.no_grad()
-def device_profile(model, x, n: int = 3) -> dict:
-    """``torch.profiler`` over ``n`` forwards: per-forward device time and
-    launches by kernel name, busy and wall ms per forward, idle share.
-    Device fields are None when the profiler saw no device activity."""
-    return _profile(lambda: model(x), x.device, n)
+def device_profile(model, *xs, n: int = 3) -> dict:
+    """``torch.profiler`` over ``n`` forwards ``model(*xs)``: per-forward
+    device time and launches by kernel name, busy and wall ms per forward,
+    idle share.  Device fields are None when the profiler saw no device
+    activity."""
+    return _profile(lambda: model(*xs), xs[0].device, n)
 
 
 def _profile(run, dev, n: int) -> dict:

@@ -1,5 +1,6 @@
 """Weights from the JAX package: flax params -> the port's ``state_dict``
 (counterpart of ``fcvsr_tpu.utils.torch_import``, in the other direction).
+SIDECVSR, FCVSR-TFDC and RAFT keep the JAX package's module names.
 
 FCVSR's names map through :func:`flax_to_torch_key`, the port's own copy of
 the JAX package's key map; the zoo's (EDVR, BasicVSR, BasicVSR++, IconVSR,
@@ -341,6 +342,74 @@ def _gan_state_dict(variables: Mapping, tree: Mapping
     return out
 
 
+# The CVCP family's top-level module names (JAX's, which are the port's),
+# each family told apart by its first names
+_CVCP = {
+    "SIDECVSR": (("mv_patch_attn",), re.compile(
+        r"conv_first|side[0-3]|sft_rb[0-6]|mv_patch_attn|attn_[qp]"
+        r"|tsa_fusion|recon_trunk|upconv1_L[23]|upconv[12]|conv_last")),
+    "FCVSRTFDCNet": (("TFDC", "Spa_freqblock0"), re.compile(
+        r"lrelu|TFDC|feat_extract|Spa_freqblock0|rconcat[12]|recorb[01]"
+        r"|upconv1_L[23]|upconv1_L2_2|upconv_fuse|upconv[12]|conv_last0")),
+    "RAFT": (("fnet", "update_block"), re.compile(r"[fc]net|update_block")),
+}
+
+
+def _cvcp_param(path, v: np.ndarray):
+    """(port key, tensor) of one param of SIDECVSR, FCVSR-TFDC or RAFT, or
+    None: the module path without flax's ``Conv_0``, a ``CALayer``'s
+    ``down`` / ``up`` as ``conv_du.0`` / ``.2``; conv kernels OIHW, a
+    norm's ``scale`` its ``weight``, PReLU's ``alpha`` its (1,) weight."""
+    mod = []
+    for p in path[:-1]:
+        if p == "Conv_0":
+            continue
+        if mod and mod[-1] == "CA2" and p in ("down", "up"):
+            p = "conv_du.0" if p == "down" else "conv_du.2"
+        mod.append(p)
+    leaf = path[-1]
+
+    def at(name):
+        return ".".join(mod + [name])
+
+    if leaf == "kernel" and v.ndim == 4:
+        return at("weight"), torch.tensor(v.transpose(3, 2, 0, 1))
+    if leaf in ("bias", "beta") or (leaf == "weight" and v.ndim == 1):
+        return at(leaf), torch.tensor(v)
+    if leaf == "scale":
+        return at("weight"), torch.tensor(v)
+    if leaf == "alpha":
+        return at("weight"), torch.tensor(v.reshape(1))
+    return None
+
+
+def _cvcp_state_dict(variables: Mapping, tree: Mapping,
+                     names) -> Dict[str, torch.Tensor]:
+    """SIDECVSR, FCVSR-TFDC or RAFT: ``params`` by :func:`_cvcp_param`,
+    ``batch_stats`` (RAFT's context encoder, ``FourierUnit.bn``) as the
+    batch norms' running statistics."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _flatten(tree):
+        got = None
+        if names.fullmatch(path[0]):
+            got = _cvcp_param(path, np.asarray(value, np.float32))
+        if got is None:
+            raise KeyError(f"no port key for JAX param {'/'.join(path)}")
+        out[got[0]] = got[1]
+    for path, value in _flatten(variables.get("batch_stats", {})):
+        if path[-1] not in ("mean", "var") or not names.fullmatch(path[0]):
+            raise KeyError(f"no port key for JAX batch_stats "
+                           f"{'/'.join(path)}")
+        base = ".".join(path[:-1])
+        out[f"{base}.running_{path[-1]}"] = torch.tensor(
+            np.asarray(value, np.float32))
+        out[f"{base}.num_batches_tracked"] = torch.tensor(0)
+    unknown = set(variables) - {"params", "batch_stats"}
+    if unknown and "params" in variables:
+        raise KeyError(f"no port keys for JAX collections {sorted(unknown)}")
+    return out
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
     TDANNet, FTVSRNet (TTVSRNet) or SpyNet param
@@ -356,10 +425,19 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     (``Conv_0`` dropped), dense kernels (in, out) become (out, in)
     weights, conv and modulated-conv kernels OIHW, DIC's transposed-conv
     kernels are flipped (:func:`conv_transpose_weight`) and StyleGAN2's
-    ``constant_input`` and noise maps stay NHWC."""
+    ``constant_input`` and noise maps stay NHWC.
+
+    SIDECVSR, FCVSR-TFDC and RAFT take the whole variables dict too
+    (``params`` and ``batch_stats``: RAFT's context encoder and
+    FCVSR-TFDC's ``FourierUnit`` batch norms) and keep the JAX package's
+    module names (:func:`_cvcp_param`); the JAX package's key map has no
+    reference names for them."""
     tree = params.get("params", params)
     if any(m in tree for m in ("image_cleaning",) + _GAN_MARKERS):
         return _gan_state_dict(params, tree)
+    for markers, names in _CVCP.values():
+        if any(m in tree for m in markers):
+            return _cvcp_state_dict(params, tree, names)
     # FTVSR has a SpyNet too: its marker goes first
     if "LTAM" in tree:
         return _ftvsr_state_dict(tree)

@@ -361,7 +361,11 @@ def test_port_imports_no_jax():
     assert "fcvsr_tpu_torch.train.cli" in mods and len(mods) > 20
     assert {"fcvsr_tpu_torch.parallel.dist", "fcvsr_tpu_torch.parallel.mesh",
             "fcvsr_tpu_torch.data.lmdb_reader",
-            "fcvsr_tpu_torch.data.lmdb_writer"} <= set(mods)
+            "fcvsr_tpu_torch.data.lmdb_writer",
+            "fcvsr_tpu_torch.models.sidecvsr",
+            "fcvsr_tpu_torch.models.fcvsr_tfdc",
+            "fcvsr_tpu_torch.models.raft",
+            "fcvsr_tpu_torch.models.blocks_ext"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"

@@ -5,9 +5,13 @@ Every offset conv (EDVR's ``conv_offset``, BasicVSR++'s ``conv_offset3``) is
 zero-initialised, which would make each DCN a plain conv: the JAX param
 trees get seeded values there, which put offsets several pixels long, some
 out of the frame, through the deformable sampling.  Bar: 1e-4 max abs on the
-output, the bar of tests/test_parity_torch.py.  Each JAX model is
-initialised and applied once, under ``jax.jit``, in a module-scoped fixture
-the tests share.
+output, the bar of tests/test_parity_torch.py.  Each JAX model's params are
+drawn with numpy on the shapes ``jax.eval_shape`` gives (flax's init
+distribution: kernels U(+-1/sqrt(fan_in)); biases U(+-0.1)), and the model
+runs once in a module-scoped fixture the tests share: EDVR jitted with
+XLA's backend optimisation off, BasicVSR++ through the JAX package's
+``restoration_video_inference`` (flax's jitted ``init`` took 4.6 s to
+compile for EDVR, 10 s for BasicVSR++).  Torch runs on one thread.
 """
 
 import jax
@@ -29,6 +33,16 @@ from fcvsr_tpu_torch.ops import launch_counts
 from fcvsr_tpu_torch.utils.convert import state_dict_from_jax
 
 ATOL = 1e-4
+FAST = {"xla_backend_optimization_level": 0,
+        "xla_llvm_disable_expensive_passes": True}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _seed_offset_convs(params, name, seed, bias_scale):
@@ -62,17 +76,34 @@ def _to_dict(tree):
             for k, v in tree.items()}
 
 
+def _draw_params(jm, x, seed: int) -> dict:
+    """numpy draws for the params of ``jm`` applied to ``x``."""
+    rng = np.random.default_rng(seed)
+
+    def leaf(s):
+        if len(s.shape) == 1:
+            v = rng.uniform(-0.1, 0.1, s.shape)
+        else:
+            v = rng.uniform(-1, 1, s.shape) / np.sqrt(np.prod(s.shape[:-1]))
+        return np.asarray(v, np.float32)
+
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), x)
+    return _to_dict(jax.tree_util.tree_map(leaf, shapes))
+
+
 @pytest.fixture(scope="module")
 def edvr_case():
     jm = JEDVRNet(mid_channels=16, deform_groups=8, num_blocks_extraction=1,
                   num_blocks_reconstruction=1)
     x = np.random.default_rng(0).uniform(0, 1, (1, 5, 3, 16, 16)) \
         .astype(np.float32)
-    params = _to_dict(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x)))
+    jx = jnp.asarray(x)
+    params = _draw_params(jm, jx, 0)
     # offsets N(0, 3) px at the three levels of a 16x16 window: many of
     # them reach out of the 4x4, 8x8 and 16x16 frames
     params = _seed_offset_convs(params, "conv_offset", 1, 3.0)
-    ref = np.asarray(jax.jit(jm.apply)(params, jnp.asarray(x)))
+    ref = np.asarray(jax.jit(jm.apply).lower(params, jx).compile(FAST)(
+        params, jx))
     return params, x, ref
 
 
@@ -82,7 +113,7 @@ def basicvsr_pp_case():
     frames = np.random.default_rng(2).uniform(0, 1, (3, 64, 64, 3)) \
         .astype(np.float32)
     x = jnp.asarray(np.transpose(frames, (0, 3, 1, 2))[None])
-    params = _to_dict(jax.jit(jm.init)(jax.random.PRNGKey(1), x))
+    params = _draw_params(jm, x, 1)
     # residues 10 * tanh(N(0, 1.5)) around the random SPyNet's flows
     params = _seed_offset_convs(params, "conv_offset3", 3, 1.5)
     ref = j_inference(jm, params, frames, window_size=0)   # (T, 4H, 4W, 3)
@@ -206,17 +237,18 @@ def test_state_dict_from_jax_raises_on_unknown_param(edvr_case,
 
 def test_registry_builds_the_ports_models():
     assert BACKBONES.keys() == [
-        "BasicVSRNet", "BasicVSRPlusPlus", "DICNet", "EDVRNet", "FCVSRNet",
-        "FCVSR_SNet", "FTVSRNet", "FeedbackHourglass", "GLEANStyleGANv2",
-        "IconVSR", "LightCNN", "ModifiedVGG", "RealBasicVSRNet", "SpyNet",
-        "StyleGAN2Discriminator", "StyleGAN2Generator", "TDANNet",
-        "TTVSRNet", "UNetDiscriminatorWithSpectralNorm"]
+        "BasicVSRNet", "BasicVSRPlusPlus", "DICNet", "EDVRNet",
+        "FCVSRNet", "FCVSRTFDCNet", "FCVSR_SNet", "FTVSRNet",
+        "FeedbackHourglass", "GLEANStyleGANv2", "GShiftNet", "GShiftNet_S",
+        "IconVSR", "LightCNN", "ModifiedVGG", "RAFT", "RealBasicVSRNet",
+        "SIDECVSR", "SpyNet", "StyleGAN2Discriminator", "StyleGAN2Generator",
+        "TDANNet", "TTVSRNet", "UNetDiscriminatorWithSpectralNorm"]
     model = build(BACKBONES, dict(type="EDVRNet", mid_channels=16,
                                   num_blocks_extraction=1,
                                   num_blocks_reconstruction=1))
     assert isinstance(model, EDVRNet)
-    with pytest.raises(KeyError, match="RAFT"):
-        build(BACKBONES, dict(type="RAFT"))
+    with pytest.raises(KeyError, match="LIIFEDSR"):
+        build(BACKBONES, dict(type="LIIFEDSR"))
 
 
 def test_init_weights_zeroes_the_offset_convs():
