@@ -76,6 +76,19 @@ Phases, one line or more each:
      information and ``raft_flow`` on a 436 x 1024 pair: ms a frame (a
      pair, CUDA events, the median of 3 after a warm-up), the peak, one
      window's device profile; no kernel of the port launched;
+  3c. the single-image zoo (``sisr_zoo``) at the published x4 widths,
+     seeded weights: EDSR, SRCNN, MSRResNet, RRDBNet, RDN, TOFlow,
+     LIIF-EDSR, LIIF-RDN and TTSR, the card against the CPU within
+     MODEL_ATOL (LR 24 x 32; TOFlow 7 x 64 x 96; LIIF at every pixel of
+     the x4 grid; TTSR against a 96 x 128 reference, its hard-attention
+     picks on both devices counted); then, on the card only, each built
+     by ``build(BACKBONES, cfg)`` and served under ``no_grad`` at a real
+     size (a 510 x 339 DIV2K LR; a 7 x 256 x 448 Vimeo-90K septuplet for
+     TOFlow; 262 144 queries of a 128 x 128 LR for LIIF; 80 x 120 against
+     320 x 480 for TTSR): ms a frame (median of 3 after a warm-up), the
+     flops counted on the meta device and their rate, the peak; RDN's,
+     RRDBNet's and TOFlow's device profiles; no kernel of the port
+     launched;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM; ``--no-tof``), with the kernel launch counts per frame checked,
@@ -1672,6 +1685,151 @@ def phase_cvcp_zoo(torch, card):
         fail(f"a kernel of the port launched on the CVCP path: {counts}")
 
 
+# the single-image zoo, TOFlow, LIIF and TTSR at the JAX defaults (the
+# published x4 widths, not cut); sizes (H, W) of the LR (TOFlow: its HR
+# frames, 7 of them)
+SISR_ZOO = ("EDSR", "SRCNN", "MSRResNet", "RRDBNet", "RDN", "TOFlow",
+            "LIIFEDSR", "LIIFRDN", "TTSR")
+SISR_CHECK = {"TOFlow": (64, 96)}   # card against CPU; the rest LR 24 x 32
+SISR_SERVE = {"TOFlow": (256, 448),  # a Vimeo-90K septuplet
+              "LIIFEDSR": (128, 128), "LIIFRDN": (128, 128),
+              "TTSR": (80, 120)}      # CUFED-sized: 320 x 480 reference
+SISR_LR = (339, 510)     # a DIV2K validation image's x4 LR (2040 x 1356 out)
+SISR_REPS = 3
+# the two heaviest forwards, and TOFlow, the one furthest under the convs'
+# rate (5.0 TFLOP/s on an H100 at 700 W, against 20-27 for the others)
+SISR_PROFILE = ("RDN", "RRDBNet", "TOFlow")
+
+
+def sisr_inputs(torch, name: str, hw, seed: int, device="cpu"):
+    """A model's inputs at LR size ``hw``: an image (1, 3, h, w) in [0, 1],
+    smooth; TOFlow 7 smooth frames (1, 7, 3, h, w); LIIF the image and
+    every pixel of its x4 grid as queries (coordinates and cells); TTSR
+    a random LR and a random x4 reference (noise: its relevances have no
+    near-ties for the card's and the CPU's rounding to split)."""
+    from fcvsr_tpu_torch.models.liif import make_coord
+
+    h, w = hw
+    if name == "TOFlow":
+        clip = smooth_clip(torch, seed, 7, h, w)
+        return [torch.from_numpy(np.ascontiguousarray(
+            clip.transpose(0, 3, 1, 2))[None]).to(device)]
+    if name == "TTSR":
+        rng = np.random.default_rng(seed)
+        return [torch.from_numpy(rng.uniform(0, 1, shape).astype(
+            np.float32)).to(device) for shape in ((1, 3, h, w),
+                                                  (1, 3, 4 * h, 4 * w))]
+    img = torch.from_numpy(np.ascontiguousarray(
+        smooth_clip(torch, seed, 1, h, w).transpose(0, 3, 1, 2))).to(device)
+    if not name.startswith("LIIF"):
+        return [img]
+    coord = make_coord((4 * h, 4 * w), device=device)[None]
+    cell = torch.tensor([2.0 / (4 * h), 2.0 / (4 * w)],
+                        device=device).expand_as(coord).contiguous()
+    return [img, coord, cell]
+
+
+def sisr_model(torch, name: str, device="cpu"):
+    from fcvsr_tpu_torch.models import BACKBONES, build, init_weights
+
+    return init_weights(build(BACKBONES, dict(type=name)),
+                        torch.Generator().manual_seed(0)).eval().to(device)
+
+
+def sisr_flops(torch, name: str, hw) -> float:
+    """The model's forward flops at LR size ``hw``, counted by
+    ``torch.utils.flop_counter`` on the meta device (no data, no time)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from fcvsr_tpu_torch.models import BACKBONES, build
+
+    with torch.device("meta"):
+        model = build(BACKBONES, dict(type=name)).eval()
+    inputs = sisr_inputs(torch, name, hw, 0, "cpu")
+    inputs = [torch.empty(v.shape, device="meta") for v in inputs]
+    with torch.no_grad(), FlopCounterMode(display=False) as counter:
+        model(*inputs)
+    return float(counter.get_total_flops())
+
+
+def phase_sisr_zoo(torch, card):
+    """The single-image zoo (EDSR, SRCNN, MSRResNet, RRDBNet, RDN), TOFlow,
+    LIIF-EDSR, LIIF-RDN and TTSR at their published widths: (a) each on
+    the card against the same model on the CPU within MODEL_ATOL (LR 24 x
+    32; TOFlow 7 x 64 x 96; LIIF queried at every pixel of the x4 grid;
+    TTSR against a 96 x 128 reference, its hard-attention picks on both
+    devices counted); (b) on the card only, ``build(BACKBONES, cfg)`` and a
+    forward under ``no_grad``, warm, CUDA events, the median of SISR_REPS:
+    the SISR models on a 510 x 339 LR (2040 x 1356 out), TOFlow on a
+    Vimeo-90K septuplet, LIIF on a 128 x 128 LR at all 262 144 queries of
+    its x4 grid, TTSR 80 x 120 against 320 x 480: ms a frame, the flops
+    (meta-device count) and their rate, the peak; (c) the device profile
+    of RDN's, RRDBNet's and TOFlow's forwards; (d) no kernel of the port
+    launched."""
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda", 0)
+    reset_launch_counts()
+    for i, name in enumerate(SISR_ZOO):
+        model = sisr_model(torch, name)
+        hw = SISR_CHECK.get(name, (24, 32))
+        inputs = sisr_inputs(torch, name, hw, 20 + i)
+        with torch.no_grad():
+            ref = model(*inputs)
+            got = model.to(dev)(*[v.to(dev) for v in inputs])
+            extra = {}
+            if name == "TTSR":
+                on_card = model.search(*[v.to(dev) for v in inputs])[3]
+                on_cpu = model.to("cpu").search(*inputs)[3]
+                extra = dict(picks=on_cpu.numel(), picks_differ=int(
+                    (on_card.cpu() != on_cpu).sum()))
+        err = float((got.cpu() - ref).abs().max())
+        say("sisr_model", model=name, input=[list(v.shape) for v in inputs],
+            shape=list(got.shape), max_abs_err=err,
+            max_abs_out=float(ref.abs().max()), tol=MODEL_ATOL, **extra)
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            fail(f"{name}: output shape {tuple(got.shape)} or non-finite "
+                 "values")
+        if not err <= MODEL_ATOL:
+            fail(f"{name}: GPU vs CPU model error {err} > {MODEL_ATOL}")
+        del model, got
+
+    for i, name in enumerate(SISR_ZOO):
+        hw = SISR_SERVE.get(name, SISR_LR)
+        flops = sisr_flops(torch, name, hw)
+        model = sisr_model(torch, name, dev)
+        inputs = sisr_inputs(torch, name, hw, 40 + i, dev)
+        out = {}
+
+        def forward():
+            with torch.no_grad():
+                out["y"] = model(*inputs)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (ms,) = profiling.cuda_ms([forward], reps=SISR_REPS, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        say("sisr_serve", model=name, input=[list(v.shape) for v in inputs],
+            output=list(out["y"].shape), reps=SISR_REPS, ms_per_frame=ms,
+            tflop=flops / 1e12, tflops_per_s=flops / ms / 1e9,
+            max_memory_allocated=peak, card=card)
+        if not torch.isfinite(out["y"]).all():
+            fail(f"{name}: non-finite values at the serving size")
+        if name in SISR_PROFILE:
+            with torch.no_grad():
+                prof = profiling.device_profile(model, *inputs, n=1)
+            say("sisr_profile", model=name, wall_ms=prof["wall_ms"],
+                busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                top_kernels=prof["kernels"][:8])
+        del model, inputs, out
+
+    counts = launch_counts()
+    say("sisr_launches", launches=counts)
+    if any(counts.values()):
+        fail(f"a kernel of the port launched on the SISR path: {counts}")
+
+
 def write_rgb_clip(torch, root: str, n: int, h: int, w: int):
     """A smooth random RGB clip as PNGs: GT at 4x (``smooth_clip`` plus
     noise), LR its 4x4 block mean."""
@@ -3167,6 +3325,7 @@ def main() -> None:
     run("zoo_models", phase_zoo_models, torch, dev)
     run("zoo_grads", phase_zoo_grads, torch, dev)
     run("cvcp_zoo", phase_cvcp_zoo, torch, card)
+    run("sisr_zoo", phase_sisr_zoo, torch, card)
     run("slice", phase_slice, torch, card)
     fast_counts = run("fast", phase_fast, torch, card)
     run("modes", phase_modes, torch, card)

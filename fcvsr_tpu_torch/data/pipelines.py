@@ -9,6 +9,8 @@ the parts of ``fcvsr_tpu.data.pipelines`` it uses).
   aligned x4 GT patch.
 * ``paired_flip_rotate``    - hflip / vflip / transpose, applied to LR and GT
   together.
+* ``generate_coordinate_and_cell`` - ``GenerateCoordinateAndCell``: LIIF's
+  training queries.
 
 Numpy only, drawing from a ``np.random.Generator`` in the JAX package's
 order, so one seed gives both packages the same crops and flips.
@@ -21,7 +23,7 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["padded_window_indices", "segment_indices", "paired_random_crop",
-           "paired_flip_rotate", "to_float"]
+           "paired_flip_rotate", "to_float", "generate_coordinate_and_cell"]
 
 
 def padded_window_indices(center: int, num_frames: int, window: int,
@@ -103,3 +105,29 @@ def paired_flip_rotate(rng: np.random.Generator, lr: np.ndarray,
 def to_float(frames_u8: np.ndarray) -> np.ndarray:
     """uint8 -> float32 in [0, 1]."""
     return frames_u8.astype(np.float32) / 255.0
+
+
+def generate_coordinate_and_cell(rng: np.random.Generator, gt: np.ndarray,
+                                 sample_quantity: int | None = None):
+    """LIIF training queries (mmedit pipelines/generate_assistant.py
+    ``GenerateCoordinateAndCell``): pixel-centre coords in [-1, 1], constant
+    cell sizes (2/H, 2/W), optionally subsampled to ``sample_quantity``
+    random positions with the matching GT values.
+
+    gt: (H, W, C) float -> (coord (Q, 2) float32 (y, x), cell (Q, 2),
+    target (Q, C)).
+    """
+    h, w, c = gt.shape
+    ys = (-1 + 1.0 / h) + (2.0 / h) * np.arange(h, dtype=np.float32)
+    xs = (-1 + 1.0 / w) + (2.0 / w) * np.arange(w, dtype=np.float32)
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    coord = np.stack([gy, gx], axis=-1).reshape(-1, 2)
+    target = gt.reshape(-1, c).astype(np.float32)
+    if sample_quantity is not None and sample_quantity < coord.shape[0]:
+        idx = rng.choice(coord.shape[0], sample_quantity, replace=False)
+        coord = coord[idx]
+        target = target[idx]
+    cell = np.empty_like(coord)
+    cell[:, 0] = 2.0 / h
+    cell[:, 1] = 2.0 / w
+    return coord, cell, target

@@ -1,6 +1,8 @@
 """Models of the port (channels-last inside, reference key names): FCVSR
 (with its ETC mode), and the zoo's EDVR, BasicVSR, BasicVSR++, IconVSR,
-TDAN, FTVSR, TTVSR and SPyNet; the CVCP compressed-VSR family (SIDECVSR
+TDAN, FTVSR, TTVSR and SPyNet; the single-image models EDSR, SRCNN,
+MSRResNet, RRDBNet and RDN, TOFlow, LIIF (on EDSR's and RDN's trunks) and
+the reference-based TTSR; the CVCP compressed-VSR family (SIDECVSR
 on HEVC side information, FCVSR-TFDC) and RAFT; the restorer that trains
 and evaluates them; batched sliding-window and tiled serving (``models.inference``);
 and the GAN family: RealBasicVSR, GLEAN (on StyleGAN2), DIC, the three
@@ -19,22 +21,24 @@ from .gan_restorer import GANRestorer
 from .glean import GLEANStyleGANv2
 from .iconvsr import IconVSR, TDANNet
 from .inference import sliding_window_sr, tiled_sr
+from .liif import LIIFEDSR, LIIFRDN
 from .raft import RAFT, raft_flow
 from .real_basicvsr import RealBasicVSRNet
-from .registry import BACKBONES, build
+from .registry import BACKBONES, LOSSES, build
 from .restorers import VideoRestorer, tensor2img
 from .sidecvsr import SIDECVSR
-from .spynet import SpyNet
+from .sisr import EDSR, RDN, SRCNN, MSRResNet, RRDBNet, TOFlow
+from .spynet import SpyNet, spynet_flow
 from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
+from .ttsr import TTSR, TTSRNet
 
-__all__ = ["BACKBONES", "BasicVSRNet", "BasicVSRPlusPlus", "DICNet",
+__all__ = ["BACKBONES", "BasicVSRNet", "BasicVSRPlusPlus", "DICNet", "EDSR",
            "EDVRNet", "FCVSRNet", "FCVSRTFDCNet", "FTVSRNet", "FeedbackHourglass",
-           "GANRestorer", "GLEANStyleGANv2", "IconVSR", "LightCNN", "MGAA",
-           "MFFR", "ModifiedVGG", "RAFT", "RealBasicVSRNet", "SIDECVSR",
-           "SpyNet",
-           "StyleGAN2Discriminator", "StyleGAN2Generator", "TDANNet",
-           "TTVSRNet", "UNetDiscriminatorWithSpectralNorm", "VideoRestorer",
-           "build",
+           "GANRestorer", "GLEANStyleGANv2", "IconVSR", "LIIFEDSR", "LIIFRDN",
+           "LOSSES", "LightCNN", "MGAA", "MFFR", "MSRResNet", "ModifiedVGG",
+           "RAFT", "RDN", "RRDBNet", "RealBasicVSRNet", "SIDECVSR", "SRCNN",
+           "SpyNet", "StyleGAN2Discriminator", "StyleGAN2Generator",
+           "TDANNet", "TOFlow", "TTSR", "TTSRNet", "TTVSRNet",
+           "UNetDiscriminatorWithSpectralNorm", "VideoRestorer", "build",
            "fcvsr_etc_forward", "init_weights", "raft_flow",
-           "sliding_window_sr",
-           "tensor2img", "tiled_sr"]
+           "sliding_window_sr", "spynet_flow", "tensor2img", "tiled_sr"]

@@ -1,6 +1,9 @@
-"""Backbone registry (counterpart of ``fcvsr_tpu.models.registry``):
-``build(BACKBONES, dict(type='EDVRNet', mid_channels=64))`` builds a model
-from an mmedit-style config.  Only the models the port has are registered.
+"""Backbone and loss registries (counterpart of
+``fcvsr_tpu.models.registry``): ``build(BACKBONES, dict(type='EDVRNet',
+mid_channels=64))`` builds a model from an mmedit-style config;
+``LOSSES.get('L1Loss')`` is a loss function, and ``build(LOSSES, cfg)``
+calls it with the config's other keys, as the JAX package's ``build``
+does.  Both hold the JAX package's names.
 """
 
 from __future__ import annotations
@@ -11,20 +14,26 @@ from .basicvsr import BasicVSRNet
 from .basicvsr_pp import BasicVSRPlusPlus
 from .dic import DICNet, FeedbackHourglass
 from .discriminators import (LightCNN, ModifiedVGG,
-                             UNetDiscriminatorWithSpectralNorm)
+                             UNetDiscriminatorWithSpectralNorm,
+                             light_cnn_feature_loss)
 from .edvr import EDVRNet
 from .fcvsr import FCVSRNet
 from .fcvsr_tfdc import FCVSRTFDCNet
 from .ftvsr import FTVSRNet, TTVSRNet
 from .glean import GLEANStyleGANv2
 from .iconvsr import IconVSR, TDANNet
+from .liif import LIIFEDSR, LIIFRDN
 from .raft import RAFT
 from .real_basicvsr import RealBasicVSRNet
 from .sidecvsr import SIDECVSR
+from .sisr import EDSR, RDN, SRCNN, MSRResNet, RRDBNet, TOFlow
 from .spynet import SpyNet
 from .stylegan2 import StyleGAN2Discriminator, StyleGAN2Generator
+from .ttsr import TTSR, TTSRNet
+from ..train import gan_losses as GL
+from ..train import losses as L
 
-__all__ = ["Registry", "BACKBONES", "build"]
+__all__ = ["Registry", "BACKBONES", "LOSSES", "build"]
 
 
 class Registry:
@@ -60,8 +69,10 @@ for _cls in (FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
              TDANNet, SpyNet, FTVSRNet):
     BACKBONES.register_obj(_cls.__name__, _cls)
 BACKBONES.register_obj("TTVSRNet", TTVSRNet)
-for _cls in (FCVSRTFDCNet, RAFT, SIDECVSR, DICNet, FeedbackHourglass,
-             GLEANStyleGANv2, RealBasicVSRNet, StyleGAN2Generator,
+for _cls in (EDSR, MSRResNet, RDN, RRDBNet, SRCNN, TOFlow,
+             FCVSRTFDCNet, RAFT, SIDECVSR, DICNet, FeedbackHourglass,
+             LIIFEDSR, LIIFRDN, TTSR, TTSRNet, GLEANStyleGANv2,
+             RealBasicVSRNet, StyleGAN2Generator,
              StyleGAN2Discriminator, ModifiedVGG, LightCNN,
              UNetDiscriminatorWithSpectralNorm):
     BACKBONES.register_obj(_cls.__name__, _cls)
@@ -71,3 +82,16 @@ BACKBONES.register_obj("GShiftNet",
                        lambda **kw: FCVSRNet(in_channels=1, **kw))
 BACKBONES.register_obj("GShiftNet_S",
                        lambda **kw: FCVSRNet.small(in_channels=1, **kw))
+
+LOSSES = Registry("losses")
+for _name, _fn in (("CharbonnierLoss", L.charbonnier),
+                   ("CharbonnierLossSum", L.charbonnier_sum),
+                   ("L1Loss", L.l1_loss), ("MSELoss", L.mse_loss),
+                   ("GANLoss", GL.gan_loss),
+                   ("GradientLoss", GL.gradient_loss),
+                   ("DiscShiftLoss", GL.disc_shift_loss),
+                   ("GradientPenaltyLoss", GL.gradient_penalty_loss),
+                   ("PerceptualLoss", GL.perceptual_loss),
+                   ("TransferalPerceptualLoss", GL.transferal_perceptual_loss),
+                   ("LightCNNFeatureLoss", light_cnn_feature_loss)):
+    LOSSES.register_obj(_name, _fn)

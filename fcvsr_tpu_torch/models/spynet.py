@@ -3,10 +3,15 @@
 A 6-level coarse-to-fine pyramid: each level refines the upsampled flow with
 five 7x7 convs over [ref, supp border-warped by the flow, the flow].
 Parameter names are the reference checkpoint's,
-``basic_module.{L}.basic_module.{0,2,4,6,8}.{weight,bias}``.
+``basic_module.{L}.basic_module.{0,2,4,6,8}.{weight,bias}``, so a reference
+``state_dict`` loads with ``load_state_dict(strict=True)`` (the JAX
+package's ``convert_spynet_state_dict`` maps it onto its flax names).
+:func:`spynet_flow` adds the /32 resize wrapper (``SpyNet_flow``).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -16,7 +21,7 @@ from ..ops.resize import resize_bilinear
 from ..ops.warp import flow_warp
 from .blocks import Conv2d
 
-__all__ = ["SpyNet"]
+__all__ = ["SpyNet", "spynet_flow"]
 
 # ImageNet mean and std, applied to [0, 1] RGB
 _MEAN = (0.485, 0.456, 0.406)
@@ -69,3 +74,16 @@ class SpyNet(nn.Module):
             warped = flow_warp(supps[level], up, padding_mode="border")
             flow = module(torch.cat([refs[level], warped, up], -1)) + up
         return flow
+
+
+def spynet_flow(model: SpyNet, ref, supp):
+    """Flow of (B, H, W, 3) frames of any size: both resized (bilinear,
+    half-pixel) up to multiples of 32, the flow resized back and scaled by
+    (w / w32, h / h32)."""
+    h, w = ref.shape[1:3]
+    h32 = int(math.floor(math.ceil(h / 32.0) * 32.0))
+    w32 = int(math.floor(math.ceil(w / 32.0) * 32.0))
+    flow = model(resize_bilinear(ref, h32, w32),
+                 resize_bilinear(supp, h32, w32))
+    flow = resize_bilinear(flow, h, w)
+    return flow * flow.new_tensor([w / w32, h / h32])

@@ -1,4 +1,4 @@
-"""Bilinear resizes (counterpart of ``fcvsr_tpu.ops.resize``).
+"""Bilinear and bicubic resizes (counterpart of ``fcvsr_tpu.ops.resize``).
 
 The JAX op writes each resize as two matmuls with weights it builds itself;
 here ``F.interpolate`` computes the same torch conventions directly.  Public
@@ -10,7 +10,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["resize_bilinear", "upsample2x_bilinear", "downsample2x_bilinear"]
+__all__ = ["resize_bilinear", "resize_bicubic", "upsample2x_bilinear",
+           "downsample2x_bilinear"]
 
 
 def _nchw(fn, x: torch.Tensor) -> torch.Tensor:
@@ -29,6 +30,16 @@ def resize_bilinear(x: torch.Tensor, out_h: int, out_w: int,
     return _nchw(lambda v: F.interpolate(
         v, size=(out_h, out_w), mode="bilinear", align_corners=align_corners),
         x)
+
+
+def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bicubic resize to (out_h, out_w): Keys' cubic with a = -0.75,
+    half-pixel centres, taps clamped at the edges, no antialias (downward
+    too), torch ``size=`` mode."""
+    if tuple(x.shape[-3:-1]) == (out_h, out_w):
+        return x
+    return _nchw(lambda v: F.interpolate(
+        v, size=(out_h, out_w), mode="bicubic", align_corners=False), x)
 
 
 def upsample2x_bilinear(x: torch.Tensor) -> torch.Tensor:

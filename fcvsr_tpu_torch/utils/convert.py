@@ -4,9 +4,11 @@ SIDECVSR, FCVSR-TFDC and RAFT keep the JAX package's module names.
 
 FCVSR's names map through :func:`flax_to_torch_key`, the port's own copy of
 the JAX package's key map; the zoo's (EDVR, BasicVSR, BasicVSR++, IconVSR,
-TDAN, FTVSR, TTVSR, SPyNet) through patterns onto mmedit's names.  Kernels
-and DCN weights go from HWIO to OIHW, PReLU's ``alpha`` becomes ``weight``
-(1,) and DivEnh's ``a``/``b`` become (C, 1, 1).  FTVSR's attention
+TDAN, FTVSR, TTVSR, SPyNet) through patterns onto mmedit's names; the
+single-image models (EDSR, SRCNN, MSRResNet, RRDBNet, RDN), TOFlow, LIIF
+and TTSR keep the JAX package's module names, TOFlow's SPyNet mmedit's.
+Kernels and DCN weights go from HWIO to OIHW, PReLU's ``alpha`` becomes
+``weight`` (1,) and DivEnh's ``a``/``b`` become (C, 1, 1).  FTVSR's attention
 (``FTTALayer``) keeps torch's layout: a dense kernel (in, out) becomes a
 ``Linear`` weight (out, in), the three input projections pack into
 ``mha.in_proj_weight`` / ``in_proj_bias`` in q, k, v order, ``attn_out``
@@ -356,10 +358,12 @@ _CVCP = {
 
 
 def _cvcp_param(path, v: np.ndarray):
-    """(port key, tensor) of one param of SIDECVSR, FCVSR-TFDC or RAFT, or
-    None: the module path without flax's ``Conv_0``, a ``CALayer``'s
-    ``down`` / ``up`` as ``conv_du.0`` / ``.2``; conv kernels OIHW, a
-    norm's ``scale`` its ``weight``, PReLU's ``alpha`` its (1,) weight."""
+    """(port key, tensor) of one param of SIDECVSR, FCVSR-TFDC, RAFT or the
+    single-image family, or None: the module path without flax's
+    ``Conv_0``, a ``CALayer``'s ``down`` / ``up`` as ``conv_du.0`` / ``.2``;
+    conv kernels OIHW, dense kernels (in, out) ``Linear`` weights (out,
+    in), a norm's ``scale`` its ``weight``, PReLU's ``alpha`` its (1,)
+    weight."""
     mod = []
     for p in path[:-1]:
         if p == "Conv_0":
@@ -374,6 +378,8 @@ def _cvcp_param(path, v: np.ndarray):
 
     if leaf == "kernel" and v.ndim == 4:
         return at("weight"), torch.tensor(v.transpose(3, 2, 0, 1))
+    if leaf == "kernel" and v.ndim == 2:
+        return at("weight"), torch.tensor(v.T)
     if leaf in ("bias", "beta") or (leaf == "weight" and v.ndim == 1):
         return at(leaf), torch.tensor(v)
     if leaf == "scale":
@@ -410,6 +416,40 @@ def _cvcp_state_dict(variables: Mapping, tree: Mapping,
     return out
 
 
+# The single-image family's names that no older tree has, each tuple all
+# present: LIIF's imnet, EDSR's trunk (also LIIF-EDSR's), RDN's (also
+# LIIF-RDN's), RRDBNet's, TTSR's and TTSRNet's, TOFlow's fusion beside its
+# spynet (BasicVSR++'s marker), SRCNN's convs.  MSRResNet has conv_first
+# and conv_hr, which EDVR has too, with its pcd_alignment.
+_SISR_MARKERS = (("imnet",), ("conv_after_body",), ("sfe1",),
+                 ("conv_body",), ("extractor", "generator"), ("sfe_first",),
+                 ("spynet", "conv_4"), ("conv1", "conv3"),
+                 ("conv_first", "conv_hr"))
+
+
+def _is_sisr(tree: Mapping) -> bool:
+    return "pcd_alignment" not in tree and any(
+        all(n in tree for n in names) for names in _SISR_MARKERS)
+
+
+def _sisr_state_dict(tree: Mapping) -> Dict[str, torch.Tensor]:
+    """EDSR, SRCNN, MSRResNet, RRDBNet, RDN, TOFlow, LIIF-EDSR, LIIF-RDN,
+    TTSR and TTSRNet under the JAX package's names
+    (:func:`_cvcp_param`); TOFlow's SPyNet under mmedit's."""
+    out: Dict[str, torch.Tensor] = {}
+    if "spynet" in tree:
+        out.update({f"spynet.{k}": v for k, v in _zoo_state_dict(
+            tree["spynet"], _SPYNET).items()})
+    for path, value in _flatten(tree):
+        if path[0] == "spynet":
+            continue
+        got = _cvcp_param(path, np.asarray(value, np.float32))
+        if got is None:
+            raise KeyError(f"no port key for JAX param {'/'.join(path)}")
+        out[got[0]] = got[1]
+    return out
+
+
 def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     """Map a flax FCVSRNet, EDVRNet, BasicVSRNet, BasicVSRPlusPlus, IconVSR,
     TDANNet, FTVSRNet (TTVSRNet) or SpyNet param
@@ -431,13 +471,19 @@ def state_dict_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
     (``params`` and ``batch_stats``: RAFT's context encoder and
     FCVSR-TFDC's ``FourierUnit`` batch norms) and keep the JAX package's
     module names (:func:`_cvcp_param`); the JAX package's key map has no
-    reference names for them."""
+    reference names for them.  So do EDSR, SRCNN, MSRResNet, RRDBNet, RDN,
+    TOFlow (its SPyNet under mmedit's names), LIIF-EDSR, LIIF-RDN, TTSR and
+    TTSRNet (:func:`_sisr_state_dict`), each told by names that no older
+    tree has (``_SISR_MARKERS``), checked before the older markers they
+    share."""
     tree = params.get("params", params)
     if any(m in tree for m in ("image_cleaning",) + _GAN_MARKERS):
         return _gan_state_dict(params, tree)
     for markers, names in _CVCP.values():
         if any(m in tree for m in markers):
             return _cvcp_state_dict(params, tree, names)
+    if _is_sisr(tree):
+        return _sisr_state_dict(tree)
     # FTVSR has a SpyNet too: its marker goes first
     if "LTAM" in tree:
         return _ftvsr_state_dict(tree)

@@ -365,7 +365,10 @@ def test_port_imports_no_jax():
             "fcvsr_tpu_torch.models.sidecvsr",
             "fcvsr_tpu_torch.models.fcvsr_tfdc",
             "fcvsr_tpu_torch.models.raft",
-            "fcvsr_tpu_torch.models.blocks_ext"} <= set(mods)
+            "fcvsr_tpu_torch.models.blocks_ext",
+            "fcvsr_tpu_torch.models.sisr", "fcvsr_tpu_torch.models.liif",
+            "fcvsr_tpu_torch.models.ttsr",
+            "fcvsr_tpu_torch.models.duf"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from fcvsr_tpu.apis import restoration_video_inference as j_inference
+from fcvsr_tpu.models import registry as jax_registry
 from fcvsr_tpu.models.basicvsr_pp import BasicVSRPlusPlus as JBasicVSRPP
 from fcvsr_tpu.models.basicvsr_pp import SecondOrderDeformableAlignment
 from fcvsr_tpu.models.edvr import EDVRNet as JEDVRNet
@@ -236,19 +237,15 @@ def test_state_dict_from_jax_raises_on_unknown_param(edvr_case,
 
 
 def test_registry_builds_the_ports_models():
-    assert BACKBONES.keys() == [
-        "BasicVSRNet", "BasicVSRPlusPlus", "DICNet", "EDVRNet",
-        "FCVSRNet", "FCVSRTFDCNet", "FCVSR_SNet", "FTVSRNet",
-        "FeedbackHourglass", "GLEANStyleGANv2", "GShiftNet", "GShiftNet_S",
-        "IconVSR", "LightCNN", "ModifiedVGG", "RAFT", "RealBasicVSRNet",
-        "SIDECVSR", "SpyNet", "StyleGAN2Discriminator", "StyleGAN2Generator",
-        "TDANNet", "TTVSRNet", "UNetDiscriminatorWithSpectralNorm"]
+    assert BACKBONES.keys() == jax_registry.BACKBONES.keys()
+    assert len(BACKBONES.keys()) == 34
     model = build(BACKBONES, dict(type="EDVRNet", mid_channels=16,
                                   num_blocks_extraction=1,
                                   num_blocks_reconstruction=1))
     assert isinstance(model, EDVRNet)
-    with pytest.raises(KeyError, match="LIIFEDSR"):
-        build(BACKBONES, dict(type="LIIFEDSR"))
+    assert "NoSuchNet" not in jax_registry.BACKBONES
+    with pytest.raises(KeyError, match="NoSuchNet"):
+        build(BACKBONES, dict(type="NoSuchNet"))
 
 
 def test_init_weights_zeroes_the_offset_convs():
