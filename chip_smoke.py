@@ -121,7 +121,7 @@ Phases, one line or more each:
      sequence of 15 frames), SPyNet and IconVSR's refill extractor frozen
      by fix_iter, and TDAN its own step (4 windows of 5 frames), on 64x64
      LR patches that ``ClipFolderDataset`` samples from a synthetic RGB
-     clip, Adam (0.9, 0.999), Charbonnier-mean: 1 warm-up and 5 timed
+     clip, Adam (0.9, 0.999), Charbonnier-mean: 1 warm-up and 3 timed
      steps, the losses, ms per step, peak memory and K7 / K8 launches per
      step, checked, the frozen tensors unmoved and every other tensor
      moved; then one ``torch.profiler`` step each (device time by kernel,
@@ -129,7 +129,7 @@ Phases, one line or more each:
      ftvsr_cvcpLD_QP22: 1 sequence of 7 frames, every frame's GT, 64x64 LR
      patches, Adam 2e-4, Charbonnier-mean) and TTVSR (the same config,
      ``model.name`` ttvsr) on the clip, 1 warm-up step and a resumed run of
-     5 timed steps: losses, ms per step, peak memory and no kernel
+     3 timed steps: losses, ms per step, peak memory and no kernel
      launched, checked; then a profiled step each;
   7. training: ``fcvsr_tpu_torch.train.cli`` trains the same preset (batch
      6, 128x128 LR patches from the clip, Adam, Charbonnier-sum) for one
@@ -150,7 +150,7 @@ Phases, one line or more each:
   7a. data parallelism (``ddp``, right after the training slice):
      ``train/cli.py --multihost`` at world size 1 on NCCL (DDP's
      broadcast, gradient buckets and all-reduce hooks), phase 7's preset,
-     batch and patch, 1 + 3 steps with a resume, against the same runs
+     batch and patch, 1 + 2 steps with a resume, against the same runs
      without it, before and after (two plain runs need not agree bit for
      bit: the IAC adjoint sums by atomics; their deviation is printed and
      DDP held to DDP_WORLD1_RTOL of the parameters' norm), the launches
@@ -196,7 +196,7 @@ Phases, one line or more each:
      generator's forward at its preset's batch and patch (CUDA events,
      median of 5 after 2 warm-ups) and its peak; no kernel launched;
   7e. GAN training (``gan_train``): ``fcvsr_tpu_torch.train.cli`` on each
-     of the 5 GAN presets (GAN_TRAIN: RealBasicVSR, GLEAN and DICGAN 1 + 3
+     of the 5 GAN presets (GAN_TRAIN: RealBasicVSR, GLEAN and DICGAN 1 + 1
      steps with a resume, the ``wogan`` and ``dic_celeba`` recipes a step)
      at its own batch and patch, RealBasicVSR's LQ made from synthetic
      256^2 GT clips by the degradation chain, GLEAN on 32 / 256 and DIC on
@@ -204,6 +204,21 @@ Phases, one line or more each:
      seconds a step in sampling and in the chain, the peak, the
      checkpoint's keys after the resume, no kernel launched; then one
      profiled step each (device idle share);
+  7f. the tools (``tools``): ``fcvsr_tpu_torch.tools.test_FCVSR_FPS``
+     for FCVSR and FCVSR-S on Y at its three shapes (184x320, 272x480,
+     400x640), exact, ``--fast`` and ``--fast`` + resident + quad (2
+     forwards after 1 warm-up a rung): ms a frame, the peak and the
+     launches a frame, checked; FCVSR-S (Y) on the card against the CPU
+     at 184x320 within MODEL_ATOL; a synthetic 10-frame RGB clip served
+     through ``test_REDS_FCVSR`` (180x320) and ``test_Vid4_FCVSR_S``
+     (144x176), the launches a frame checked; the trained-proxy rehearsal
+     (FCVSR-S RGB trained 30 steps, saved, evaluated, validated through
+     ``validate_released_ckpt``), a PASS within 0.01 dB; ``tools.export``
+     of the exact FCVSR at 272x480 (``torch.export``, K1-K3 as the custom
+     ops ``fcvsr::iac_fused``, ``fcvsr::conv3x3_pair``, ``fcvsr::conv3x3``),
+     saved, loaded and run: its launches a frame (36, 180, 31) and its
+     output against the eager forward within 1e-6 of max |out|, both timed
+     in turns, with the export, save and load seconds;
   8. the seconds each phase took, a JSON line of the kernels (launches
      from the run of the path that launches each: FCVSR training for
      FCVSR's, fast serving with the
@@ -1880,8 +1895,8 @@ def tdan_train_step(torch, model, state):
 def phase_zoo_train(torch, card):
     """Training of the zoo on the card through ``VideoRestorer`` (TDAN
     through its own step): batches sampled from a synthetic RGB clip by
-    ``ClipFolderDataset``, 1 warm-up and 5 timed steps, the launches of
-    all 6 checked, the ``spynet`` and ``edvr`` tensors frozen by fix_iter
+    ``ClipFolderDataset``, 1 warm-up and 3 timed steps, the launches of
+    all 4 checked, the ``spynet`` and ``edvr`` tensors frozen by fix_iter
     and every other tensor moving; then one ``torch.profiler`` step.
     Returns the launch counts of the 6 steps of every model."""
     from fcvsr_tpu_torch import profiling
@@ -1901,7 +1916,7 @@ def phase_zoo_train(torch, card):
                                      window=cfg["frames"])
             rng = np.random.default_rng(10)
             batches = []
-            for _ in range(6):
+            for _ in range(4):
                 pairs = [(data.sample_train_sequence(rng, 64) if seq
                           else data.sample_train_window(rng, 64))
                          for _ in range(cfg["batch"])]
@@ -1979,7 +1994,7 @@ FTVSR_PRESET = "ftvsr_cvcpLD_QP22"
 def train_recurrent(torch, card, root: str, model_name: str) -> dict:
     """FTVSR (preset FTVSR_PRESET) or TTVSR (the same config, its
     ``model.name`` ttvsr) trained by ``train/cli.py`` on the clip under
-    ``root``: one warm-up step, then a resumed run of 5 timed steps, with
+    ``root``: one warm-up step, then a resumed run of 3 timed steps, with
     the launch counts (none) and the peak; then one ``torch.profiler`` step
     of the same recipe.  Returns the launch counts."""
     from fcvsr_tpu_torch import profiling
@@ -2002,11 +2017,11 @@ def train_recurrent(torch, card, root: str, model_name: str) -> dict:
             "--gt-root", os.path.join(root, "gt"),
             "--work-dir", os.path.join(root, "work")]
     (warm, timed), counts, peak = train_cli_runs(torch, cfg.name, args,
-                                                 (1, 6))
+                                                 (1, 4))
     ms = timed["ms_per_step"]
     say("zoo_train", model=cfg.name, entry="train/cli.py",
         batch=cfg.data.batch_size, frames=cfg.model.num_frames,
-        lr_patch=cfg.data.lr_patch, steps=6, resumed_at=timed["start"],
+        lr_patch=cfg.data.lr_patch, steps=4, resumed_at=timed["start"],
         losses=warm["losses"] + timed["losses"],
         warmup_ms=warm["ms_per_step"][0], ms_per_step=ms,
         ms_median=float(np.median(ms)), ms_min=min(ms), ms_max=max(ms),
@@ -2559,7 +2574,7 @@ def phase_modes(torch, card):
 
 # phase ddp: data parallelism on the one card.  (a) phase train's preset,
 # batch and patch through ``train/cli.py --multihost`` at world size 1 on
-# NCCL, 1 + 3 steps, against the same runs without it; (b) 2 ranks on the
+# NCCL, 1 + 2 steps, against the same runs without it; (b) 2 ranks on the
 # one card under Gloo (NCCL refuses two ranks on one device), spawned,
 # FCVSR Y at a global batch of 2 (1 a rank) of DDP_PATCH^2 patches, 2
 # steps, against one process's steps on the whole batch; (c) EDVR-M's
@@ -2572,7 +2587,7 @@ def phase_modes(torch, card):
 # plain path twice, print that floor, and hold DDP to DDP_WORLD1_RTOL of
 # the parameters' norm (DDP at world size 1 measured 4.3e-8 and 1.5e-8)
 DDP_WORLD1_RTOL = 1e-6
-DDP_STEPS = (1, 4)
+DDP_STEPS = (1, 3)
 DDP_PATCH = 64
 DDP_TIMEOUT_S = 300.0
 DDP_EDVR_STEPS = 2
@@ -2858,8 +2873,8 @@ def phase_ddp(torch, card):
 GAN_RTOL = 1e-3
 # train/cli.py on each GAN preset: the totals of steps of its runs (each
 # run after the first resumes the one before)
-GAN_TRAIN = {"realbasicvsr_reds": (1, 4), "glean_cat_8x": (1, 4),
-             "dic_gan_celeba": (1, 4), "realbasicvsr_wogan_reds": (1,),
+GAN_TRAIN = {"realbasicvsr_reds": (1, 2), "glean_cat_8x": (1, 2),
+             "dic_gan_celeba": (1, 2), "realbasicvsr_wogan_reds": (1,),
              "dic_celeba": (1,)}
 # the synthetic clips they train on: (data, LR side, scale)
 GAN_DATA = {"realbasicvsr": ("rbv", 64, 4), "glean": ("glean", 32, 8),
@@ -3131,6 +3146,192 @@ def phase_gan_train(torch, card):
             del restorer, g_opt, d_opt, step
 
 
+# phase tools: the port's tools on the card.  The FPS tool's rungs run
+# FCVSR and FCVSR-S under each of these flag sets at its three shapes
+FPS_MODES = {"exact": [], "fast": ["--fast"],
+             "fast_resident_quad": ["--fast", "--iac-chain", "resident",
+                                    "--scnet-fuse", "quad"]}
+FPS_N_ITER, FPS_WARMUP = 2, 1
+# per frame of FCVSR-S (ac_num 3, 4 SCGroups): 3 iterations x 2
+# directions x 3 MGAA calls; 2 pairs x 3 BlockRCBs x 3 levels x 4 groups;
+# 3 group convs x 4 + conv_last0; --fast and resident / quad as above
+S_PER_FRAME = dict(PER_FRAME, iac=18, conv3x3_pair=72, conv3x3=13)
+S_FAST_PER_FRAME = dict(S_PER_FRAME, iac=12, conv3x3=12)
+S_FUSED_PER_FRAME = dict(S_PER_FRAME, iac=0, iac_chain=4, conv3x3_pair=0,
+                         conv3x3_quad=36, conv3x3=12)
+FPS_WANT = {("fcvsr", "exact"): PER_FRAME, ("fcvsr", "fast"): FAST_PER_FRAME,
+            ("fcvsr", "fast_resident_quad"): FUSED_PER_FRAME,
+            ("fcvsr_s", "exact"): S_PER_FRAME,
+            ("fcvsr_s", "fast"): S_FAST_PER_FRAME,
+            ("fcvsr_s", "fast_resident_quad"): S_FUSED_PER_FRAME}
+S_CHECK = (184, 320)         # FCVSR-S Y, card against CPU (Johnny's size)
+# RGB serving through the pinned test scripts: REDS's LR frames (180 x
+# 320) for FCVSR, Vid4's (144 x 176) for FCVSR-S, 10 frames each
+RGB_SERVE = {"test_REDS_FCVSR": (180, 320), "test_Vid4_FCVSR_S": (144, 176)}
+REHEARSAL_STEPS = 30
+EXPORT_SHAPE = (272, 480)    # FCVSR full Y, exact, the FPS shape
+EXPORT_RTOL = 1e-6           # loaded program against eager, of max|out|
+EXPORT_REPS = 5
+
+
+def fps_rungs(torch, card, log: str) -> dict:
+    """The FPS tool for FCVSR and FCVSR-S under each of FPS_MODES: every
+    rung's ms a frame, peak and launches a frame, the launches checked."""
+    from fcvsr_tpu_torch.tools import test_FCVSR_FPS
+
+    out = {}
+    for model in ("fcvsr", "fcvsr_s"):
+        for mode, extra in FPS_MODES.items():
+            torch.cuda.empty_cache()
+            line = test_FCVSR_FPS.main(
+                ["--model", model, "--log", log, "--n-iter", str(FPS_N_ITER),
+                 "--warmup", str(FPS_WARMUP)] + extra)
+            want = {k: float(v) for k, v in FPS_WANT[model, mode].items()}
+            for seq, per_frame in line["launches_per_frame"].items():
+                say("tools_fps", model=model, mode=mode, seq=seq,
+                    shape=line["shapes"][seq],
+                    ms_per_frame=line["ms_per_frame"][seq],
+                    fps=line["fps"][seq],
+                    max_memory_allocated=line["max_memory_allocated"][seq],
+                    launches_per_frame=per_frame, n_iter=FPS_N_ITER,
+                    warmup=FPS_WARMUP, card=line["card"])
+                if per_frame != want:
+                    fail(f"FPS {model} {mode} {seq}: launches a frame "
+                         f"{per_frame}, expected {want}")
+                if not line["ms_per_frame"][seq] > 0:
+                    fail(f"FPS {model} {mode} {seq}: {line}")
+            out[model, mode] = line
+    return out
+
+
+def serve_rgb(torch, card, root: str) -> None:
+    """A synthetic 10-frame RGB clip of each RGB_SERVE size through its
+    pinned test script on the card: 10 frames, SR at 4x, PSNR and SSIM
+    finite, the launches a frame of the full model or of FCVSR-S."""
+    from PIL import Image
+
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.tools import test_REDS_FCVSR, test_Vid4_FCVSR_S
+
+    scripts = {"test_REDS_FCVSR": (test_REDS_FCVSR, PER_FRAME),
+               "test_Vid4_FCVSR_S": (test_Vid4_FCVSR_S, S_PER_FRAME)}
+    for name, (h, w) in RGB_SERVE.items():
+        script, want = scripts[name]
+        clip = os.path.join(root, name)
+        write_rgb_clip(torch, clip, 10, h, w)
+        torch.cuda.empty_cache()
+        reset_launch_counts()
+        summary = script.main(["--lr-root", os.path.join(clip, "lr"),
+                               "--gt-root", os.path.join(clip, "gt"),
+                               "--save-dir", os.path.join(clip, "sr"),
+                               "--no-tof"])
+        counts = launch_counts()
+        r = summary["per_sequence"]["clip"]
+        sr = np.asarray(Image.open(os.path.join(clip, "sr", "clip",
+                                                "00000000.png")))
+        per_frame = {k: v / r["forwards"] for k, v in counts.items()}
+        say("tools_serve", script=name, preset=script.PRESET,
+            lr=[h, w], frames=r["frames"], forwards=r["forwards"],
+            psnr=r["psnr"], ssim=r["ssim"], ms_per_frame=r["ms_per_frame"],
+            sr_shape=list(sr.shape), launches_per_frame=per_frame, card=card)
+        if r["frames"] != 10 or sr.shape != (4 * h, 4 * w, 3):
+            fail(f"{name}: {r['frames']} frames of {sr.shape}")
+        if not (math.isfinite(r["psnr"]) and math.isfinite(r["ssim"])):
+            fail(f"{name}: non-finite PSNR/SSIM {r['psnr']} {r['ssim']}")
+        if per_frame != {k: float(v) for k, v in want.items()}:
+            fail(f"{name}: launches a frame {per_frame}, expected {want}")
+
+
+def export_check(torch, card, root: str) -> None:
+    """``tools.export`` of FCVSR full Y, exact, at EXPORT_SHAPE on the
+    card: the program's ops, its export, save and load seconds; loaded
+    again, its output against the eager forward (EXPORT_RTOL of max|out|),
+    its launches a frame (PER_FRAME) and both timed in turns (CUDA
+    events, the median of EXPORT_REPS after a warm-up)."""
+    from fcvsr_tpu_torch import cli
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+    from fcvsr_tpu_torch.tools import export
+    from fcvsr_tpu_torch.utils.config import preset
+
+    path = os.path.join(root, "fcvsr.pt2")
+    t0 = time.perf_counter()
+    program, model = export.export_model(preset(PRESET), *EXPORT_SHAPE,
+                                         device="cuda")
+    t1 = time.perf_counter()
+    torch.export.save(program, path)
+    t2 = time.perf_counter()
+    loaded = torch.export.load(path).module()
+    t3 = time.perf_counter()
+    ops = export.op_counts(program)
+    del program
+    x = torch.from_numpy(np.random.default_rng(17).uniform(
+        0, 1, (1, 7, 1) + EXPORT_SHAPE).astype(np.float32)).to("cuda")
+    with torch.no_grad():
+        reset_launch_counts()
+        got = loaded(x)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        ref = model(x)
+        dev = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        del got, ref
+        runs = {"eager": model, "loaded": loaded}
+        ms = {k: [] for k in runs}
+        for order in (("eager", "loaded"), ("loaded", "eager")):
+            for name in order:
+                torch.cuda.empty_cache()
+                ms[name].append(cli.fps_benchmark(
+                    runs[name], *EXPORT_SHAPE, n_iter=EXPORT_REPS,
+                    warmup=1)["ms_per_frame"])
+    say("tools_export", preset=PRESET, shape=[1, 7, 1, *EXPORT_SHAPE],
+        ops=ops, bytes=os.path.getsize(path), export_s=t1 - t0,
+        save_s=t2 - t1, load_s=t3 - t2, launches=counts, max_abs_dev=dev,
+        max_abs_out=scale, ms_per_frame=ms, card=card)
+    if ops != {"iac_fused": 6, "conv3x3_pair": 180, "conv3x3": 31}:
+        fail(f"export: the program's fcvsr ops {ops}")
+    if counts != PER_FRAME:
+        fail(f"export: the loaded program launched {counts}, expected "
+             f"{PER_FRAME}")
+    if not dev <= EXPORT_RTOL * scale:
+        fail(f"export: the loaded program is {dev} off the eager forward "
+             f"(max |out| {scale})")
+
+
+def phase_tools(torch, card):
+    """The port's tools on the card: the FPS tool's rungs (FPS_MODES, the
+    launches a frame checked), FCVSR-S Y on the card against the CPU at
+    S_CHECK within MODEL_ATOL, RGB serving through the pinned test scripts
+    (RGB_SERVE), the trained-proxy rehearsal (FCVSR-S RGB trained
+    REHEARSAL_STEPS steps, published, validated: a PASS within 0.01 dB),
+    and the export of FCVSR's exact forward, loaded and run again
+    (``export_check``)."""
+    from fcvsr_tpu_torch.tools import test_FCVSR_FPS, trained_proxy_rehearsal
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fps_rungs(torch, card, os.path.join(tmp, "fps.txt"))
+        with torch.no_grad():
+            model = test_FCVSR_FPS.build_fps_model("fcvsr_s", {}, 3, "cpu")
+            x = np.random.default_rng(19).uniform(
+                0, 1, (1, 7, 1) + S_CHECK).astype(np.float32)
+            ref = model(torch.from_numpy(x))
+            got = model.to("cuda")(torch.from_numpy(x).to("cuda")).cpu()
+        dev = float((got - ref).abs().max())
+        say("tools_s_check", shape=list(x.shape), max_abs_err=dev,
+            tol=MODEL_ATOL, finite=bool(torch.isfinite(got).all()))
+        if not dev <= MODEL_ATOL or not torch.isfinite(got).all():
+            fail(f"FCVSR-S on the card against the CPU: {dev}")
+        del model, ref, got
+        serve_rgb(torch, card, tmp)
+        torch.cuda.empty_cache()
+        r = trained_proxy_rehearsal.rehearse(
+            ["--steps", str(REHEARSAL_STEPS)])
+        say("tools_rehearsal", card=card, **r)
+        if not r["pass"] or abs(r["delta_db"]) > r["tolerance_db"]:
+            fail(f"rehearsal: {r}")
+        torch.cuda.empty_cache()
+        export_check(torch, card, tmp)
+
+
 def phase_probe(torch):
     """The toolchain probe in its own process: every probe must pass.
     Returns its kernel's launches (the checked one)."""
@@ -3337,6 +3538,7 @@ def main() -> None:
     run("bf16", phase_bf16, torch, card)
     run("gan_models", phase_gan_models, torch, dev)
     run("gan_train", phase_gan_train, torch, card)
+    run("tools", phase_tools, torch, card)
     ab_counts = {"blockrcb": run("blockrcb_ab", phase_blockrcb_ab, torch)}
     mb_counts, mb_results = run("microbench", phase_microbench, torch)
     results.update(mb_results)

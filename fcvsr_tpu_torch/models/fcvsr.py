@@ -151,10 +151,12 @@ class MGAA(nn.Module):
     def sel_weights(self):
         """F.1's weight, its (C0, n*3C) transpose for ``k_fused``, and its
         bias at the ``sel`` rows.  Under autograd they are selected from the
-        live parameters on every call, so F.1 gets its gradient; otherwise
-        they are made once, detached, and again only when F.1 changes."""
+        live parameters on every call, so F.1 gets its gradient, and while
+        ``torch.export`` traces, so that the graph selects them from F.1;
+        otherwise they are made once, detached, and again only when F.1
+        changes."""
         w, b = self.F[1].weight, self.F[1].bias
-        if _native.records(w, b):
+        if _native.records(w, b) or _native.traced(w):
             wsel = w.index_select(0, self.sel)
             return wsel, wsel[:, :, 0, 0].t().contiguous(), \
                 b.index_select(0, self.sel)
@@ -452,12 +454,12 @@ class FCVSRNet(nn.Module):
 
     def folded_tail(self):
         """upconv2 folded over one shuffle and conv_last0 over two (HWIO),
-        with their biases.  Under autograd they are folded from the live
-        parameters on every call; otherwise once, and again only when a
-        weight changes."""
+        with their biases.  Under autograd, and while ``torch.export``
+        traces, they are folded from the live parameters on every call;
+        otherwise once, and again only when a weight changes."""
         convs = (self.upconv2, self.conv_last0)
         params = [t for c in convs for t in (c.weight, c.bias)]
-        if _native.records(*params):
+        if _native.records(*params) or _native.traced(params[0]):
             return _fold_tail(*params)
         key = tuple((t.data_ptr(), t._version, t.device) for t in params)
         cached = self.__dict__.get("_folded_tail")

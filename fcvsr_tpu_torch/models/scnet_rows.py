@@ -40,10 +40,11 @@ __all__ = ["scnet_apply", "block_rcb_level", "hwio", "conv_bias"]
 def hwio(conv):
     """The conv's weight in the kernels' HWIO layout.  Under autograd it is
     made from the live weight on every call, so the weight gets its
-    gradient; otherwise it is prepared once and re-made only when the
-    weight changes."""
+    gradient, and while ``torch.export`` traces, so that the graph makes it
+    from its parameter; otherwise it is prepared once and re-made only when
+    the weight changes."""
     w = conv.weight
-    if _native.records(w):
+    if _native.records(w) or _native.traced(w):
         return prep_weight(w)
     key = (w.data_ptr(), w._version, w.device)
     cached = conv.__dict__.get("_hwio")

@@ -18,7 +18,9 @@ There is no fallback: without ``nvcc`` or a CUDA device, :func:`lib` raises.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -34,7 +36,7 @@ import torch
 __all__ = ["lib", "check", "side_lib", "check_side", "lib_path",
            "csrc_headers", "ptr", "require", "records", "on_cpu", "sass_ops",
            "edited_sources", "build_variants", "launch_guard", "storage",
-           "BUILD_DIR"]
+           "traced", "real_tensors", "BUILD_DIR"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -309,8 +311,7 @@ def sass_ops(path, kernel: str, ops) -> dict | None:
     tool = shutil.which("cuobjdump") or str(Path(home) / "bin" / "cuobjdump")
     if not os.path.isfile(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                          text=True, check=True).stdout
+    sass = _sass_dump(tool, str(path))
     counts, name = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
@@ -323,6 +324,14 @@ def sass_ops(path, kernel: str, ops) -> dict | None:
                 if re.search(rf"\b{op}\b", line):
                     counts[name][op] += 1
     return counts
+
+
+@functools.lru_cache(maxsize=None)
+def _sass_dump(tool: str, path: str) -> str:
+    """``tool -sass path``, made once a library: a library's name holds
+    its sources' hash (:func:`lib_path`), so the dump cannot go stale."""
+    return subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, check=True).stdout
 
 
 def check(rc: int, what: str) -> None:
@@ -411,6 +420,32 @@ def records(*tensors) -> bool:
     skipped): grad mode is on and one of them requires grad."""
     return torch.is_grad_enabled() and any(
         t is not None and t.requires_grad for t in tensors)
+
+
+def traced(t) -> bool:
+    """True while ``torch.export`` (or ``torch.compile``) traces a forward:
+    ``t`` is then a fake tensor, with no storage, data pointer or version
+    of its own, and a cache keyed on those (a weight prepared once a
+    weight version) must be neither read, which would freeze a real tensor
+    into the graph, nor filled, which would keep the fake one."""
+    return torch.compiler.is_compiling() or \
+        isinstance(t, torch._subclasses.FakeTensor)
+
+
+def real_tensors(t):
+    """A context in which ops run eagerly on real tensors even while
+    ``torch.export`` traces (its fake and tracing modes suspended, when
+    :func:`traced` holds for ``t``; else it does nothing): for the tables
+    an op makes once for a shape and caches (``ops.freq``'s band masks,
+    ``ops.corr``'s lookup indices).  Made under the tracer they would be
+    fake, and the cache would hand them to every later eager call, and the
+    graph would make them again on every call; made real, the graph takes
+    them as constants."""
+    if not traced(t):
+        return contextlib.nullcontext()
+    from torch.utils._python_dispatch import _disable_current_modes
+
+    return _disable_current_modes()
 
 
 def on_cpu(t) -> bool:

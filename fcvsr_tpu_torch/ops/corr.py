@@ -17,6 +17,8 @@ import math
 import numpy as np
 import torch
 
+from . import _native
+
 __all__ = ["corr_lookup"]
 
 
@@ -52,8 +54,9 @@ def corr_lookup(f1: torch.Tensor, f2: torch.Tensor,
     prod = (f1[..., :c_needed] * f2[..., :c_needed]) * (1.0 / math.sqrt(c))
     buf = prod.permute(0, 3, 1, 2).reshape(b, c_needed * h * w)
     r6 = buf[:, :n_elems].reshape(b, hc, w, half_c, 2)[:, :, :wc]
-    ii, jj, valid = (t.to(f1.device) for t in
-                     _lookup_index(hc, wc, half_c, radius))
+    with _native.real_tensors(f1):
+        ii, jj, valid = (t.to(f1.device) for t in
+                         _lookup_index(hc, wc, half_c, radius))
     hh = torch.arange(hc, device=f1.device)[:, None, None]
     ww = torch.arange(wc, device=f1.device)[None, :, None]
     corner = r6[:, hh, ww, ii, jj] * valid.to(prod.dtype)

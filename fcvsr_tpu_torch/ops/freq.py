@@ -25,6 +25,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import _native
+
 __all__ = ["rfft_features", "irfft_features", "gaussian_band_masks",
            "split_freq"]
 
@@ -98,7 +100,8 @@ def split_freq(x: torch.Tensor, num_bands: int,
     band k = real(ifft2(fft2(x) * mask_k)), in ``compute_dtype`` (None: x's
     type)."""
     b, h, w, c = x.shape
-    m = _masks_on(num_bands, h, w, x.device)
+    with _native.real_tensors(x):
+        m = _masks_on(num_bands, h, w, x.device)
     xf = torch.fft.fft2(x.float(), dim=(1, 2))
     prod = xf.unsqueeze(0) * m[:, None, :, :, None]
     return torch.fft.ifft2(prod, dim=(2, 3)).real.to(compute_dtype or x.dtype)

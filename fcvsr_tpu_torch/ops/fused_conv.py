@@ -12,6 +12,16 @@ it runs the plain version, under ordinary autograd.  ``conv3x3.launches``,
 ``conv3x3_pair.launches`` and ``conv3x3_quad.launches`` count kernel
 launches.
 
+The serving launches of K3 and K2 are also the custom ops
+``fcvsr::conv3x3`` and ``fcvsr::conv3x3_pair`` (:func:`conv3x3_op`,
+:func:`conv3x3_pair_op`): the kernel for CUDA tensors, the plain version
+for CPU ones, and a shape function, so that ``torch.export`` records each
+call as one node.  The wrappers reach the ops only while a trace runs; an
+eager call launches directly, without the dispatcher's host time.  The
+checks, the launch guard and the launch count are in the op's CUDA
+implementation, which the eager call runs too, so a program exported and
+loaded again launches and counts as the eager forward does.
+
 Storage: the maps (x, res, the outputs, and the pair's intermediate) are
 float32 or bfloat16, weights and biases float32 (bf16 ones, from a model
 cast whole to bf16, are cast up at the wrapper: exact).  The kernels multiply on
@@ -42,7 +52,8 @@ from . import _native
 __all__ = ["conv3x3", "conv3x3_pair", "conv3x3_quad", "conv3x3_plain",
            "conv3x3_pair_plain", "conv3x3_quad_plain", "prep_weight",
            "conv3x3_emulated", "conv3x3_pair_emulated", "PAIR_ROUTES",
-           "CONV_MAX_CIN", "PAIR_MAX_CHANNELS", "Conv3x3Fn", "Conv3x3PairFn"]
+           "CONV_MAX_CIN", "PAIR_MAX_CHANNELS", "Conv3x3Fn", "Conv3x3PairFn",
+           "conv3x3_op", "conv3x3_pair_op"]
 
 
 def prep_weight(weight_oihw: torch.Tensor) -> torch.Tensor:
@@ -232,14 +243,40 @@ def conv3x3(x, w_hwio, bias=None, res=None, act: bool = False,
     (3, 3, Cin, Cout); bias: (Cout,) or None; res: (B, H, W, Cout) or None,
     added before the optional leaky relu.  On the card Cin is at most
     :data:`CONV_MAX_CIN` (larger raise).  On a CUDA tensor that autograd
-    records it runs :class:`Conv3x3Fn`.  The kernel's products:
+    records it runs :class:`Conv3x3Fn`, on a CPU one the plain version.
+    While ``torch.export`` traces a forward that autograd does not record,
+    it calls the custom op ``fcvsr::conv3x3``, which the graph holds;
+    eagerly it launches without the op's dispatch.  The kernel's products:
     :func:`conv3x3_emulated`."""
     w_hwio, bias = _native.weights_f32(w_hwio, bias)
+    recording = _native.records(x, w_hwio, bias, res)
+    if not recording and _native.traced(x):
+        return conv3x3_op(x, w_hwio, bias, res, bool(act), float(neg_slope))
     if _native.on_cpu(x):
         return conv3x3_plain(x, w_hwio, bias, res, act, neg_slope)
-    if _native.records(x, w_hwio, bias, res):
+    if recording:
         _train_f32(x, "conv3x3")
         return Conv3x3Fn.apply(x, w_hwio, bias, res, act, neg_slope)
+    return _conv3x3_launch(x, w_hwio, bias, res, act, neg_slope)
+
+
+@torch.library.custom_op(
+    "fcvsr::conv3x3", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor? bias, Tensor? res, bool act, "
+           "float neg_slope) -> Tensor")
+def conv3x3_op(x, w, bias, res, act, neg_slope):
+    """K3's serving launch as a custom op (what ``torch.export`` records):
+    the plain version on the CPU, :func:`_conv3x3_launch` on the card."""
+    return conv3x3_plain(x, w, bias, res, act, neg_slope).contiguous()
+
+
+@conv3x3_op.register_fake
+def _(x, w, bias, res, act, neg_slope):
+    return x.new_empty(tuple(x.shape[:3]) + (w.shape[3],))
+
+
+@conv3x3_op.register_kernel("cuda")
+def _conv3x3_launch(x, w_hwio, bias, res, act, neg_slope):
     b, h, w, cin = x.shape
     dev = x.device
     _native.require(x, "x", dev, dtype=x.dtype)
@@ -274,14 +311,40 @@ def conv3x3_pair(x, w1, b1, w2, b2, ns1: float = 0.2):
     intermediate on chip.  x: (B, H, W, Cin); w1: (3, 3, Cin, C1); w2:
     (3, 3, C1, Cout); b1/b2: (C1,)/(Cout,) or None.  On the card Cin, C1
     and Cout are at most :data:`PAIR_MAX_CHANNELS` (larger raise).  On a
-    CUDA tensor that autograd records it runs :class:`Conv3x3PairFn`.
-    The kernel's products: :func:`conv3x3_pair_emulated`."""
+    CUDA tensor that autograd records it runs :class:`Conv3x3PairFn`, on a
+    CPU one the plain version.  While ``torch.export`` traces a forward
+    that autograd does not record, it calls the custom op
+    ``fcvsr::conv3x3_pair``; eagerly it launches without the op's
+    dispatch.  The kernel's products: :func:`conv3x3_pair_emulated`."""
     w1, b1, w2, b2 = _native.weights_f32(w1, b1, w2, b2)
+    recording = _native.records(x, w1, b1, w2, b2)
+    if not recording and _native.traced(x):
+        return conv3x3_pair_op(x, w1, b1, w2, b2, float(ns1))
     if _native.on_cpu(x):
         return conv3x3_pair_plain(x, w1, b1, w2, b2, ns1)
-    if _native.records(x, w1, b1, w2, b2):
+    if recording:
         _train_f32(x, "conv3x3_pair")
         return Conv3x3PairFn.apply(x, w1, b1, w2, b2, ns1)
+    return _conv3x3_pair_launch(x, w1, b1, w2, b2, ns1)
+
+
+@torch.library.custom_op(
+    "fcvsr::conv3x3_pair", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w1, Tensor? b1, Tensor w2, Tensor? b2, "
+           "float ns1) -> Tensor")
+def conv3x3_pair_op(x, w1, b1, w2, b2, ns1):
+    """K2's serving launch as a custom op: the plain version on the CPU,
+    :func:`_conv3x3_pair_launch` on the card."""
+    return conv3x3_pair_plain(x, w1, b1, w2, b2, ns1).contiguous()
+
+
+@conv3x3_pair_op.register_fake
+def _(x, w1, b1, w2, b2, ns1):
+    return x.new_empty(tuple(x.shape[:3]) + (w2.shape[3],))
+
+
+@conv3x3_pair_op.register_kernel("cuda")
+def _conv3x3_pair_launch(x, w1, b1, w2, b2, ns1):
     b, h, w, cin = x.shape
     dev = x.device
     _native.require(x, "x", dev, dtype=x.dtype)

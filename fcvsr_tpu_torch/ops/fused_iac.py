@@ -34,6 +34,12 @@ one's input, and whose backward walks them in reverse: the activation mask
 from the kernel's own outputs, the residual's adjoint, then the adjoint
 kernels.  (The JAX package re-runs the forward in its VJP instead.)
 
+The exact chain's serving launches are also the custom op
+``fcvsr::iac_fused`` (:func:`iac_fused_op`), with a shape function, so that
+``torch.export`` records a chain as one node; the launches and their
+counts run inside it.  :func:`iac_fused` reaches the op only while a trace
+runs, and eagerly runs the same iterations without the dispatcher.
+
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it runs the plain version, under ordinary autograd.  ``warp_sac_fused``,
 ``warp_sac_fused_kf``, ``iac_fused_resident`` and ``warp_sac_bwd`` count
@@ -57,7 +63,7 @@ __all__ = ["warp_sac_fused", "warp_sac_fused_kf", "warp_sac_bwd", "iac_fused",
            "IACChainFn", "warp_sac_plain", "iac_chain_plain",
            "warp_sac_vjp_plain", "launch_adjoint",
            "predict_kernels", "predict_kernels_emulated", "wsel_planes",
-           "IAC_MAX_CHANNELS", "IAC_MAX_C0", "IAC_BWD_CHUNK"]
+           "iac_fused_op", "IAC_MAX_CHANNELS", "IAC_MAX_C0", "IAC_BWD_CHUNK"]
 
 # what K1's kernel takes (csrc/iac.cu): its shared memory holds the warped
 # tile of every channel; the prediction's B fragments stay in registers
@@ -351,10 +357,16 @@ def iac_fused(feat_in, pred_k_tap_major, offsets, ac_num: int, channels: int,
               act_last: bool = True):
     """IAC chain, one launch per iteration.  pred_k_tap_major:
     (B, H, W, ac_num*3C); offsets: (AC, B, H, W, 2).  On a CUDA tensor
-    that autograd records it runs :class:`IACChainFn` (float32 only)."""
+    that autograd records it runs :class:`IACChainFn` (float32 only).
+    While ``torch.export`` traces a forward that autograd does not record,
+    it calls the custom op ``fcvsr::iac_fused`` (:func:`iac_fused_op`);
+    eagerly it runs the iterations without the op's dispatch."""
     feat_in, k, offsets = _chain_inputs(feat_in, pred_k_tap_major, offsets,
                                         channels)
-    if not _native.on_cpu(feat_in) and _native.records(feat_in, k, offsets):
+    recording = _native.records(feat_in, k, offsets)
+    if not recording and _native.traced(feat_in):
+        return iac_fused_op(feat_in, k, offsets, int(ac_num), bool(act_last))
+    if not _native.on_cpu(feat_in) and recording:
         if feat_in.dtype != torch.float32:
             raise RuntimeError(
                 f"the IAC chain trains in float32, not {feat_in.dtype}: "
@@ -362,6 +374,26 @@ def iac_fused(feat_in, pred_k_tap_major, offsets, ac_num: int, channels: int,
                 "torch.no_grad())")
         return IACChainFn.apply(feat_in, k, offsets, ac_num, act_last)
     return _chain_forward(feat_in, k, offsets, ac_num, act_last)[-1]
+
+
+@torch.library.custom_op(
+    "fcvsr::iac_fused", mutates_args=(), device_types=("cpu", "cuda"),
+    schema="(Tensor feat_in, Tensor k, Tensor offsets, int ac_num, "
+           "bool act_last) -> Tensor")
+def iac_fused_op(feat_in, k, offsets, ac_num, act_last):
+    """The exact IAC chain's serving launches as one custom op (what
+    ``torch.export`` records): :func:`_chain_forward`'s ``ac_num`` K1
+    launches on the card, the plain iterations on the CPU (which it runs
+    for CPU tensors).  Its checks, launch guards and launch counts run
+    inside it, so a loaded exported program launches and counts as the
+    eager forward does."""
+    return _chain_forward(feat_in, k, offsets, ac_num, act_last)[-1] \
+        .contiguous()
+
+
+@iac_fused_op.register_fake
+def _(feat_in, k, offsets, ac_num, act_last):
+    return torch.empty_like(feat_in)
 
 
 def chain_scratch(feat_in, ac_num: int):

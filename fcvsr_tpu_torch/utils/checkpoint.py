@@ -125,14 +125,15 @@ def _strip(name: str) -> str:
     return name
 
 
-def read_weights(path: str) -> dict:
+def read_weights(path: str, ema: bool = False) -> dict:
     """The state_dict in ``path``, on the CPU, under the port's (the
     reference's) key names.
 
     * ``.npz``: a reference-keyed state_dict (``tools/export_torch_ckpt.py``
       or :func:`export_npz`).
     * Anything else goes through ``torch.load(weights_only=True)``: a port
-      checkpoint (its ``model``), a port or reference state_dict, mmcv's
+      checkpoint (its ``model``; with ``ema``, its EMA of the parameters in
+      their place where it holds one), a port or reference state_dict, mmcv's
       ``{"state_dict": ..., "meta": ...}`` with the ``generator.`` prefix,
       or DataParallel's ``module.`` prefix.  Entries that are not tensors
       are dropped.  A file that needs more than ``weights_only`` (pickled
@@ -153,7 +154,7 @@ def read_weights(path: str) -> dict:
         raise ValueError(f"{path} holds a {type(raw).__name__}, not a "
                          "state_dict")
     if "model" in raw and "step" in raw:
-        raw = raw["model"]
+        raw = {**raw["model"], **((raw.get("ema") or {}) if ema else {})}
     elif isinstance(raw.get("state_dict"), dict):
         raw = raw["state_dict"]
     sd = {_strip(k): v for k, v in raw.items() if isinstance(v, torch.Tensor)}
