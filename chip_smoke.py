@@ -89,6 +89,22 @@ Phases, one line or more each:
      flops counted on the meta device and their rate, the peak; RDN's,
      RRDBNet's and TOFlow's device profiles; no kernel of the port
      launched;
+  3d. the rest of the JAX package's library (``library``), which no entry
+     point calls: the blocks of ``models/blocks_ext.py`` at 64 features
+     (FSAS, FSAS_freq, FFTSpatialModule, MultiFreqAgg at K 3,
+     EncoderShiftBlock and Encoder2 over 7 frames, TFRUNet, CABEncoder
+     then CABDecoder, ResidualBlocksWithInputConv of 30 blocks), seeded,
+     every gate's ``beta`` non-zero, the card against the CPU at 64 x 96
+     within MODEL_ATOL, then on the card at 272 x 480: ms (median of 5
+     after a warm-up) and the peak, TFRUNet's and EncoderShiftBlock's
+     device profiles; a ``SpaFreqBlock(train=True)`` SGD
+     step (batch statistics, flax's running-statistics update), its output,
+     running statistics and weights against the CPU's, then timed at 2 x
+     272 x 480; LPIPS (AlexNet, seeded) on a 2 x 3 x 256 x 256 pair, card
+     against CPU, timed; the native PNG decoder built by g++, a 10-frame
+     270 x 480 RGB clip decoded byte-equal to PIL, ms a frame beside PIL's;
+     NIQE and NRQM on a 270 x 480 Y frame with synthetic model files, host
+     seconds; no kernel of the port launched;
   4. serving: ``fcvsr_tpu_torch.cli`` evaluates a synthetic 10-frame 480x270
      clip on preset fcvsr_cvcpLD_QP22 (270 -> 272 pad, output crop, PSNR /
      SSIM; ``--no-tof``), with the kernel launch counts per frame checked,
@@ -1845,6 +1861,322 @@ def phase_sisr_zoo(torch, card):
         fail(f"a kernel of the port launched on the SISR path: {counts}")
 
 
+# the block library (models/blocks_ext.py) at FCVSR's width, n_feats 64,
+# on FCVSR's feature map at the FPS shape; card against CPU at LIB_CHECK
+LIB_NF = 64
+LIB_SHAPE = (272, 480)
+LIB_CHECK = (64, 96)
+LIB_FRAMES = 7          # the shift encoders' clip: its frames are the batch
+LIB_BANDS = 3           # MultiFreqAgg's K
+LIB_RES_BLOCKS = 30
+LIB_TRAIN_BATCH = 2     # SpaFreqBlock's training step
+LIB_LR = 1e-2
+LIB_REPS = 5
+# profiled: TFRUNet (61 ms on an H100 at 700 W, its widths 76 and 88,
+# against 8 ms for CABEncoder -> CABDecoder at 64, 96 and 128 with twice
+# its flops) and the shift encoder over its 7 frames
+LIB_PROFILE = ("TFRUNet", "EncoderShiftBlock")
+LPIPS_PAIR = (2, 3, 256, 256)
+LOADER_CLIP = (10, 270, 480)   # a 10-frame RGB clip at FCVSR's LR size
+LOADER_REPS = 3
+
+
+def library_blocks(torch):
+    """name -> (the block on the CPU in eval mode, seeded by
+    ``init_weights``, every CAB1's and CAB2's ``beta`` drawn non-zero,
+    the batch, the input channels, the number of inputs)."""
+    from fcvsr_tpu_torch.models import blocks_ext as B
+    from fcvsr_tpu_torch.models import init_weights
+
+    n = LIB_NF
+    blocks = {
+        "FSAS": (B.FSAS(n), 1, n, 1),
+        "FSAS_freq": (B.FSAS_freq(n, 8 * (n // 16)), 1, n + 8 * (n // 16), 1),
+        "FFTSpatialModule": (B.FFTSpatialModule(n), 1, n, 1),
+        "MultiFreqAgg": (B.MultiFreqAgg(n, LIB_BANDS), 1, n, LIB_BANDS),
+        "EncoderShiftBlock": (B.EncoderShiftBlock(n), LIB_FRAMES, n, 1),
+        "TFRUNet": (B.TFRUNet(n), 1, n, 1),
+        "Encoder2": (B.Encoder2(72, n), LIB_FRAMES, 72, 1),
+        "CABEncoder+CABDecoder": (torch.nn.Sequential(
+            B.CABEncoder(n), B.CABDecoder(n)), 1, n, 1),
+        "ResidualBlocksWithInputConv": (B.ResidualBlocksWithInputConv(
+            n, n, LIB_RES_BLOCKS), 1, n, 1),
+    }
+    gen = torch.Generator().manual_seed(0)
+    beta = torch.Generator().manual_seed(1)
+    for model, *_ in blocks.values():
+        init_weights(model, gen).eval()
+        with torch.no_grad():
+            for m in model.modules():
+                if isinstance(m, (B.CAB1, B.CAB2)):
+                    m.beta.uniform_(-0.5, 0.5, generator=beta)
+    return blocks
+
+
+def library_inputs(torch, seed: int, b: int, h: int, w: int, c: int,
+                   k: int, device="cpu"):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.uniform(-1, 1, (b, h, w, c)).astype(
+        np.float32)).to(device) for _ in range(k)]
+
+
+def library_call(name, model, inputs):
+    """The block's outputs as a list (MultiFreqAgg takes its bands as one
+    list)."""
+    out = model(inputs) if name == "MultiFreqAgg" else model(*inputs)
+    return list(out) if isinstance(out, (list, tuple)) else [out]
+
+
+def spafreq_step(torch, model, opt, x):
+    """One training step of a ``SpaFreqBlock(train=True)``: the output's
+    mean square as the loss, SGD; returns the output."""
+    opt.zero_grad(set_to_none=True)
+    out = model(x)
+    out.square().mean().backward()
+    opt.step()
+    return out
+
+
+def spafreq_state(model) -> dict:
+    return {k: v.detach().float().cpu() for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def write_synthetic_metric_models(root: str):
+    """(NIQE's pristine-model .mat, NRQM's model .mat) of the released
+    layouts, with random values: mu (1, 36) and an SPD cov (36, 36); a
+    linear blend and three random forests (18, 45 and 75 features) of
+    perfect binary trees, MATLAB's 1-based layout."""
+    import scipy.io
+
+    rng = np.random.default_rng(30)
+    a = rng.normal(size=(36, 36))
+    niqe = os.path.join(root, "niqe_modelparameters.mat")
+    scipy.io.savemat(niqe, {"mu_prisparam": rng.uniform(0, 2, (1, 36)),
+                            "cov_prisparam": a @ a.T / 36 + np.eye(36)})
+    cells = np.empty((1, 3), object)
+    nodes, trees = 15, 8
+    for i, n_feat in enumerate((18, 45, 75)):
+        ldau = np.zeros((nodes, trees), np.int64)
+        rdau = np.zeros((nodes, trees), np.int64)
+        for j in range(nodes // 2):
+            ldau[j], rdau[j] = 2 * j + 2, 2 * j + 3
+        rec = np.zeros((1, 1), dtype=[(f, object) for f in (
+            "ldau", "rdau", "x2", "x3", "threshold", "pred", "attr")])
+        rec[0, 0] = (ldau, rdau, np.zeros(1), np.zeros(1),
+                     rng.normal(size=(nodes, trees)),
+                     rng.normal(size=(nodes, trees)),
+                     rng.integers(1, n_feat + 1, size=(nodes, trees)))
+        cells[0, i] = rec
+    model = np.zeros((1, 1), dtype=[("linear", object), ("rf", object)])
+    model[0, 0] = (np.array([[0.5], [1.0], [-1.0], [2.0]]), cells)
+    nrqm = os.path.join(root, "NRQM_model.mat")
+    scipy.io.savemat(nrqm, {"model": model})
+    return niqe, nrqm
+
+
+def library_loader(torch, root: str) -> np.ndarray:
+    """The native PNG decoder: built (g++), a written 10-frame 270 x 480
+    RGB clip decoded byte-equal to PIL, ms a frame beside PIL's (host
+    clock, the median of LOADER_REPS); returns the first frame."""
+    from PIL import Image
+
+    from fcvsr_tpu_torch.data import native_loader
+    from fcvsr_tpu_torch.data.datasets import load_image
+
+    n, h, w = LOADER_CLIP
+    frames = (smooth_clip(torch, 31, n, h, w) * 255).round().astype(np.uint8)
+    paths = []
+    for i, frame in enumerate(frames):
+        paths.append(os.path.join(root, f"{i:08d}.png"))
+        Image.fromarray(frame).save(paths[-1])
+    t0 = time.perf_counter()
+    try:
+        native_loader.load_library()
+    except (RuntimeError, OSError) as err:
+        fail(f"the native PNG decoder did not build or load: {err}")
+    build_s = time.perf_counter() - t0
+    if not native_loader.native_available():
+        fail("native_loader.native_available() is False")
+    got = native_loader.load_batch_native(paths, h, w, num_threads=8)
+    pil = np.stack([load_image(p) for p in paths])
+    if got.shape != pil.shape or not np.array_equal(got, pil) \
+            or not np.array_equal(got, frames):
+        fail("the native decoder's frames differ from PIL's")
+    times = {"native_batch": [], "native_one": [], "pil": []}
+    for _ in range(LOADER_REPS):
+        for key, fn in (
+                ("native_batch", lambda: native_loader.load_batch_native(
+                    paths, h, w, num_threads=8)),
+                ("native_one", lambda: [native_loader.load_image_native(p)
+                                        for p in paths]),
+                ("pil", lambda: [load_image(p) for p in paths])):
+            t = time.perf_counter()
+            fn()
+            times[key].append((time.perf_counter() - t) * 1e3 / n)
+    say("library_loader", clip=[n, h, w, 3], byte_equal_to_pil=True,
+        build_s=build_s, threads=8, reps=LOADER_REPS,
+        **{f"{k}_ms_per_frame": float(np.median(v))
+           for k, v in times.items()})
+    return frames[0]
+
+
+def phase_library(torch, card):
+    """The rest of the JAX package's library, which no entry point calls:
+    (a) the blocks (FSAS, FSAS_freq, FFTSpatialModule, MultiFreqAgg at K 3,
+    EncoderShiftBlock over 7 frames, TFRUNet, Encoder2 over 7 frames,
+    CABEncoder then CABDecoder, ResidualBlocksWithInputConv of 30 blocks)
+    at 64 features, seeded, ``beta`` non-zero, on the card against the CPU
+    at 64 x 96 within MODEL_ATOL, then on the card alone at 272 x 480: ms
+    (CUDA events, the median of LIB_REPS after a warm-up) and the peak,
+    and the device profile of the LIB_PROFILE blocks;
+    (b) a ``SpaFreqBlock(train=True)`` training step (SGD) on 2 x 64 x 96
+    x 64, its output, running statistics and updated weights on the card
+    against the CPU, then timed at 2 x 272 x 480 x 64; (c) LPIPS (AlexNet,
+    seeded) on a 2 x 3 x 256 x 256 pair, card against CPU, timed; (d) the
+    native PNG decoder, built and byte-equal to PIL on a 10-frame 270 x
+    480 RGB clip, ms a frame beside PIL's; (e) NIQE and NRQM on a 270 x 480
+    Y frame with synthetic model files, host seconds; (f) no kernel of the
+    port launched."""
+    import copy
+
+    from fcvsr_tpu_torch import profiling
+    from fcvsr_tpu_torch.metrics import lpips, noref, nrqm
+    from fcvsr_tpu_torch.metrics.psnr_ssim import rgb2y
+    from fcvsr_tpu_torch.models import init_weights
+    from fcvsr_tpu_torch.models.blocks_ext import SpaFreqBlock
+    from fcvsr_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    dev = torch.device("cuda", 0)
+    reset_launch_counts()
+    h, w = LIB_CHECK
+    blocks = library_blocks(torch)
+    for i, (name, (model, b, c, k)) in enumerate(blocks.items()):
+        inputs = library_inputs(torch, 40 + i, b, h, w, c, k)
+        with torch.no_grad():
+            ref = library_call(name, model, inputs)
+            got = library_call(name, copy.deepcopy(model).to(dev),
+                               [v.to(dev) for v in inputs])
+        err = max(float((g.cpu() - r).abs().max()) for g, r in zip(got, ref))
+        say("library_block", block=name, input=[b, h, w, c], inputs=k,
+            outputs=[list(r.shape) for r in ref], max_abs_err=err,
+            max_abs_out=max(float(r.abs().max()) for r in ref),
+            tol=MODEL_ATOL)
+        if not all(torch.isfinite(g).all() for g in got) or \
+                [g.shape for g in got] != [r.shape for r in ref]:
+            fail(f"{name}: non-finite values or shapes differ")
+        if not err <= MODEL_ATOL:
+            fail(f"{name}: GPU vs CPU error {err} > {MODEL_ATOL}")
+    h, w = LIB_SHAPE
+    for i, (name, (model, b, c, k)) in enumerate(blocks.items()):
+        model = model.to(dev)
+        inputs = library_inputs(torch, 60 + i, b, h, w, c, k, dev)
+        out = {}
+
+        def forward():
+            with torch.no_grad():
+                out["y"] = library_call(name, model, inputs)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        (ms,) = profiling.cuda_ms([forward], reps=LIB_REPS, warmup=1)
+        say("library_serve", block=name, input=[b, h, w, c], inputs=k,
+            ms=ms, ms_per_frame=ms / b,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            card=card)
+        if not all(torch.isfinite(y).all() for y in out["y"]):
+            fail(f"{name}: non-finite values at {h} x {w}")
+        if name in LIB_PROFILE:
+            with torch.no_grad():
+                prof = profiling.device_profile(model, *inputs, n=1)
+            say("library_profile", block=name, wall_ms=prof["wall_ms"],
+                busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                top_kernels=prof["kernels"][:8])
+        del model, inputs, out
+    del blocks
+
+    # SpaFreqBlock's training step: batch statistics, flax's update
+    cpu = init_weights(SpaFreqBlock(LIB_NF, train=True),
+                       torch.Generator().manual_seed(2)).train()
+    card_model = copy.deepcopy(cpu).to(dev)
+    x = library_inputs(torch, 80, LIB_TRAIN_BATCH, *LIB_CHECK, LIB_NF, 1)[0]
+    ref = spafreq_step(torch, cpu, torch.optim.SGD(cpu.parameters(),
+                                                   lr=LIB_LR), x)
+    got = spafreq_step(torch, card_model, torch.optim.SGD(
+        card_model.parameters(), lr=LIB_LR), x.to(dev))
+    errs = {"output": float((got.detach().cpu() - ref.detach()).abs().max())}
+    want, have = spafreq_state(cpu), spafreq_state(card_model)
+    for group, keys in (("running_stats", [k for k in want
+                                           if ".running_" in k]),
+                        ("weights", [k for k in want
+                                     if ".running_" not in k])):
+        errs[group] = max(float((have[k] - want[k]).abs().max())
+                          for k in keys)
+    moved = max(float(cpu.fu0.bn.running_var.sub(1).abs().max()),
+                float(cpu.fu0.bn.running_mean.abs().max()))
+    say("library_train_check", block="SpaFreqBlock(train=True)",
+        input=[LIB_TRAIN_BATCH, *LIB_CHECK, LIB_NF], lr=LIB_LR,
+        max_abs_err=errs, running_stats_moved=moved, tol=MODEL_ATOL)
+    if not moved > 0 or not max(errs.values()) <= MODEL_ATOL:
+        fail(f"SpaFreqBlock training step: GPU vs CPU {errs} (tol "
+             f"{MODEL_ATOL}), running statistics moved {moved}")
+    x = library_inputs(torch, 81, LIB_TRAIN_BATCH, *LIB_SHAPE, LIB_NF, 1,
+                       dev)[0]
+    opt = torch.optim.SGD(card_model.parameters(), lr=LIB_LR)
+    torch.cuda.reset_peak_memory_stats()
+    (ms,) = profiling.cuda_ms([lambda: spafreq_step(torch, card_model, opt,
+                                                    x)],
+                              reps=LIB_REPS, warmup=1)
+    say("library_train", block="SpaFreqBlock(train=True)",
+        input=[LIB_TRAIN_BATCH, *LIB_SHAPE, LIB_NF], ms_per_step=ms,
+        max_memory_allocated=torch.cuda.max_memory_allocated(), card=card)
+    del cpu, card_model, x, opt
+
+    # LPIPS, seeded AlexNet and heads (non-negative, as the released ones)
+    net = init_weights(lpips.LPIPSAlex(device="cpu"),
+                       torch.Generator().manual_seed(3))
+    with torch.no_grad():
+        for i in range(5):
+            getattr(net, f"lin{i}").weight.abs_()
+    rng = np.random.default_rng(82)
+    a, b = (torch.from_numpy(rng.uniform(0, 1, LPIPS_PAIR).astype(
+        np.float32)) for _ in range(2))
+    card_net = copy.deepcopy(net).to(dev)
+    with torch.no_grad():
+        ref = lpips.lpips_distance(net, a, b)
+        got = lpips.lpips_distance(card_net, a, b)
+        a, b = a.to(dev), b.to(dev)
+        (ms,) = profiling.cuda_ms([lambda: lpips.lpips_distance(
+            card_net, a, b)], reps=LIB_REPS, warmup=1)
+    err = float((got.cpu() - ref).abs().max())
+    say("library_lpips", input=list(LPIPS_PAIR), distances=ref.tolist(),
+        max_abs_err=err, tol=MODEL_ATOL, ms=ms, card=card)
+    if not err <= MODEL_ATOL or not torch.isfinite(got).all():
+        fail(f"LPIPS: GPU vs CPU error {err} > {MODEL_ATOL}")
+    del net, card_net, a, b
+
+    with tempfile.TemporaryDirectory() as root:
+        frame = library_loader(torch, root)
+        niqe_mat, nrqm_mat = write_synthetic_metric_models(root)
+        y = rgb2y(frame.astype(np.float32))
+        t = time.perf_counter()
+        niqe = noref.calculate_niqe(y, niqe_mat)
+        niqe_s = time.perf_counter() - t
+        t = time.perf_counter()
+        score = nrqm.calculate_nrqm(y, nrqm_mat)
+        nrqm_s = time.perf_counter() - t
+    say("library_host_metrics", frame=list(y.shape), niqe=niqe,
+        niqe_s=niqe_s, nrqm=score, nrqm_s=nrqm_s,
+        note="synthetic model files of the released layouts")
+    if not (np.isfinite(niqe) and np.isfinite(score)):
+        fail(f"NIQE {niqe} or NRQM {score} is not finite")
+
+    counts = launch_counts()
+    say("library_launches", launches=counts)
+    if any(counts.values()):
+        fail(f"a kernel of the port launched on the library path: {counts}")
+
+
 def write_rgb_clip(torch, root: str, n: int, h: int, w: int):
     """A smooth random RGB clip as PNGs: GT at 4x (``smooth_clip`` plus
     noise), LR its 4x4 block mean."""
@@ -3527,6 +3859,7 @@ def main() -> None:
     run("zoo_grads", phase_zoo_grads, torch, dev)
     run("cvcp_zoo", phase_cvcp_zoo, torch, card)
     run("sisr_zoo", phase_sisr_zoo, torch, card)
+    run("library", phase_library, torch, card)
     run("slice", phase_slice, torch, card)
     fast_counts = run("fast", phase_fast, torch, card)
     run("modes", phase_modes, torch, card)

@@ -36,9 +36,9 @@ import numpy as np
 from .pipelines import (padded_window_indices, paired_flip_rotate,
                         paired_random_crop, segment_indices, to_float)
 
-__all__ = ["load_image", "ClipFolderDataset", "Vimeo90KDataset",
-           "AnnotationDataset", "CVCPClipCache", "SideInfoClipCache",
-           "MM522Dataset"]
+__all__ = ["load_image", "as_model_input", "ClipFolderDataset",
+           "Vimeo90KDataset", "AnnotationDataset", "CVCPClipCache",
+           "SideInfoClipCache", "MM522Dataset"]
 
 
 def load_image(path: str, grayscale: bool = False) -> np.ndarray:
@@ -49,6 +49,11 @@ def load_image(path: str, grayscale: bool = False) -> np.ndarray:
     if grayscale:
         return np.asarray(img.convert("L"), np.uint8)[..., None]
     return np.asarray(img.convert("RGB"), np.uint8)
+
+
+def as_model_input(frames_u8: np.ndarray) -> np.ndarray:
+    """(T, H, W, C) uint8 -> (1, T, C, H, W) float32 in [0, 1]."""
+    return np.transpose(to_float(frames_u8), (0, 3, 1, 2))[None]
 
 
 def _list_frames(seq_dir: str) -> List[str]:

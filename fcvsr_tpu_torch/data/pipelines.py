@@ -11,6 +11,10 @@ the parts of ``fcvsr_tpu.data.pipelines`` it uses).
   together.
 * ``generate_coordinate_and_cell`` - ``GenerateCoordinateAndCell``: LIIF's
   training queries.
+* ``normalize``, ``rescale_to_zero_one`` - ``Normalize`` and
+  ``RescaleToZeroOne``.
+* ``temporal_reverse``, ``mirror_sequence`` - ``TemporalReverse`` (frame
+  stacks reversed together) and ``MirrorSequence`` (x1..xN, xN..x1).
 
 Numpy only, drawing from a ``np.random.Generator`` in the JAX package's
 order, so one seed gives both packages the same crops and flips.
@@ -23,7 +27,9 @@ from typing import Tuple
 import numpy as np
 
 __all__ = ["padded_window_indices", "segment_indices", "paired_random_crop",
-           "paired_flip_rotate", "to_float", "generate_coordinate_and_cell"]
+           "paired_flip_rotate", "to_float", "normalize",
+           "rescale_to_zero_one", "temporal_reverse", "mirror_sequence",
+           "generate_coordinate_and_cell"]
 
 
 def padded_window_indices(center: int, num_frames: int, window: int,
@@ -105,6 +111,37 @@ def paired_flip_rotate(rng: np.random.Generator, lr: np.ndarray,
 def to_float(frames_u8: np.ndarray) -> np.ndarray:
     """uint8 -> float32 in [0, 1]."""
     return frames_u8.astype(np.float32) / 255.0
+
+
+def normalize(frames: np.ndarray, mean, std,
+              to_rgb: bool = False) -> np.ndarray:
+    """Channel-wise (x - mean) / std of (..., H, W, C) float frames, BGR
+    flipped to RGB first with ``to_rgb`` (mmedit's ``Normalize``)."""
+    mean = np.asarray(mean, np.float32)
+    std = np.asarray(std, np.float32)
+    if to_rgb:
+        frames = frames[..., ::-1]
+    return ((frames - mean) / std).astype(np.float32)
+
+
+def rescale_to_zero_one(frames: np.ndarray) -> np.ndarray:
+    """x / 255 as float32 (mmedit's ``RescaleToZeroOne``)."""
+    return frames.astype(np.float32) / 255.0
+
+
+def temporal_reverse(rng: np.random.Generator, *frame_lists,
+                     reverse_ratio: float = 0.5):
+    """All the given frame stacks reversed in time together, with
+    probability ``reverse_ratio`` (mmedit's ``TemporalReverse``): returns
+    (reversed?, *stacks)."""
+    reverse = rng.random() < reverse_ratio
+    return (reverse, *[fl[::-1] if reverse else fl for fl in frame_lists])
+
+
+def mirror_sequence(frames: np.ndarray) -> np.ndarray:
+    """(x1..xN) -> (x1..xN, xN..x1) along the time axis (mmedit's
+    ``MirrorSequence``)."""
+    return np.concatenate([frames, frames[::-1]], axis=0)
 
 
 def generate_coordinate_and_cell(rng: np.random.Generator, gt: np.ndarray,

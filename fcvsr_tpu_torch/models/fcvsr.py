@@ -29,7 +29,7 @@ from ..ops.sac import iac
 from .basicvsr import MMResidualBlock, ModulatedDeformConv2d
 from .blocks import (BlockRCB, CALayer, Conv2d, ConvBlk, DivEnh, LayerNorm2d,
                      PReLU, RCB, SCNet, pixel_shuffle, set_compute_dtype)
-from .blocks_ext import CAB2
+from .blocks_ext import CAB1, CAB2
 from .raft import InstanceNorm
 from .scnet_rows import STORAGE, conv_bias, hwio
 from .sidecvsr import _WideBlock
@@ -535,8 +535,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     b = 1.  Linear layers and an attention's packed input projection get
     U(+-1/sqrt(fan_in)) for weight and bias; the norms (LayerNorm,
     ``LayerNorm2d``, RAFT's instance norm, batch norms) get ones and zeros,
-    batch norms' running statistics 0 and 1, and CAB2's ``beta`` zeros (the
-    block starts as the identity), as the JAX package initialises them.
+    batch norms' running statistics 0 and 1, and CAB1's and CAB2's ``beta``
+    zeros (the block starts as the identity), as the JAX package initialises them.
     Last, a module with an ``init_seeded(generator)`` method (the
     GAN family's equalised-lr and spectral-norm layers, RRDB's dense
     blocks, DIC) sets its own parameters and buffers with it."""
@@ -585,7 +585,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.bias.zero_()
         elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.reset_parameters()
-        elif isinstance(mod, CAB2):
+        elif isinstance(mod, (CAB1, CAB2)):
             mod.beta.zero_()
     for mod in model.modules():
         if hasattr(mod, "init_seeded"):

@@ -6,7 +6,8 @@ from . import fused_blockrcb, fused_conv, fused_dcn, fused_iac
 from .corr import corr_lookup
 from .dcn import modulated_deform_conv2d, modulated_deform_conv2d_vjp
 from .freq import gaussian_band_masks, irfft_features, rfft_features, split_freq
-from .resize import downsample2x_bilinear, resize_bilinear, upsample2x_bilinear
+from .resize import (downsample2x_bilinear, resize_bicubic, resize_bilinear,
+                     upsample2x_bilinear)
 from .sac import iac, sac
 from .warp import flow_warp, grid_sample_bilinear
 
@@ -14,7 +15,7 @@ __all__ = [
     "corr_lookup", "downsample2x_bilinear", "flow_warp", "gaussian_band_masks",
     "grid_sample_bilinear", "iac", "irfft_features", "launch_counts",
     "modulated_deform_conv2d", "modulated_deform_conv2d_vjp",
-    "reset_launch_counts", "resize_bilinear",
+    "reset_launch_counts", "resize_bicubic", "resize_bilinear",
     "rfft_features", "sac", "split_freq", "upsample2x_bilinear",
 ]
 

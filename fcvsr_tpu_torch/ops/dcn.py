@@ -21,7 +21,7 @@ import torch
 
 from .warp import grid_sample_bilinear
 
-__all__ = ["deform_im2col", "modulated_deform_conv2d",
+__all__ = ["deform_im2col", "modulated_deform_conv2d", "deform_conv2d",
            "modulated_deform_conv2d_vjp"]
 
 
@@ -85,6 +85,14 @@ def modulated_deform_conv2d(x, offset, mask, weight, bias=None,
         out = torch.einsum("nkgc,kcgo->ngo", cols, wk)
     out = out.reshape(b, ho, wo, cout)
     return out if bias is None else out + bias
+
+
+def deform_conv2d(x, offset, weight, bias=None, stride: int = 1,
+                  padding: int = 1, dilation: int = 1, groups: int = 1,
+                  deform_groups: int = 1):
+    """DCNv1: :func:`modulated_deform_conv2d` without a mask."""
+    return modulated_deform_conv2d(x, offset, None, weight, bias, stride,
+                                   padding, dilation, groups, deform_groups)
 
 
 def modulated_deform_conv2d_vjp(x, offset, mask, weight, bias, g,

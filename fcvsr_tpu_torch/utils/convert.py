@@ -28,7 +28,8 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["state_dict_from_jax", "flax_to_torch_key",
+__all__ = ["state_dict_from_jax", "block_state_dict_from_jax",
+           "flax_to_torch_key",
            "conv_transpose_weight", "block_rcb_args_from_jax",
            "block_rcb_args"]
 
@@ -360,7 +361,8 @@ _CVCP = {
 def _cvcp_param(path, v: np.ndarray):
     """(port key, tensor) of one param of SIDECVSR, FCVSR-TFDC, RAFT or the
     single-image family, or None: the module path without flax's
-    ``Conv_0``, a ``CALayer``'s ``down`` / ``up`` as ``conv_du.0`` / ``.2``;
+    ``Conv_0``, a ``CALayer``'s (``CA2``'s, or ``CA``'s in ``CAB`` and the
+    U-Net blocks) ``down`` / ``up`` as ``conv_du.0`` / ``.2``;
     conv kernels OIHW, dense kernels (in, out) ``Linear`` weights (out,
     in), a norm's ``scale`` its ``weight``, PReLU's ``alpha`` its (1,)
     weight."""
@@ -368,7 +370,7 @@ def _cvcp_param(path, v: np.ndarray):
     for p in path[:-1]:
         if p == "Conv_0":
             continue
-        if mod and mod[-1] == "CA2" and p in ("down", "up"):
+        if mod and mod[-1] in ("CA", "CA2") and p in ("down", "up"):
             p = "conv_du.0" if p == "down" else "conv_du.2"
         mod.append(p)
     leaf = path[-1]
@@ -414,6 +416,20 @@ def _cvcp_state_dict(variables: Mapping, tree: Mapping,
     if unknown and "params" in variables:
         raise KeyError(f"no port keys for JAX collections {sorted(unknown)}")
     return out
+
+
+def block_state_dict_from_jax(variables: Mapping
+                              ) -> Dict[str, torch.Tensor]:
+    """The variables (``params``, and ``batch_stats`` for ``FourierUnit``'s
+    batch norms in either mode) of one JAX ``blocks_ext`` block or
+    composite (``CAB``, ``FSAS``, ``EncoderShiftBlock``, ``TFRUNet``,
+    ...), which no family name tells apart, onto the port module's
+    ``state_dict`` under the JAX package's module names
+    (:func:`_cvcp_param`; a ``WithBiasLayerNorm``'s ``weight`` / ``bias``
+    keep theirs).  Raises ``KeyError`` on a param or a statistic it cannot
+    map."""
+    return _cvcp_state_dict(variables, variables.get("params", {}),
+                            re.compile(".+"))
 
 
 # The single-image family's names that no older tree has, each tuple all

@@ -355,7 +355,8 @@ def test_train_cli_refuses_missing_cuda(tmp_path):
 
 def test_port_imports_no_jax():
     """Every module of the port, and chip_smoke, in a fresh interpreter:
-    neither jax nor the JAX package gets imported."""
+    neither jax nor the JAX package (nor anything of ``native/``) gets
+    imported."""
     mods = sorted(m.name for m in pkgutil.walk_packages(
         fcvsr_tpu_torch.__path__, "fcvsr_tpu_torch."))
     assert "fcvsr_tpu_torch.train.cli" in mods and len(mods) > 20
@@ -368,12 +369,17 @@ def test_port_imports_no_jax():
             "fcvsr_tpu_torch.models.blocks_ext",
             "fcvsr_tpu_torch.models.sisr", "fcvsr_tpu_torch.models.liif",
             "fcvsr_tpu_torch.models.ttsr",
-            "fcvsr_tpu_torch.models.duf"} <= set(mods)
+            "fcvsr_tpu_torch.models.duf",
+            "fcvsr_tpu_torch.metrics.lpips", "fcvsr_tpu_torch.metrics.noref",
+            "fcvsr_tpu_torch.metrics.nrqm", "fcvsr_tpu_torch.metrics.vmaf",
+            "fcvsr_tpu_torch.data.native_loader",
+            "fcvsr_tpu_torch.utils.visualize"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods + ['chip_smoke']!r}:\n"
             "    importlib.import_module(m)\n"
-            "bad = [m for m in sys.modules if m == 'jax' or m == 'fcvsr_tpu'\n"
-            "       or m.startswith(('jax.', 'fcvsr_tpu.'))]\n"
+            "bad = [m for m in sys.modules if m in ('jax', 'fcvsr_tpu',\n"
+            "       'native') or m.startswith(('jax.', 'fcvsr_tpu.',\n"
+            "                                  'native.'))]\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=300)
